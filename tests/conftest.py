@@ -53,6 +53,14 @@ except ImportError:
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU and nvcc; skips elsewhere (run with: "
+        "PYTHONPATH=src python -m pytest -m gpu tests/test_torch_*.py)")
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 
