@@ -1,13 +1,18 @@
-"""Wrappers from a :class:`SellCS` to the port's CUDA kernels.
+"""Wrappers from the port's data structures to its CUDA kernels.
 
 For CUDA tensors a wrapper launches its kernel or raises; there is no
 fallback to the plain version and no switch that turns a kernel off.  For
 CPU tensors it runs the kernel's plain version (``kernels/ref.py``),
 because a CUDA kernel cannot run there.
 
-Dtype contract: the wrapper passes the matrix' compute dtype
-(``compute_dtype=A.dtype``), so a narrower stored value stream is upcast
-in registers and products accumulate at full width.
+* ``sellcs_spmv`` — the fused SELL-C-sigma SpM(M)V (kernel B1).  It
+  passes the matrix' compute dtype (``compute_dtype=A.dtype``), so a
+  narrower stored value stream is upcast in registers and products
+  accumulate at full width.
+* ``tsmttsm`` / ``tsmm`` / ``tsmm_inplace`` — the tall-skinny GEMMs
+  (kernels B2 and B3), with the JAX package's signatures.  Results come in
+  ``promote_types`` of the operands and sum in float32 for
+  bfloat16/float16.
 """
 from __future__ import annotations
 
@@ -15,12 +20,15 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.blockvec import check_beta_needs_out
 from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, as2d, x_rows
-from repro_torch.kernels.ref import sellcs_spmv_ref
+from repro_torch.kernels.ref import sellcs_spmv_ref, tsmm_ref, tsmttsm_ref
 from repro_torch.kernels.sellcs_spmv import sellcs_spmv_cuda
+from repro_torch.kernels.tsmm import tsmm_cuda
+from repro_torch.kernels.tsmttsm import tsmttsm_cuda
 
-__all__ = ["sellcs_spmv"]
+__all__ = ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_inplace"]
 
 
 def _col2d(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -62,3 +70,52 @@ def sellcs_spmv(
         yk = yk[:, 0]
         zk = None if zk is None else zk[:, 0]
     return yk, zk, dots
+
+
+def _no_complex(fn: str, *ts) -> None:
+    if any(t is not None and t.is_complex() for t in ts):
+        raise NotImplementedError(f"{fn}: complex operands have no CUDA "
+                                  f"kernel yet")
+
+
+def tsmttsm(
+    V: torch.Tensor,
+    W: torch.Tensor,
+    X: Optional[torch.Tensor] = None,
+    alpha=1.0,
+    beta=0.0,
+    *,
+    kahan: bool = False,
+    conj: bool = True,
+) -> torch.Tensor:
+    """X = alpha V^H W + beta X, ``(m, k)`` in ``promote_types(V, W)``.
+
+    ``kahan=True`` compensates the sum (paper section 5.2).  ``conj``
+    matters only for complex V, which runs on the CPU only.
+    """
+    check_beta_needs_out(beta, X, "tsmttsm")
+    if V.device.type == "cpu":
+        return tsmttsm_ref(V, W, X, alpha, beta, kahan=kahan, conj=conj)
+    _no_complex("tsmttsm", V, W, X)
+    return tsmttsm_cuda(V, W, X, alpha, beta, kahan=kahan)
+
+
+def tsmm(
+    V: torch.Tensor,
+    X: torch.Tensor,
+    W: Optional[torch.Tensor] = None,
+    alpha=1.0,
+    beta=0.0,
+) -> torch.Tensor:
+    """W = alpha V X + beta W, ``(n, k)`` in ``promote_types(V, X)``."""
+    check_beta_needs_out(beta, W, "tsmm")
+    if V.device.type == "cpu":
+        return tsmm_ref(V, X, W, alpha, beta)
+    _no_complex("tsmm", V, X, W)
+    return tsmm_cuda(V, X, W, alpha, beta)
+
+
+def tsmm_inplace(V: torch.Tensor, X: torch.Tensor, alpha=1.0,
+                 beta=0.0) -> torch.Tensor:
+    """alpha V X + beta V, returned as a new tensor (V is not written)."""
+    return tsmm(V, X, V, alpha=alpha, beta=beta)

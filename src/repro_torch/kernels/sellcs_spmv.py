@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import execution
 from repro_torch.kernels import _build
 
-__all__ = ["sellcs_spmv_cuda", "MAX_C"]
+__all__ = ["sellcs_spmv_cuda", "check_operand", "MAX_C"]
 
 #: largest chunk height: one block of C threads (rounded up to whole warps)
 MAX_C = 256
@@ -47,17 +47,23 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_operand(name: str, t: torch.Tensor, device: torch.device,
-                   dtype: torch.dtype, shape) -> None:
+def check_operand(fn: str, name: str, t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
+    on ``device`` (the kernels take nothing else)."""
     if t.device != device:
-        raise ValueError(f"sellcs_spmv: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"sellcs_spmv: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"sellcs_spmv: {name} must have shape {tuple(shape)}, "
+        raise ValueError(f"{fn}: {name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"sellcs_spmv: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _check(name, t, device, dtype, shape) -> None:
+    check_operand("sellcs_spmv", name, t, device, dtype, shape)
 
 
 def sellcs_spmv_cuda(
@@ -109,22 +115,22 @@ def sellcs_spmv_cuda(
     n_pad = nchunks * C
     b = int(x.shape[1])
     cap = int(vals.shape[0])
-    _check_operand("vals", vals, device, vals.dtype, (cap,))
-    _check_operand("cols", cols, device, torch.int32, (cap,))
-    _check_operand("chunk_off", chunk_off, device, torch.int32, (nchunks,))
-    _check_operand("chunk_len", chunk_len, device, torch.int32, (nchunks,))
-    _check_operand("x", x, device, ct, tuple(x.shape))
+    _check("vals", vals, device, vals.dtype, (cap,))
+    _check("cols", cols, device, torch.int32, (cap,))
+    _check("chunk_off", chunk_off, device, torch.int32, (nchunks,))
+    _check("chunk_len", chunk_len, device, torch.int32, (nchunks,))
+    _check("x", x, device, ct, tuple(x.shape))
     square = x.shape[0] == n_pad
     chain = delta is not None or eta is not None
     any_dot = dot_yy or dot_xy or dot_xx
     if (gamma is not None or dot_xy or dot_xx) and not square:
         raise ValueError("gamma shift / x-dots need a square (diag-aligned) part")
     if y_in is not None:
-        _check_operand("y_in", y_in, device, ct, (n_pad, b))
+        _check("y_in", y_in, device, ct, (n_pad, b))
     if chain:
         if z_in is None:
             raise ValueError("sellcs_spmv: chained axpby requires z_in")
-        _check_operand("z_in", z_in, device, ct, (n_pad, b))
+        _check("z_in", z_in, device, ct, (n_pad, b))
     g = None
     if gamma is not None:
         g = torch.as_tensor(gamma, dtype=ct, device=device).reshape(-1)

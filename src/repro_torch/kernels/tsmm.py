@@ -1,0 +1,83 @@
+"""Tall-skinny x small GEMM on Hopper: the wrapper of ``csrc/tsmm.cu``.
+
+The CUDA port of ``repro/kernels/tsmm.py:tsmm_pallas`` (B3):
+``W_out = alpha * V X + beta * W`` for real V ``(n, m)``, a small X
+``(m, k)`` kept in shared memory, and W ``(n, k)`` or none.  Each row of V
+and W is read once and each output row written once (see the note at the
+top of the CUDA source).  This wrapper validates the operands, hands X
+over in the accumulation dtype, allocates the result and launches on the
+current stream without synchronising.
+
+It takes CUDA tensors only and raises on anything the kernel does not
+take; the plain version is ``repro_torch.kernels.ref.tsmm_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import execution
+from repro_torch.core.spmv import storage_acc_dtype
+from repro_torch.kernels import _build
+from repro_torch.kernels.sellcs_spmv import check_operand
+from repro_torch.kernels.tsmttsm import DTYPE_CODES, check_dims
+
+__all__ = ["tsmm_cuda"]
+
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_ARGTYPES = [_I, _P, _P, _P, _P, _L, _I, _I, _D, _D, _I, _P]
+
+
+def _entry():
+    fn = _build.load("tsmm").tsmm_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
+              W: Optional[torch.Tensor] = None, alpha=1.0,
+              beta=0.0) -> torch.Tensor:
+    """Run the tsmm kernel on the card: ``alpha * V X + beta * W``.
+
+    The result is ``(n, k)`` in ``promote_types(V, X)``, which must be V's
+    dtype (X no wider than V); W, when given, has that dtype too.  The
+    products are summed in the accumulation dtype (float32 for
+    bfloat16/float16).  ``alpha``/``beta`` are numbers or 0-d tensors.
+    """
+    fn = "tsmm"
+    device = V.device
+    if device.type != "cuda":
+        raise ValueError(f"tsmm_cuda takes CUDA tensors, V is on {device}")
+    if V.dtype not in DTYPE_CODES:
+        raise TypeError(f"{fn}: no kernel for {V.dtype}")
+    if V.ndim != 2 or X.ndim != 2 or V.shape[1] != X.shape[0]:
+        raise ValueError(f"{fn}: inner dims disagree: V{tuple(V.shape)} "
+                         f"X{tuple(X.shape)}")
+    if X.is_complex() or torch.promote_types(V.dtype, X.dtype) != V.dtype:
+        raise TypeError(f"{fn}: X ({X.dtype}) must be real and no wider "
+                        f"than V ({V.dtype})")
+    n, m = (int(s) for s in V.shape)
+    k = int(X.shape[1])
+    check_dims(fn, m, k)
+    check_operand(fn, "V", V, device, V.dtype, (n, m))
+    if X.device != device:
+        raise ValueError(f"{fn}: X is on {X.device}, V on {device}")
+    if W is not None:
+        check_operand(fn, "W", W, device, V.dtype, (n, k))
+    out = torch.empty((n, k), dtype=V.dtype, device=device)
+    if n == 0:
+        return out
+    xs = X.to(storage_acc_dtype(V.dtype)).contiguous()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _entry()(
+            DTYPE_CODES[V.dtype], V.data_ptr(), xs.data_ptr(),
+            None if W is None else W.data_ptr(), out.data_ptr(), n, m, k,
+            float(alpha), float(beta), int(W is not None), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    execution.count_launch("tsmm")
+    return out

@@ -1,0 +1,127 @@
+"""Tall-skinny^T x tall-skinny GEMM on Hopper: the wrapper of ``csrc/tsmttsm.cu``.
+
+The CUDA port of ``repro/kernels/tsmttsm.py:tsmttsm_pallas`` (B2):
+``X = alpha * V^T W + beta * X`` for real V ``(n, m)`` and W ``(n, k)``,
+row-major, with optional Kahan compensation.  Blocks reduce row ranges
+into ``(m, k)`` partials and a second kernel sums them in block order
+(see the note at the top of the CUDA source).  This wrapper validates the
+operands, picks the row partition from the shapes alone, allocates the
+partials and the result, and launches on the current stream without
+synchronising.
+
+It takes CUDA tensors only and raises on anything the kernel does not
+take; the plain version is ``repro_torch.kernels.ref.tsmttsm_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import execution
+from repro_torch.core.spmv import storage_acc_dtype
+from repro_torch.kernels import _build
+from repro_torch.kernels.sellcs_spmv import check_operand
+
+__all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
+           "DTYPE_CODES"]
+
+#: largest m and k the kernels take (a thread tile of 4 x 4 results, at
+#: most 256 tiles)
+MAX_DIM = 64
+#: the number of blocks the rows are spread over, at most (a constant, not
+#: the card's SM count, so the summation order is the same on every card)
+MAX_BLOCKS = 528
+_TILE, _THREADS, _GROUP = 4, 256, 8
+
+DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
+               torch.float16: 3}
+
+_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P, _P, _D, _D, _I, _P]
+
+
+def _entry():
+    fn = _build.load("tsmttsm").tsmttsm_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def row_partition(n: int, m: int, k: int):
+    """``(rows_per_block, nblocks)`` for ``n`` rows: at most
+    :data:`MAX_BLOCKS` blocks, each a whole number of the block's row-lane
+    sweeps (lanes x 8-row groups)."""
+    if n == 0:
+        return 0, 0
+    tiles = -(-m // _TILE) * -(-k // _TILE)
+    sweep = (_THREADS // tiles) * _GROUP
+    rows = -(-n // MAX_BLOCKS)
+    rows = -(-rows // sweep) * sweep
+    return rows, -(-n // rows)
+
+
+def summation_depth(n: int, m: int, k: int) -> int:
+    """The longest chain of additions any product passes through in the
+    kernel: its lane's rows of one block, then the lanes, then the blocks
+    (the ``depth`` of the standard bound ``depth * u * sum |terms|``)."""
+    rows, nblocks = row_partition(n, m, k)
+    lanes = _THREADS // (-(-m // _TILE) * -(-k // _TILE))
+    return -(-rows // lanes) + lanes + nblocks
+
+
+def check_dims(fn: str, m: int, k: int) -> None:
+    if not (1 <= m <= MAX_DIM and 1 <= k <= MAX_DIM):
+        raise ValueError(f"{fn}: m={m}, k={k} outside 1..{MAX_DIM}")
+
+
+def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
+                 X: Optional[torch.Tensor] = None, alpha=1.0, beta=0.0, *,
+                 kahan: bool = False) -> torch.Tensor:
+    """Run the tsmttsm kernel on the card: ``alpha * V^T W + beta * X``.
+
+    V ``(n, m)`` and W ``(n, k)`` share one real dtype; the result is
+    ``(m, k)`` in that dtype, summed in the accumulation dtype (float32
+    for bfloat16/float16).  ``X`` (any real dtype) is read in the
+    accumulation dtype.  ``alpha``/``beta`` are numbers or 0-d tensors.
+    """
+    fn = "tsmttsm"
+    device = V.device
+    if device.type != "cuda":
+        raise ValueError(f"tsmttsm_cuda takes CUDA tensors, V is on {device}")
+    if V.dtype not in DTYPE_CODES:
+        raise TypeError(f"{fn}: no kernel for {V.dtype}")
+    if V.ndim != 2 or W.ndim != 2 or V.shape[0] != W.shape[0]:
+        raise ValueError(f"{fn}: V (n, m) and W (n, k) must share n, got "
+                         f"{tuple(V.shape)} and {tuple(W.shape)}")
+    n, m = (int(s) for s in V.shape)
+    k = int(W.shape[1])
+    check_dims(fn, m, k)
+    check_operand(fn, "V", V, device, V.dtype, (n, m))
+    check_operand(fn, "W", W, device, V.dtype, (n, k))
+    acc = storage_acc_dtype(V.dtype)
+    x_in = None
+    if X is not None:
+        if X.device != device or tuple(X.shape) != (m, k):
+            raise ValueError(f"{fn}: X must be ({m}, {k}) on {device}, got "
+                             f"{tuple(X.shape)} on {X.device}")
+        if X.is_complex():
+            raise TypeError(f"{fn}: X must be real, got {X.dtype}")
+        x_in = X.to(acc).contiguous()
+    rows, nblocks = row_partition(n, m, k)
+    part = torch.empty((nblocks, m, k), dtype=acc, device=device)
+    comp = torch.empty_like(part) if kahan else None
+    out = torch.empty((m, k), dtype=V.dtype, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _entry()(
+            DTYPE_CODES[V.dtype], int(kahan), V.data_ptr(), W.data_ptr(),
+            part.data_ptr(), None if comp is None else comp.data_ptr(),
+            n, m, k, rows, nblocks,
+            None if x_in is None else x_in.data_ptr(), out.data_ptr(),
+            float(alpha), float(beta), int(x_in is not None), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    execution.count_launch("tsmttsm")
+    return out

@@ -1,8 +1,9 @@
 """Conjugate Gradient solvers on GHOST building blocks, in PyTorch.
 
-* ``cg``: block CG for SPD systems, one system per block-vector column
-  (multiple right-hand sides).  The matvec is fused with the <p, Ap> dot
-  (GHOST_SPMV_DOT_XY), so one iteration is one launch of the SpMV kernel.
+* ``cg``: CG for SPD systems, one system per block-vector column
+  (multiple right-hand sides, solved independently with ``block=False``).
+  The matvec is fused with the <p, Ap> dot (GHOST_SPMV_DOT_XY), so one
+  iteration is one launch of the SpMV kernel.
 * ``pipelined_cg``: Ghysels & Vanroose pipelined CG, whose reduction
   bundle is independent of the matvec ``q = A w``.
 
@@ -11,9 +12,11 @@ advances it by up to ``k`` iterations (per-column ``done`` carried in the
 state), ``*_finalize`` reads out a :class:`CGResult`.  The classic entry
 points compose the three and equal one monolithic solve bit for bit.
 
-Preconditioning (``M=``) and the shared-Krylov block mode
-(``block=True``) need the block-Jacobi and tall-skinny kernels, which are
-not ported yet: both raise ``NotImplementedError``.
+``block=True`` shares one Krylov space across the columns (BCGrQ block
+CG, :mod:`repro_torch.solvers.block`, on the tall-skinny kernels); a
+one-column right-hand side goes to the plain stepper, as in the JAX
+package.  Preconditioning (``M=``) needs the block-Jacobi kernel, which
+is not ported yet: it raises ``NotImplementedError``.
 
 Vectors are ``(n, b)`` in operator (permuted) space.
 """
@@ -24,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.spmv import SpmvOpts, as2d
+from repro_torch.solvers.block import BlockCGState, block_cg_body, block_cg_init
 from repro_torch.solvers.stepper import run_chunk
 
 __all__ = ["CGResult", "CGState", "PCGState", "cg", "cg_init", "cg_step",
@@ -90,15 +94,11 @@ def _tol2(tol, bnorm2: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min((t * t) * bnorm2, torch.finfo(bnorm2.dtype).tiny)
 
 
-def _unsupported(M, block: bool, who: str) -> None:
+def _no_precond(M, who: str) -> None:
     if M is not None:
         raise NotImplementedError(
             f"{who}: preconditioning (M=) needs the block-Jacobi kernel, "
             f"which the port does not have yet")
-    if block:
-        raise NotImplementedError(
-            f"{who}: block=True (one Krylov space for all columns) needs the "
-            f"tall-skinny kernels, which the port does not have yet")
 
 
 def _start(op, b: torch.Tensor, x0: Optional[torch.Tensor]):
@@ -116,9 +116,17 @@ def _start(op, b: torch.Tensor, x0: Optional[torch.Tensor]):
 # ------------------------------------------------------------------ plain CG
 def cg_init(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
             tol=1e-8, maxiter: int = 500, M=None,
-            block: bool = False) -> CGState:
-    """Initial stepper state.  ``tol`` may be a scalar or per-column (b,)."""
-    _unsupported(M, block, "cg")
+            block: bool = False):
+    """Initial stepper state.  ``tol`` may be a scalar or per-column (b,).
+
+    ``block=True`` with more than one column returns a
+    :class:`~repro_torch.solvers.block.BlockCGState` (one Krylov space for
+    all columns); a one-column rhs gets the plain :class:`CGState`, as in
+    the JAX package.
+    """
+    _no_precond(M, "cg")
+    if block and as2d(b)[0].shape[1] > 1:
+        return block_cg_init(op, as2d(b)[0], x0, tol=tol, maxiter=maxiter)
     b2, x, r = _start(op, b, x0)
     rr = _colsum(r)
     bnorm2 = torch.clamp_min(_colsum(b2), torch.finfo(b2.dtype).tiny)
@@ -147,21 +155,25 @@ def _cg_body(op, st: CGState) -> CGState:
                    done=st.done | (rr_new <= st.tol2))
 
 
-def cg_step(op, state: CGState, k: int, M=None) -> CGState:
+def cg_step(op, state, k: int, M=None):
     """Advance up to ``k`` iterations, stopping early when all columns are
-    done or ``maxiter`` is reached."""
-    _unsupported(M, False, "cg_step")
+    done or ``maxiter`` is reached.  Dispatches on the state's type."""
+    _no_precond(M, "cg_step")
+    if isinstance(state, BlockCGState):
+        return run_chunk(op, "block_cg", k, state, block_cg_body)
     return run_chunk(op, "cg", k, state, _cg_body)
 
 
-def cg_finalize(state: CGState) -> CGResult:
+def cg_finalize(state) -> CGResult:
     return CGResult(state.x, state.it, torch.sqrt(state.rr), state.done)
 
 
 def cg(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
        tol: float = 1e-8, maxiter: int = 500, M=None,
        block: bool = False) -> CGResult:
-    """Block CG, the columns solved independently.  ``op`` must be SPD."""
+    """CG, ``op`` SPD.  ``block=False`` solves the columns independently;
+    ``block=True`` shares one Krylov space across them (see
+    :func:`cg_init`)."""
     was1d = b.ndim == 1
     state = cg_init(op, b, x0, tol=tol, maxiter=maxiter, M=M, block=block)
     state = cg_step(op, state, maxiter)
@@ -172,8 +184,14 @@ def cg(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
 def pipelined_cg_init(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                       *, tol=1e-8, maxiter: int = 500, M=None,
                       block: bool = False) -> PCGState:
-    """Initial pipelined-CG stepper state (unpreconditioned)."""
-    _unsupported(M, block, "pipelined_cg")
+    """Initial pipelined-CG stepper state (unpreconditioned).  ``block``
+    exists for signature parity: there is no shared-Krylov pipelined CG,
+    so ``block=True`` raises, as in the JAX package."""
+    _no_precond(M, "pipelined_cg")
+    if block:
+        raise NotImplementedError(
+            "pipelined_cg has no block (shared Krylov space) mode; use "
+            "cg(..., block=True) or minres(..., block=True)")
     b2, x, r = _start(op, b, x0)
     w = op.mv(r)
     bnorm2 = torch.clamp_min(_colsum(b2), torch.finfo(b2.dtype).tiny)
@@ -218,7 +236,7 @@ def _pcg_body(op, st: PCGState) -> PCGState:
 
 def pipelined_cg_step(op, state: PCGState, k: int, M=None) -> PCGState:
     """Advance up to ``k`` iterations (``M`` must be None)."""
-    _unsupported(M, False, "pipelined_cg_step")
+    _no_precond(M, "pipelined_cg_step")
     return run_chunk(op, "pipelined_cg", k, state, _pcg_body)
 
 

@@ -37,6 +37,7 @@ class GhostOperator:
         # store_dtype only changes what the kernel streams from memory
         self.dtype = A.dtype
         self.store_dtype = A.store_dtype
+        self.device = A.device
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         y, _, _ = spmv(self.A, x, impl=self.impl)
@@ -53,13 +54,16 @@ class GhostOperator:
 
 
 class MatrixFreeOperator:
-    """Matrix-free SpMV hook (paper section 5.1)."""
+    """Matrix-free SpMV hook (paper section 5.1).  ``device`` is where
+    solvers that draw their own start vectors put them (``None``: the
+    card)."""
 
     def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], n: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, device=None):
         self.fn = fn
         self.n = n
         self.dtype = dtype
+        self.device = device
 
     def mv(self, x):
         return self.fn(x)

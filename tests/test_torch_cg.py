@@ -173,21 +173,30 @@ def test_per_column_tolerance_matches_jax():
 @pytest.mark.parametrize("M,block", [(object(), False), (None, True)],
                          ids=["M", "block"])
 def test_unported_modes_raise(M, block):
+    """Preconditioning is not ported and raises; block=True is ported for
+    cg (see test_torch_block.py), so only its preconditioned form and the
+    pipelined stepper, which has no block mode in either package, raise."""
     A, b, _ = case_study(np.float32)
     op = make_operator(A)
     bp = A.permute(b)
     with pytest.raises(NotImplementedError):
-        cg(op, bp, M=M, block=block)
-    with pytest.raises(NotImplementedError):
-        cg_init(op, bp, M=M, block=block)
-    with pytest.raises(NotImplementedError):
         pipelined_cg_init(op, bp, M=M, block=block)
     if M is not None:
+        with pytest.raises(NotImplementedError):
+            cg(op, bp, M=M, block=block)
+        with pytest.raises(NotImplementedError):
+            cg_init(op, bp, M=M, block=block)
         st = cg_init(op, bp)
         with pytest.raises(NotImplementedError):
             cg_step(op, st, 3, M=M)
         with pytest.raises(NotImplementedError):
             pipelined_cg(op, bp, M=M)
+    else:
+        with pytest.raises(NotImplementedError):
+            cg(op, bp, M=object(), block=block)
+        with pytest.raises(NotImplementedError):
+            cg_init(op, bp, M=object(), block=block)
+        assert type(cg_init(op, bp, block=block)).__name__ == "BlockCGState"
 
 
 def test_state_from_jax_resumes_identically():

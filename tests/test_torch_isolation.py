@@ -41,24 +41,45 @@ def test_no_jax_or_reference_imports(path):
 
 def test_port_has_its_modules():
     want = {"core/sellcs.py", "core/spmv.py", "core/execution.py",
+            "core/blockvec.py",
             "kernels/ops.py", "kernels/ref.py", "kernels/sellcs_spmv.py",
+            "kernels/tsmttsm.py", "kernels/tsmm.py",
             "kernels/_build.py", "kernels/csrc/sellcs_spmv.cu",
+            "kernels/csrc/tsmttsm.cu", "kernels/csrc/tsmm.cu",
             "matrices/generators.py", "matrices/mmio.py",
             "solvers/operator.py", "solvers/stepper.py", "solvers/cg.py",
+            "solvers/block.py", "solvers/minres.py", "solvers/lanczos.py",
+            "solvers/chebfd.py", "solvers/kpm.py",
             "interop.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
     assert want <= have
 
 
-@pytest.mark.parametrize("rel", ["kernels/ops.py", "kernels/sellcs_spmv.py",
-                                 "kernels/_build.py", "core/spmv.py",
-                                 "core/execution.py"])
+NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
+          "kernels/tsmm.py", "kernels/_build.py", "core/spmv.py",
+          "core/execution.py", "core/blockvec.py", "solvers/block.py",
+          "solvers/cg.py", "solvers/minres.py", "solvers/lanczos.py",
+          "solvers/chebfd.py", "solvers/kpm.py", "../../chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", NO_TRY)
 def test_no_try_around_build_or_launch(rel):
-    """A kernel that fails to build or launch raises; nothing catches it."""
+    """A kernel that fails to build or launch raises; nothing catches it,
+    and no phase of chip_smoke.py is wrapped in a ``try``."""
     tree = ast.parse((PORT / rel).read_text())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
     assert "REPRO_" not in (PORT / rel).read_text()
+
+
+@pytest.mark.parametrize("name", ["sellcs_spmv", "tsmttsm", "tsmm"])
+def test_cuda_sources_return_the_launch_error(name):
+    """Every CUDA source states what it replaces and its bound, and its C
+    entry point returns ``cudaGetLastError()``."""
+    src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert "Replaces: repro/kernels/" in src and "Bound:" in src
+    assert f'extern "C" int {name}_launch' in src
+    assert "return (int)cudaGetLastError();" in src
 
 
 def _no_gpu(monkeypatch):
@@ -90,7 +111,7 @@ def test_launch_counters():
 
 
 def test_build_layout_and_missing_compiler(monkeypatch, tmp_path):
-    assert _build.sources() == ["sellcs_spmv"]
+    assert _build.sources() == ["sellcs_spmv", "tsmm", "tsmttsm"]
     lib = _build._library_path("sellcs_spmv")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert lib.name.startswith("libsellcs_spmv-") and lib.suffix == ".so"
@@ -148,3 +169,27 @@ def test_chip_smoke_grid_rehearses_on_cpu(monkeypatch):
     import chip_smoke
     monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
     chip_smoke.phase_grid()
+
+
+def test_chip_smoke_block_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's tall-skinny grid, block CG, block MINRES and
+    eigensolver phases, run on the CPU at a small size: the kernels' plain
+    versions stand in (the launch counts are then 0), so this checks the
+    phases' shapes, tolerances and control flow, not the kernels."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "NX", 12)
+    monkeypatch.setattr(chip_smoke, "TSM_NS", (0, 1, 37, 600))
+    monkeypatch.setattr(chip_smoke, "TSM_DIMS", (1, 3, 16, 64))
+    chip_smoke.phase_tsm_grid()
+    r, c, v, n = chip_smoke.laplace3d(12)
+    fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu"),
+          "A16": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float32, store_dtype=torch.bfloat16,
+                          device="cpu")}
+    bcg = chip_smoke.phase_block_cg(fw, "cpu rehearsal")
+    assert bcg["iters"] > 0 and bcg["state"].it == bcg["iters"]
+    chip_smoke.phase_block_minres(fw, "cpu rehearsal")
+    chip_smoke.phase_eigen(fw, "cpu rehearsal")
