@@ -32,7 +32,23 @@ the card, holding every kernel against its plain PyTorch version:
     width;
 11. timing of every kernel, its plain version and one PyTorch call that
     computes the same function, beside the memory-bandwidth bound, and
-    the time split of one full-width block-CG iteration.
+    the time split of one full-width block-CG iteration;
+12. B4 (block-diagonal matmul, the block-Jacobi apply) and B5 (fused
+    axpby + dots) against their plain versions computed in float64, over
+    block sizes, widths, block counts, row counts, dtypes, coefficients
+    and dot flags, each held to a stated error bound;
+13. slice 4's main path at full width: block-Jacobi preconditioned CG
+    (``M=make_preconditioner("block_jacobi", ...)``, bs = C = 32) on
+    anisotropic_laplace2d(2048, eps=1e-2) (4,194,304 rows, sigma=1),
+    float64, four right-hand sides, with the host set-up time, launches of
+    B1 and B4, the true residual per column, a chunked solve equal to the
+    monolithic one, and plain CG on the same right-hand sides beside it;
+    the true residual checked again through B5 (its only path: no solver
+    calls it, in either package);
+14. block-Jacobi preconditioned MINRES on the same matrix, and
+    Chebyshev-preconditioned CG on anisotropic_laplace2d(1024);
+15. timing of B4 and B5 at the main shapes, and the time split of one
+    preconditioned CG iteration.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -57,14 +73,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import SpmvOpts, execution, from_coo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.ops import sellcs_spmv, tsmm, tsmttsm  # noqa: E402
-from repro_torch.kernels.ref import (sellcs_spmv_ref, tsmm_ref,  # noqa: E402
-                                     tsmttsm_ref)
+from repro_torch.kernels import fused_update  # noqa: E402
+from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
+from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
+                                     fused_axpby_dots, sellcs_spmv, tsmm,
+                                     tsmttsm)
+from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
+                                     fused_axpby_dots_ref, sellcs_spmv_ref,
+                                     tsmm_ref, tsmttsm_ref)
 from repro_torch.kernels.tsmttsm import MAX_DIM, summation_depth  # noqa: E402
-from repro_torch.matrices import laplace3d, matpde  # noqa: E402
+from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
+                                  laplace3d, matpde)
 from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E402
-                                 chebfd, kpm_dos_moments, lanczos_extrema,
-                                 make_operator, minres)
+                                 chebfd, kpm_dos_moments,
+                                 lanczos_extrema, make_operator,
+                                 make_preconditioner, minres,
+                                 minres_finalize, minres_init, minres_step)
 from repro_torch.solvers import block  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), the bound's denominator
@@ -78,6 +102,10 @@ KERNELS = {
                 "src/repro/kernels/tsmttsm.py:90"),
     "tsmm": ("src/repro_torch/kernels/csrc/tsmm.cu",
              "src/repro/kernels/tsmm.py:42"),
+    "block_diag_matmul": ("src/repro_torch/kernels/csrc/block_diag.cu",
+                          "src/repro/kernels/block_diag.py:50"),
+    "fused_axpby_dots": ("src/repro_torch/kernels/csrc/fused_update.cu",
+                         "src/repro/kernels/fused_update.py:42"),
 }
 # max |kernel - plain| / max |plain|, by compute dtype
 TOL = {torch.float64: {"vec": 1e-12, "dots": 1e-12},
@@ -98,6 +126,19 @@ TSM_DIMS = (1, 3, 8, 16, MAX_DIM)
 #: ChebFD on laplace3d(CHEB_NX): window, degree and sweeps with which the
 #: JAX package converges on the CPU (four eigenvalues inside the window)
 CHEB_NX, CHEB_TARGET, CHEB_DEGREE, CHEB_SWEEPS = 16, (0.05, 0.25), 150, 4
+#: slice 4: the preconditioned main path's grid (anisotropic_laplace2d,
+#: eps 1e-2, C=32, sigma=1, so the aligned bs=32 blocks are segments of
+#: the strong grid lines, as in the JAX package's benchmarks/table_precond.py),
+#: the grid of the Chebyshev-preconditioned solve, and the block size
+PRECOND_NX, CHEB_PCG_NX, PRECOND_EPS, PRECOND_C = 2048, 1024, 1e-2, 32
+PCG_TOL, PMINRES_TOL, PRECOND_WIDTH = 1e-8, 1e-6, 4
+#: B4 and B5 grids
+B4_BS = (1, 4, 8, 16, 32, 48, MAX_BS)
+B4_B = (1, 3, 4, 16)
+B4_NB = (0, 1, 7, 4096)
+B5_NS = (0, 1, 37, 4109, 1 << 20)
+#: (from bw = 86 on a thread block has fewer threads than (dot, column) pairs)
+B5_BW = (1, 3, 4, 16, 86, 256)
 
 
 def sync() -> None:
@@ -175,7 +216,9 @@ def phase_build() -> None:
             m = re.search(r"Function properties for (\S+)", line)
             if m:
                 inst = re.search(r"(sellcs_spmv_fused|tsmttsm_partial|"
-                                 r"tsmttsm_finish|tsmm_rows)I(\w+?)EEv",
+                                 r"tsmttsm_finish|tsmm_rows|block_diag_rows|"
+                                 r"axpby_dots_partial|axpby_dots_finish)"
+                                 r"I(\w+?)EEv",
                                  m.group(1))
                 entry = (f"{inst.group(1)}<{inst.group(2)}>" if inst
                          else m.group(1))
@@ -579,11 +622,12 @@ def phase_tsm_grid() -> None:
 
 # ------------------------------------------------------------------ phase 8
 BLOCK_KERNELS = ("sellcs_spmv", "tsmttsm", "tsmm")
+PRECOND_KERNELS = ("sellcs_spmv", "block_diag_matmul")
 
 
-def _counts():
+def _counts(names=BLOCK_KERNELS):
     got = execution.launch_counts()
-    return {k: got.get(k, 0) for k in BLOCK_KERNELS}
+    return {k: got.get(k, 0) for k in names}
 
 
 def _colwise_relres(A, b, x) -> torch.Tensor:
@@ -864,6 +908,467 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
           f"the per-iteration host synchronisation")
 
 
+# ----------------------------------------------------------------- phase 12
+#: (blocks dtype, x dtype) of the B4 grid: four dtypes and one mixed pair
+B4_PAIRS = ((torch.float64, torch.float64), (torch.float32, torch.float32),
+            (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+            (torch.bfloat16, torch.float32))
+
+
+def _unit(dt) -> float:
+    """Unit roundoff of ``dt``'s accumulation dtype."""
+    return 2.0 ** -53 if dt == torch.float64 else 2.0 ** -24
+
+
+def _b4_check(blocks, x, tag, worst):
+    """B4 against its plain version computed in float64 from the same
+    inputs.  A row sums ``bs`` products in order, so it errs by at most
+    ``(bs + 2) u_acc sum_j |B_ij| |x_jc|`` (the products' rounding
+    included), plus the float64 plain version's ``(bs + 2) 2^-53`` of the
+    same sum, plus the output's own rounding (relative, or one subnormal
+    spacing near zero).  Returns the worst ratio of error to bound and the
+    largest error."""
+    got = block_jacobi_apply(blocks, x)
+    bs = blocks.shape[1]
+    out = torch.promote_types(blocks.dtype, x.dtype)
+    x2 = x if x.ndim == 2 else x[:, None]
+    want = block_diag_matmul_ref(blocks.double(), x2.double())
+    scale = block_diag_matmul_ref(blocks.double().abs(), x2.double().abs())
+    if x.ndim == 1:
+        want, scale = want[:, 0], scale[:, 0]
+    require(got.dtype == out and got.shape == want.shape,
+            f"B4 {tag}: got {tuple(got.shape)} {got.dtype}")
+    fi = torch.finfo(out)
+    lim = ((bs + 2) * (_unit(out) + 2.0 ** -53) * scale
+           + _OUT_UNIT[out] * want.abs() + fi.tiny * fi.eps)
+    err = (got.double() - want).abs()
+    if err.numel() == 0:
+        return 0.0
+    ratio, emax = float((err / lim).max()), float(err.max())
+    require(ratio <= 1.0, f"B4 {tag}: error {emax:.3e} above its bound "
+                          f"({ratio:.2f}x)")
+    if ratio >= worst[0]:
+        worst[:] = [ratio, tag, emax]
+    return emax
+
+
+def phase_b4_grid() -> None:
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    worst = {}
+    n_cases = 0
+    for bd, xd in B4_PAIRS:
+        key = f"{str(bd)[6:]} x {str(xd)[6:]}"
+        w = worst.setdefault(key, [0.0, "", 0.0])
+        for bs in B4_BS:
+            for nb in B4_NB:
+                blocks = torch.randn(nb, bs, bs, generator=g,
+                                     dtype=torch.float64,
+                                     device=DEVICE).to(bd)
+                for b in B4_B:
+                    x = torch.randn(nb * bs, b, generator=g,
+                                    dtype=torch.float64, device=DEVICE).to(xd)
+                    _b4_check(blocks, x, f"{key} bs={bs} nb={nb} b={b}", w)
+                    n_cases += 1
+                x = torch.randn(nb * bs, generator=g, dtype=torch.float64,
+                                device=DEVICE).to(xd)
+                _b4_check(blocks, x, f"{key} bs={bs} nb={nb} 1-d", w)
+                n_cases += 1
+    sync()
+    for key, (ratio, tag, err) in worst.items():
+        print(f"[b4 grid] {key:19s} worst error {err:.3e} = {ratio:.3f} of "
+              f"its bound  (at {tag})")
+    print(f"[b4 grid] {n_cases} cases within the bound (bs + 2)(u_acc + "
+          f"2^-53) sum|B||x| + u_out |y|: bs in {B4_BS}, b in {B4_B} and "
+          f"1-d, nblocks in {B4_NB}")
+
+
+def _b5_check(x, y, a, b, flags, tag, worst):
+    """B5 against its plain version computed in float64 from the same
+    inputs (``a``/``b`` as the kernel sees them, in the accumulation
+    dtype).  ``y'`` errs by at most ``3 u_acc (|a x| + |b y|)`` plus the
+    output's rounding; each dot by at most ``(depth + 6) u_acc`` times the
+    sum of its terms' magnitudes (``depth`` the kernel's longest addition
+    chain, ``fused_update.summation_depth``) plus the float64 plain
+    version's ``(n + 6) 2^-53`` of the same sum."""
+    out = torch.promote_types(x.dtype, y.dtype)
+    acc = torch.float64 if out == torch.float64 else torch.float32
+    n, bw = x.shape
+    av = fused_update.coefficients(a, bw, acc, DEVICE).double()
+    bv = fused_update.coefficients(b, bw, acc, DEVICE).double()
+    got, dots = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
+                                 dot_xy=flags[1], dot_xx=flags[2])
+    xd, yd = x.double(), y.double()
+    want, wdots = fused_axpby_dots_ref(xd, yd, av, bv, dot_yy=flags[0],
+                                       dot_xy=flags[1], dot_xx=flags[2])
+    require(got.dtype == out and got.shape == want.shape,
+            f"B5 {tag}: got {tuple(got.shape)} {got.dtype}")
+    u = _unit(out)
+    mag = av.abs() * xd.abs() + bv.abs() * yd.abs()
+    fi = torch.finfo(out)
+    lim = 3 * u * mag + _OUT_UNIT[out] * want.abs() + fi.tiny * fi.eps
+    ratio = float((((got.double() - want).abs()) / lim).max()) if n else 0.0
+    require(ratio <= 1.0, f"B5 {tag}: y' error {ratio:.2f}x its bound")
+    if not any(flags):
+        require(dots is None, f"B5 {tag}: dots without a flag")
+    else:
+        require(dots is not None and dots.dtype == acc
+                and dots.shape == (3, bw), f"B5 {tag}: dots {dots}")
+        depth = fused_update.summation_depth(n, bw)
+        scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
+                             (xd * xd).sum(0)])
+        dlim = ((depth + 6) * u + (n + 6) * 2.0 ** -53) * scale + 1e-300
+        derr = (dots.double() - wdots).abs()
+        r2 = float((derr / dlim).max())
+        require(r2 <= 1.0, f"B5 {tag}: dots error {float(derr.max()):.3e} "
+                           f"{r2:.2f}x their bound")
+        ratio = max(ratio, r2)
+    if ratio >= worst[0]:
+        worst[:] = [ratio, tag]
+
+
+B5_FLAGS = tuple((yy, xy, xx) for yy in (False, True) for xy in (False, True)
+                 for xx in (False, True))
+
+
+def phase_b5_grid() -> None:
+    g = torch.Generator(device=DEVICE).manual_seed(8)
+    worst = {}
+    n_cases = 0
+    for dt in (torch.float64, torch.float32, torch.bfloat16, torch.float16):
+        w = worst.setdefault(str(dt)[6:], [0.0, ""])
+        for n in B5_NS:
+            for bw in B5_BW:
+                x, y = (torch.randn(n, bw, generator=g, dtype=torch.float64,
+                                    device=DEVICE).to(dt) for _ in range(2))
+                coefs = [(0.75, -1.25, "scalar"),
+                         (torch.randn(bw, generator=g, dtype=torch.float64,
+                                      device=DEVICE),
+                          torch.randn(bw, generator=g, dtype=torch.float64,
+                                      device=DEVICE), "per-column")]
+                for a, b, kind in coefs:
+                    for flags in B5_FLAGS:
+                        _b5_check(x, y, a, b, flags,
+                                  f"{str(dt)[6:]} n={n} bw={bw} {kind} "
+                                  f"dots={flags}", w)
+                        n_cases += 1
+        x1, y1 = (torch.randn(4109, generator=g, dtype=torch.float64,
+                              device=DEVICE).to(dt) for _ in range(2))
+        out, dots = fused_axpby_dots(x1, y1, 2.0, 0.5, dot_yy=True,
+                                     dot_xy=True, dot_xx=True)
+        want, wdots = fused_axpby_dots(x1[:, None], y1[:, None], 2.0, 0.5,
+                                       dot_yy=True, dot_xy=True, dot_xx=True)
+        require(out.shape == (4109,) and dots.shape == (3,)
+                and torch.equal(out, want[:, 0])
+                and torch.equal(dots, wdots[:, 0]),
+                f"B5 1-d {dt}: differs from the (n, 1) call")
+        n_cases += 1
+    sync()
+    for key, (ratio, tag) in worst.items():
+        print(f"[b5 grid] {key:9s} worst error = {ratio:.3f} of its bound  "
+              f"(at {tag})")
+    print(f"[b5 grid] {n_cases} cases within their bounds (y': 3 u_acc "
+          f"(|a x| + |b y|) + u_out |y'|; dots: (depth + 6) u_acc sum|terms|):"
+          f" n in {B5_NS}, bw in {B5_BW}, scalar and per-column a/b, every "
+          f"combination of the dot flags, and 1-d inputs")
+
+
+# ----------------------------------------------------------------- phase 13
+def _aniso(nx: int):
+    r, c, v, n = anisotropic_laplace2d(nx, epsilon=PRECOND_EPS)
+    t0 = time.perf_counter()
+    A = from_coo(r, c, v, (n, n), C=PRECOND_C, sigma=1, dtype=np.float64,
+                 device=DEVICE)
+    sync()
+    print(f"[precond] anisotropic_laplace2d({nx}, eps={PRECOND_EPS}) n={n} "
+          f"nnz={A.nnz} C={PRECOND_C} sigma=1: f64 build "
+          f"{time.perf_counter() - t0:.1f} s")
+    return A
+
+
+def phase_precond_cg(card):
+    """Slice 4's main path: block-Jacobi preconditioned CG at full width."""
+    A = _aniso(PRECOND_NX)
+    op = make_operator(A)
+    # the host set-up as a user makes it: extraction and factorization on
+    # the host, then the copy of the inverses to the card
+    t0 = time.perf_counter()
+    M = make_preconditioner("block_jacobi", matrix=A)
+    sync()
+    t_setup = time.perf_counter() - t0
+    print(f"[pcg] host set-up: make_preconditioner('block_jacobi') "
+          f"{t_setup:.2f} s (bs = {M.block_size}, "
+          f"{M.inv_blocks.shape[0]} blocks, "
+          f"{M.inv_blocks.numel() * 8 / 1e9:.3f} GB of f64 inverses on the "
+          f"card)")
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    b = A.permute(torch.randn(A.nrows, PRECOND_WIDTH, generator=g,
+                              dtype=torch.float64, device=DEVICE))
+    maxiter = 8 * A.nrows
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cg(op, b, tol=PCG_TOL, maxiter=maxiter, M=M)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts(PRECOND_KERNELS)
+    it = res.iters
+    relres = _colwise_relres(A, b, res.x)
+    ms_iter = 1e3 * secs / max(it, 1)
+    print(f"[pcg] block_jacobi PCG f64 b={PRECOND_WIDTH} tol {PCG_TOL}: {it} "
+          f"iterations in {secs:.3f} s ({ms_iter:.3f} ms/iter), converged="
+          f"{bool(res.converged.all())}  [{card}]")
+    print(f"[pcg] true relative residual per column: "
+          f"{' '.join(f'{r:.2e}' for r in relres.tolist())}")
+    print(f"[pcg] launches {launches} (per iteration 1 sellcs_spmv and 1 "
+          f"block_diag_matmul; cg_init 1 each)")
+    require(bool(res.converged.all()), "PCG: not converged")
+    require(float(relres.max()) <= 10 * PCG_TOL,
+            f"PCG: true residual {float(relres.max())} > {10 * PCG_TOL}")
+    want = {"sellcs_spmv": it + 1, "block_diag_matmul": it + 1}
+    require(launches == want or DEVICE == "cpu",
+            f"PCG launches {launches} != {want}")
+
+    # cg_step chunks of 256 must equal the monolithic solve bit for bit
+    st = cg_init(op, b, tol=PCG_TOL, maxiter=maxiter, M=M)
+    while st.it < st.maxiter and not bool(st.done.all()):
+        st = cg_step(op, st, 256, M=M)
+    ch = cg_finalize(st)
+    same = (ch.iters == it and torch.equal(ch.x, res.x)
+            and torch.equal(ch.resnorm, res.resnorm))
+    print(f"[pcg] as cg_step chunks of 256: {ch.iters} iterations, "
+          f"bit-identical to the monolithic solve: {same}")
+    require(same, "chunked PCG differs from the monolithic one")
+
+    # plain CG on the same right-hand sides: sweeps and time to solution
+    sync()
+    t0 = time.perf_counter()
+    plain = cg(op, b, tol=PCG_TOL, maxiter=maxiter)
+    sync()
+    plain_secs = time.perf_counter() - t0
+    prel = _colwise_relres(A, b, plain.x)
+    print(f"[pcg] plain CG on the same rhs: {plain.iters} iterations in "
+          f"{plain_secs:.3f} s ({1e3 * plain_secs / max(plain.iters, 1):.3f}"
+          f" ms/iter), converged={bool(plain.converged.all())}, max true "
+          f"relative residual {float(prel.max()):.2e}; PCG takes "
+          f"{plain.iters / max(it, 1):.2f}x fewer iterations and "
+          f"{plain_secs / secs:.2f}x less time  [{card}]")
+    require(bool(plain.converged.all()), "plain CG: not converged")
+    return dict(A=A, op=op, M=M, b=b, res=res, iters=it, secs=secs,
+                ms_iter=ms_iter, launches=launches, state=st,
+                plain_iters=plain.iters, plain_secs=plain_secs)
+
+
+def phase_b5_residual(pcg, card) -> int:
+    """B5 on its one path in this script: the true residual of the PCG
+    solution, ``r = b - A x`` with ``<r, r>`` and ``<b, b>`` in one sweep,
+    held against the plain SpMV's residual.  Returns B5's launches."""
+    op, b, x = pcg["op"], pcg["b"], pcg["res"].x
+    execution.reset_launch_counts()
+    Ax = op.mv(x)
+    r, dots = fused_axpby_dots(b, Ax, 1.0, -1.0, dot_yy=True, dot_xx=True)
+    relres = torch.sqrt(dots[0] / dots[2])
+    sync()
+    launches = execution.launch_counts().get("fused_axpby_dots", 0)
+    plain = _colwise_relres(pcg["A"], b, x)
+    diff = float(((relres - plain).abs() / plain).max())
+    print(f"[b5 path] PCG true relative residual through fused_axpby_dots: "
+          f"{' '.join(f'{v:.6e}' for v in relres.tolist())}; through the "
+          f"plain SpMV: {' '.join(f'{v:.6e}' for v in plain.tolist())}; "
+          f"max relative difference {diff:.2e}; fused_axpby_dots launches "
+          f"{launches}")
+    # r is the difference of nearly equal vectors (|r| ~ 1e-8 |b|), so
+    # the two SpMVs' different summation orders show at ~1e-8 of |r|
+    require(diff <= 1e-4, f"B5 residual differs from plain by {diff}")
+    require(launches == 1 or DEVICE == "cpu",
+            f"fused_axpby_dots launches {launches} != 1")
+    return launches
+
+
+def _m_relres(M, A, b, x) -> torch.Tensor:
+    """True relative residual in the M-norm, sqrt(<r, M r> / <b, M b>):
+    the norm preconditioned MINRES converges in."""
+    Ax, _, _ = sellcs_spmv_ref(A, x)
+    r = b - Ax
+    return torch.sqrt((r * M.apply(r)).sum(0) / (b * M.apply(b)).sum(0))
+
+
+def phase_precond_minres(pcg, card) -> None:
+    A, op, M = pcg["A"], pcg["op"], pcg["M"]
+    g = torch.Generator(device=DEVICE).manual_seed(10)
+    b = A.permute(torch.randn(A.nrows, PRECOND_WIDTH, generator=g,
+                              dtype=torch.float64, device=DEVICE))
+    maxiter = 8 * A.nrows
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = minres(op, b, tol=PMINRES_TOL, maxiter=maxiter, M=M)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts(PRECOND_KERNELS)
+    it = res.iters
+    mrel = _m_relres(M, A, b, res.x)
+    relres = _colwise_relres(A, b, res.x)
+    print(f"[pminres] block_jacobi MINRES f64 b={PRECOND_WIDTH} tol "
+          f"{PMINRES_TOL}: {it} iterations in {secs:.3f} s "
+          f"({1e3 * secs / max(it, 1):.3f} ms/iter), converged="
+          f"{bool(res.converged.all())}; true relative residual per column "
+          f"in the M-norm {' '.join(f'{v:.2e}' for v in mrel.tolist())}, in "
+          f"the 2-norm {' '.join(f'{v:.2e}' for v in relres.tolist())}; "
+          f"launches {launches} (per iteration 1 sellcs_spmv, 1 "
+          f"block_diag_matmul; init 1 and 2)  [{card}]")
+    require(bool(res.converged.all()), "PMINRES: not converged")
+    require(float(mrel.max()) <= 10 * PMINRES_TOL,
+            f"PMINRES: M-norm residual {float(mrel.max())} > "
+            f"{10 * PMINRES_TOL}")
+    want = {"sellcs_spmv": it + 1, "block_diag_matmul": it + 2}
+    require(launches == want or DEVICE == "cpu",
+            f"PMINRES launches {launches} != {want}")
+    st = minres_init(op, b, tol=PMINRES_TOL, maxiter=maxiter, M=M)
+    while st.it < st.maxiter and not bool(st.done.all()):
+        st = minres_step(op, st, 256, M=M)
+    ch = minres_finalize(st)
+    same = ch.iters == it and torch.equal(ch.x, res.x)
+    print(f"[pminres] as minres_step chunks of 256: {ch.iters} iterations, "
+          f"bit-identical to the monolithic solve: {same}")
+    require(same, "chunked PMINRES differs from the monolithic one")
+
+
+def phase_chebyshev_pcg(card) -> None:
+    """Chebyshev-preconditioned CG (degree 4, spectrum from the port's
+    Lanczos): B1 only, (degree - 1) SpMVs per apply plus the outer one."""
+    A = _aniso(CHEB_PCG_NX)
+    op = make_operator(A)
+    t0 = time.perf_counter()
+    spectrum = lanczos_extrema(op)
+    M = make_preconditioner("chebyshev:4", op=op, spectrum=spectrum)
+    sync()
+    t_setup = time.perf_counter() - t0
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    b = A.permute(torch.randn(A.nrows, PRECOND_WIDTH, generator=g,
+                              dtype=torch.float64, device=DEVICE))
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cg(op, b, tol=PCG_TOL, maxiter=8 * A.nrows, M=M)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts(PRECOND_KERNELS)
+    it = res.iters
+    relres = _colwise_relres(A, b, res.x)
+    print(f"[cheb pcg] chebyshev:4 PCG f64 b={PRECOND_WIDTH} tol {PCG_TOL}, "
+          f"spectrum ({spectrum[0]:.6g}, {spectrum[1]:.6g}) -> interval "
+          f"({M.lo:.6g}, {M.hi:.6g}), set-up {t_setup:.2f} s: {it} iterations"
+          f" in {secs:.3f} s ({1e3 * secs / max(it, 1):.3f} ms/iter), "
+          f"converged={bool(res.converged.all())}, max true relative "
+          f"residual {float(relres.max()):.2e}, launches {launches} "
+          f"(4 sellcs_spmv per iteration and at init)  [{card}]")
+    require(bool(res.converged.all()), "Chebyshev PCG: not converged")
+    require(float(relres.max()) <= 10 * PCG_TOL,
+            f"Chebyshev PCG: true residual {float(relres.max())}")
+    want = {"sellcs_spmv": M.degree * (it + 1), "block_diag_matmul": 0}
+    require(launches == want or DEVICE == "cpu",
+            f"Chebyshev PCG launches {launches} != {want}")
+
+
+# ----------------------------------------------------------------- phase 15
+def phase_precond_timing(pcg, card):
+    """B4 at the PCG main shape (f64, and f32 / bf16-block rows beside
+    it) and B5 at n = 4,194,304, bw = 4, f64 with all three dots: kernel,
+    plain version, one PyTorch call where one computes the same function,
+    and the bound."""
+    inv = pcg["M"].inv_blocks
+    nb, bs, _ = inv.shape
+    n = nb * bs
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x64 = torch.randn(n, PRECOND_WIDTH, generator=g, dtype=torch.float64,
+                      device="cuda")
+    rows = {}
+    cases = [("f64", inv, x64), ("f32", inv.float(), x64.float()),
+             ("bf16 blocks, f32 x", inv.to(torch.bfloat16), x64.float())]
+    for label, B, x in cases:
+        worst = [0.0, "", 0.0]
+        err = _b4_check(B, x, f"timing {label}", worst)
+        ms = time_ms(lambda: block_jacobi_apply(B, x))
+        plain_ms = time_ms(lambda: block_diag_matmul_ref(B, x), warmup=3,
+                           iters=20)
+        lib_ms = None
+        if B.dtype == x.dtype:       # one call computes it: a batched GEMM
+            Bv, xv = B.view(nb, bs, bs), x.view(nb, bs, PRECOND_WIDTH)
+            lib_ms = time_ms(lambda: torch.bmm(Bv, xv))
+        out_bytes = n * PRECOND_WIDTH * torch.finfo(
+            torch.promote_types(B.dtype, x.dtype)).bits // 8
+        nbytes = _nbytes(B, x) + out_bytes
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        acc = torch.float64 if label == "f64" else torch.float32
+        ops_ms = 1e3 * 2.0 * nb * bs * bs * PRECOND_WIDTH / PEAK_FLOPS[acc]
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"[timing] block_diag_matmul {label} nblocks={nb} bs={bs} "
+              f"b={PRECOND_WIDTH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library(bmm) "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB; operations "
+              f"{ops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of bound, "
+              f"max abs err {err:.3e} ({worst[0]:.3f} of its bound)  "
+              f"[{card}]")
+        rows[("block_diag_matmul", label)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            err=err)
+
+    y = torch.randn(n, PRECOND_WIDTH, generator=g, dtype=torch.float64,
+                    device="cuda")
+    a = torch.randn(PRECOND_WIDTH, generator=g, dtype=torch.float64,
+                    device="cuda")
+    flags = dict(dot_yy=True, dot_xy=True, dot_xx=True)
+    worst = [0.0, ""]
+    _b5_check(x64, y, a, -0.5, (True, True, True), "timing f64", worst)
+    out, dots = fused_axpby_dots(x64, y, a, -0.5, **flags)
+    want, _ = fused_axpby_dots_ref(x64, y, a, -0.5, **flags)
+    err = float((out - want).abs().max())
+    ms = time_ms(lambda: fused_axpby_dots(x64, y, a, -0.5, **flags))
+    plain_ms = time_ms(lambda: fused_axpby_dots_ref(x64, y, a, -0.5,
+                                                    **flags))
+    nbytes = _nbytes(x64, y, a, out, dots) + 8 * PRECOND_WIDTH
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 8.0 * n * PRECOND_WIDTH / PEAK_FLOPS[torch.float64]
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[timing] fused_axpby_dots f64 n={n} bw={PRECOND_WIDTH}, all "
+          f"three dots: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"n/a (no single PyTorch call computes it), bound {bound_ms:.4f} "
+          f"ms ({nbytes / 1e6:.1f} MB; operations {ops_ms:.4f} ms), "
+          f"{100 * bound_ms / ms:.1f}% of bound, y' max abs err {err:.3e} "
+          f"(bounds: {worst[0]:.3f} of the stated ones)  [{card}]")
+    rows[("fused_axpby_dots", "f64")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations", err=err)
+    return rows
+
+
+def phase_pcg_split(pcg, card) -> None:
+    """Where one full-width PCG iteration goes: B1 at b=4 with CG's flags
+    and B4, each timed alone with CUDA events at the iteration's shapes,
+    against the measured ms per iteration."""
+    op, M, st = pcg["op"], pcg["M"], pcg["state"]
+    opts = SpmvOpts(dot_xy=True)
+    spmv_ms = time_ms(lambda: op.mv_fused(st.p, opts=opts))
+    b4_ms = time_ms(lambda: M.apply(st.r))
+    total = pcg["ms_iter"]
+    rest = total - spmv_ms - b4_ms
+    print(f"[pcg split] one iteration = {total:.3f} ms (anisotropic_laplace2d"
+          f"({PRECOND_NX}) f64, b={PRECOND_WIDTH})  [{card}]")
+    for name, ms in ((f"sellcs_spmv (b={PRECOND_WIDTH})", spmv_ms),
+                     ("block_diag_matmul", b4_ms)):
+        print(f"[pcg split]   {name:20s} 1 x {ms:.4f} ms "
+              f"({100 * ms / total:.1f}%)")
+    print(f"[pcg split]   {'rest':20s} {rest:.4f} ms ({100 * rest / total:.1f}"
+          f"%): vector arithmetic (about ten passes over ({PRECOND_NX}^2, "
+          f"{PRECOND_WIDTH}) vectors), launches and the per-iteration host "
+          f"synchronisation")
+    print(f"[pcg split] time to solution: PCG {pcg['secs']:.3f} s "
+          f"({pcg['iters']} iterations), plain CG {pcg['plain_secs']:.3f} s "
+          f"({pcg['plain_iters']} iterations)")
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -895,6 +1400,14 @@ def main() -> int:
     rows = timed("spmv timing", phase_timing, fw, card)
     tsm = timed("tsm timing", phase_tsm_timing, fw, card)
     timed("block CG split", phase_block_split, fw, bcg, tsm, card)
+    timed("b4 grid", phase_b4_grid)
+    timed("b5 grid", phase_b5_grid)
+    pcg = timed("preconditioned CG", phase_precond_cg, card)
+    b5_launches = timed("b5 path", phase_b5_residual, pcg, card)
+    timed("preconditioned MINRES", phase_precond_minres, pcg, card)
+    timed("chebyshev PCG", phase_chebyshev_pcg, card)
+    pre = timed("precond timing", phase_precond_timing, pcg, card)
+    timed("pcg split", phase_pcg_split, pcg, card)
     for r in rows:
         if r["b"] == 4:
             n = fw["launches"] if r["label"] == "f64" else fw["launches16"]
@@ -911,6 +1424,12 @@ def main() -> int:
                       tsm[("tsmttsm", "kahan", f64)]),
         _kernel_entry("tsmm", bcg["launches"]["tsmm"],
                       tsm[("tsmm", "with W", f64)]),
+        _kernel_entry("block_diag_matmul",
+                      pcg["launches"]["block_diag_matmul"],
+                      pre[("block_diag_matmul", "f64")]),
+        # B5 has no solver path: its launches are the PCG residual check's
+        _kernel_entry("fused_axpby_dots", b5_launches,
+                      pre[("fused_axpby_dots", "f64")]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

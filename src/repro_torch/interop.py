@@ -16,8 +16,8 @@ import torch
 from repro_torch.core.execution import resolve_device
 from repro_torch.core.sellcs import SellCS
 from repro_torch.solvers.block import BlockCGState, BlockMinresState
-from repro_torch.solvers.cg import CGState
-from repro_torch.solvers.minres import MinresState
+from repro_torch.solvers.cg import CGState, PrecondCGState
+from repro_torch.solvers.minres import MinresState, PrecondMinresState
 
 __all__ = ["SELLCS_ARRAYS", "SELLCS_META", "CGSTATE_ARRAYS", "STATE_TYPES",
            "tensor_from_array", "sellcs_from_arrays", "state_from_arrays"]
@@ -29,7 +29,8 @@ SELLCS_ARRAYS = ("vals", "cols", "chunk_off", "chunk_len", "rowids",
 SELLCS_META = ("C", "sigma", "nrows", "ncols", "nnz", "w_align",
                "permuted_cols", "compute_dtype")
 #: the stepper states that cross over, and their integer fields
-STATE_TYPES = (CGState, MinresState, BlockCGState, BlockMinresState)
+STATE_TYPES = (CGState, MinresState, BlockCGState, BlockMinresState,
+               PrecondCGState, PrecondMinresState)
 _INT_FIELDS = ("it", "maxiter")
 #: the tensor fields of a CG state (``it`` and ``maxiter`` are ints)
 CGSTATE_ARRAYS = tuple(f for f in CGState._fields if f not in _INT_FIELDS)
@@ -78,8 +79,10 @@ def _best_state_type(names) -> type:
 def state_from_arrays(arrays: Mapping[str, object], device=None):
     """A port stepper state from the JAX package's state fields
     (``{f: np.asarray(getattr(state, f))}``): a :class:`CGState`,
-    :class:`MinresState`, :class:`BlockCGState` or
-    :class:`BlockMinresState`, recognised by its field names.
+    :class:`MinresState`, :class:`BlockCGState`, :class:`BlockMinresState`,
+    :class:`PrecondCGState` or :class:`PrecondMinresState`, recognised by
+    its field names (a preconditioned state's fields include its plain
+    counterpart's, and the type with the most fields wins).
     ``device=None`` means the card."""
     dev = resolve_device(device)
     st = _best_state_type(arrays)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with
 a plain C interface, at first use, into ``build/repro_torch/`` at the root
 of the checkout (git-ignored).  The library's file name carries a hash of
-the source and the flags, so an edited source never loads a stale build.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header never loads a stale build.
 ``build()`` starts one ``nvcc`` per source, all together, and waits for
 them; ``load()`` builds what is missing and returns the loaded library.
 
@@ -51,9 +52,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

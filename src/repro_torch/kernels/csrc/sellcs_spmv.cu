@@ -31,9 +31,9 @@
 // * Lanes are rounded up to whole warps; lanes >= C only feed zeros to the
 //   reductions.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -48,15 +48,6 @@ enum Flags {
   kDotXY = 16,
   kDotXX = 32,
 };
-
-template <typename CT> __device__ __forceinline__ CT upcast(double v) { return (CT)v; }
-template <typename CT> __device__ __forceinline__ CT upcast(float v) { return (CT)v; }
-template <typename CT> __device__ __forceinline__ CT upcast(__nv_bfloat16 v) {
-  return (CT)__bfloat162float(v);
-}
-template <typename CT> __device__ __forceinline__ CT upcast(__half v) {
-  return (CT)__half2float(v);
-}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -91,7 +82,7 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
     const int len = chunk_len[c];
     for (int j = 0; j < len; ++j) {
       const long long s = base + (long long)j * C;
-      const CT a = upcast<CT>(vals[s]);
+      const CT a = load_as<CT>(vals[s]);
       const CT* xr = x + (long long)cols[s] * b + k0;
 #pragma unroll
       for (int k = 0; k < BW; ++k)

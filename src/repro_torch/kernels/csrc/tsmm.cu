@@ -27,37 +27,15 @@
 //   padding is needed for any n or k.
 // * W_out is a new buffer, so W_in may alias V (tsmm_inplace).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTN = 4;
 constexpr int kMaxDim = 64;
-
-template <typename T> struct Acc { using type = T; };
-template <> struct Acc<__nv_bfloat16> { using type = float; };
-template <> struct Acc<__half> { using type = float; };
-
-template <typename A> __device__ __forceinline__ A load_as(double v) { return (A)v; }
-template <typename A> __device__ __forceinline__ A load_as(float v) { return (A)v; }
-template <typename A> __device__ __forceinline__ A load_as(__nv_bfloat16 v) {
-  return (A)__bfloat162float(v);
-}
-template <typename A> __device__ __forceinline__ A load_as(__half v) {
-  return (A)__half2float(v);
-}
-
-template <typename T> __device__ __forceinline__ T store_as(double v) { return (T)v; }
-template <typename T> __device__ __forceinline__ T store_as(float v) { return (T)v; }
-template <> __device__ __forceinline__ __nv_bfloat16 store_as(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half store_as(float v) {
-  return __float2half(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

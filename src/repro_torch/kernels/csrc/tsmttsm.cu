@@ -38,9 +38,9 @@
 //   wrapper from n, m and k alone, not from the card, so the summation
 //   order is the same on every card.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -48,28 +48,6 @@ constexpr int kThreads = 256;
 constexpr int kTM = 4;
 constexpr int kTN = 4;
 constexpr int kKG = 8;  // rows per plainly summed group
-
-template <typename T> struct Acc { using type = T; };
-template <> struct Acc<__nv_bfloat16> { using type = float; };
-template <> struct Acc<__half> { using type = float; };
-
-template <typename A> __device__ __forceinline__ A load_as(double v) { return (A)v; }
-template <typename A> __device__ __forceinline__ A load_as(float v) { return (A)v; }
-template <typename A> __device__ __forceinline__ A load_as(__nv_bfloat16 v) {
-  return (A)__bfloat162float(v);
-}
-template <typename A> __device__ __forceinline__ A load_as(__half v) {
-  return (A)__half2float(v);
-}
-
-template <typename T> __device__ __forceinline__ T store_as(double v) { return (T)v; }
-template <typename T> __device__ __forceinline__ T store_as(float v) { return (T)v; }
-template <> __device__ __forceinline__ __nv_bfloat16 store_as(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half store_as(float v) {
-  return __float2half(v);
-}
 
 // Adds t to the running sum s with compensation c (the sum is s - c), as
 // the TPU kernel's body does: y = t - c; u = s + y; c = (u - s) - y; s = u.

@@ -13,6 +13,11 @@ because a CUDA kernel cannot run there.
   (kernels B2 and B3), with the JAX package's signatures.  Results come in
   ``promote_types`` of the operands and sum in float32 for
   bfloat16/float16.
+* ``block_jacobi_apply`` — the batched block-diagonal matmul (kernel B4),
+  the block-Jacobi preconditioner's apply.
+* ``fused_axpby_dots`` — ``a x + b y`` and its column dots in one sweep
+  (kernel B5).  No solver calls it, in either package; it is the op the
+  JAX package exposes.
 """
 from __future__ import annotations
 
@@ -23,12 +28,17 @@ import torch
 from repro_torch.core.blockvec import check_beta_needs_out
 from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, as2d, x_rows
-from repro_torch.kernels.ref import sellcs_spmv_ref, tsmm_ref, tsmttsm_ref
+from repro_torch.kernels.block_diag import block_diag_cuda, check_shapes
+from repro_torch.kernels.fused_update import fused_axpby_dots_cuda
+from repro_torch.kernels.ref import (block_diag_matmul_ref,
+                                     fused_axpby_dots_ref, sellcs_spmv_ref,
+                                     tsmm_ref, tsmttsm_ref)
 from repro_torch.kernels.sellcs_spmv import sellcs_spmv_cuda
 from repro_torch.kernels.tsmm import tsmm_cuda
 from repro_torch.kernels.tsmttsm import tsmttsm_cuda
 
-__all__ = ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_inplace"]
+__all__ = ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_inplace",
+           "block_jacobi_apply", "fused_axpby_dots"]
 
 
 def _col2d(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -119,3 +129,50 @@ def tsmm_inplace(V: torch.Tensor, X: torch.Tensor, alpha=1.0,
                  beta=0.0) -> torch.Tensor:
     """alpha V X + beta V, returned as a new tensor (V is not written)."""
     return tsmm(V, X, V, alpha=alpha, beta=beta)
+
+
+def block_jacobi_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Apply a block-diagonal operator: ``y[blk k] = blocks[k] @ x[blk k]``.
+
+    ``blocks`` is ``(nblocks, bs, bs)``; ``x`` is ``(nblocks*bs,)`` or
+    ``(nblocks*bs, b)`` in the matrix' permuted space — the block-Jacobi
+    preconditioner apply.  The result has ``promote_types(blocks, x)``.
+    Complex dtypes on CUDA raise ``NotImplementedError``.
+    """
+    x2, was1d = as2d(x)
+    check_shapes("block_jacobi_apply", blocks, x2)
+    if x2.device.type == "cpu":
+        out = block_diag_matmul_ref(blocks, x2)
+    else:
+        _no_complex("block_jacobi_apply", blocks, x2)
+        out = block_diag_cuda(blocks.contiguous(), x2.contiguous())
+    return out[:, 0] if was1d else out
+
+
+def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
+                     dot_yy: bool = False, dot_xy: bool = False,
+                     dot_xx: bool = False):
+    """``(a*x + b*y, dots)`` in one sweep.  ``x``/``y`` are ``(n,)`` or
+    ``(n, bw)``; ``a``/``b`` scalars or ``(bw,)``.  ``dots`` is ``(3, bw)``
+    (``(3,)`` for 1-d inputs; rows yy, xy, xx, zeros where not asked) in
+    the accumulation dtype, or None when no dot is asked.  The result has
+    ``promote_types(x, y)``.  Complex dtypes on CUDA raise
+    ``NotImplementedError``.
+    """
+    x2, was1d = as2d(x)
+    y2, _ = as2d(y)
+    if x2.device.type == "cpu":
+        if tuple(y2.shape) != tuple(x2.shape):
+            raise ValueError(f"fused_axpby_dots: y{tuple(y.shape)} must "
+                             f"match x{tuple(x.shape)}")
+        out, dots = fused_axpby_dots_ref(x2, y2, a, b, dot_yy=dot_yy,
+                                         dot_xy=dot_xy, dot_xx=dot_xx)
+    else:
+        _no_complex("fused_axpby_dots", x2, y2)
+        out, dots = fused_axpby_dots_cuda(
+            x2.contiguous(), y2.contiguous(), a, b, dot_yy=dot_yy,
+            dot_xy=dot_xy, dot_xx=dot_xx)
+    if was1d:
+        out = out[:, 0]
+        dots = None if dots is None else dots[:, 0]
+    return out, dots

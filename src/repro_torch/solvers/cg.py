@@ -15,8 +15,14 @@ points compose the three and equal one monolithic solve bit for bit.
 ``block=True`` shares one Krylov space across the columns (BCGrQ block
 CG, :mod:`repro_torch.solvers.block`, on the tall-skinny kernels); a
 one-column right-hand side goes to the plain stepper, as in the JAX
-package.  Preconditioning (``M=``) needs the block-Jacobi kernel, which
-is not ported yet: it raises ``NotImplementedError``.
+package.
+
+``cg`` takes an optional SPD preconditioner ``M`` (see
+:mod:`repro_torch.solvers.precond`): ``M=None`` runs the plain
+:class:`CGState` stepper unchanged, a preconditioner switches to the
+:class:`PrecondCGState` stepper whose ``z = M r`` rides in the state.
+Convergence is still tested on the true residual ``||r||``.  As in the
+JAX package, ``block=True`` and ``pipelined_cg`` refuse a preconditioner.
 
 Vectors are ``(n, b)`` in operator (permuted) space.
 """
@@ -30,7 +36,8 @@ from repro_torch.core.spmv import SpmvOpts, as2d
 from repro_torch.solvers.block import BlockCGState, block_cg_body, block_cg_init
 from repro_torch.solvers.stepper import run_chunk
 
-__all__ = ["CGResult", "CGState", "PCGState", "cg", "cg_init", "cg_step",
+__all__ = ["CGResult", "CGState", "PrecondCGState", "PCGState", "cg",
+           "cg_init", "cg_step",
            "cg_finalize", "pipelined_cg", "pipelined_cg_init",
            "pipelined_cg_step", "pipelined_cg_finalize"]
 
@@ -49,6 +56,26 @@ class CGState(NamedTuple):
     r: torch.Tensor            # (n, b) residual
     p: torch.Tensor            # (n, b) search direction
     rr: torch.Tensor           # (b,)   <r, r> recurrence
+    tol2: torch.Tensor         # (b,)   per-column squared abs tolerance
+    it: int                    # block iteration counter
+    maxiter: int               # block iteration cap
+    done: torch.Tensor         # (b,)   per-column convergence flag
+
+
+class PrecondCGState(NamedTuple):
+    """Resumable preconditioned CG state (``z = M r`` recurrence).
+
+    ``rr`` (true squared residual norm, always real) drives the
+    ``done``/``tol`` test exactly like plain CG; ``rz = <r, z>`` is the
+    PCG recurrence scalar.
+    """
+
+    x: torch.Tensor            # (n, b) iterate
+    r: torch.Tensor            # (n, b) residual
+    z: torch.Tensor            # (n, b) preconditioned residual M r
+    p: torch.Tensor            # (n, b) search direction
+    rz: torch.Tensor           # (b,)   <r, z> recurrence
+    rr: torch.Tensor           # (b,)   true ||r||^2 (real)
     tol2: torch.Tensor         # (b,)   per-column squared abs tolerance
     it: int                    # block iteration counter
     maxiter: int               # block iteration cap
@@ -80,6 +107,13 @@ def _colsum(v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * v, dim=0)
 
 
+def _inner(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-column <a, b> with the conjugate-linear first argument."""
+    if a.is_complex() or b.is_complex():
+        return torch.sum(torch.conj(a) * b, dim=0)
+    return torch.sum(a * b, dim=0)
+
+
 def _maybe_1d(res: CGResult, was1d: bool) -> CGResult:
     if not was1d:
         return res
@@ -94,11 +128,13 @@ def _tol2(tol, bnorm2: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min((t * t) * bnorm2, torch.finfo(bnorm2.dtype).tiny)
 
 
-def _no_precond(M, who: str) -> None:
+def _no_pipelined_precond(M) -> None:
     if M is not None:
         raise NotImplementedError(
-            f"{who}: preconditioning (M=) needs the block-Jacobi kernel, "
-            f"which the port does not have yet")
+            "pipelined_cg does not support preconditioning: the Ghysels & "
+            "Vanroose preconditioned variant needs an extra u = M r carry "
+            "that this stepper does not yet implement.  Use cg(..., M=M) "
+            "(preconditioned CG) or drop the preconditioner.")
 
 
 def _start(op, b: torch.Tensor, x0: Optional[torch.Tensor]):
@@ -119,20 +155,31 @@ def cg_init(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
             block: bool = False):
     """Initial stepper state.  ``tol`` may be a scalar or per-column (b,).
 
+    ``M=None`` returns the plain :class:`CGState`; an SPD preconditioner
+    (``M.apply(r)`` in operator space) returns a :class:`PrecondCGState`.
+
     ``block=True`` with more than one column returns a
     :class:`~repro_torch.solvers.block.BlockCGState` (one Krylov space for
-    all columns); a one-column rhs gets the plain :class:`CGState`, as in
-    the JAX package.
+    all columns) and refuses a preconditioner; a one-column rhs gets the
+    plain stepper, as in the JAX package.
     """
-    _no_precond(M, "cg")
     if block and as2d(b)[0].shape[1] > 1:
+        if M is not None:
+            raise NotImplementedError(
+                "cg(block=True) does not support preconditioning yet; "
+                "drop M or use the column-wise block=False stepper")
         return block_cg_init(op, as2d(b)[0], x0, tol=tol, maxiter=maxiter)
     b2, x, r = _start(op, b, x0)
     rr = _colsum(r)
     bnorm2 = torch.clamp_min(_colsum(b2), torch.finfo(b2.dtype).tiny)
     tol2 = _tol2(tol, bnorm2)
-    return CGState(x=x, r=r, p=r, rr=rr, tol2=tol2, it=0,
-                   maxiter=int(maxiter), done=rr <= tol2)
+    if M is None:
+        return CGState(x=x, r=r, p=r, rr=rr, tol2=tol2, it=0,
+                       maxiter=int(maxiter), done=rr <= tol2)
+    z = M.apply(r)
+    return PrecondCGState(x=x, r=r, z=z, p=z, rz=_inner(r, z), rr=rr,
+                          tol2=tol2, it=0, maxiter=int(maxiter),
+                          done=rr <= tol2)
 
 
 def _cg_body(op, st: CGState) -> CGState:
@@ -155,13 +202,42 @@ def _cg_body(op, st: CGState) -> CGState:
                    done=st.done | (rr_new <= st.tol2))
 
 
+def _cg_precond_body(op, M, st: PrecondCGState) -> PrecondCGState:
+    # fused: q = A p and <p, q> in one sweep (GHOST_SPMV_DOT_XY)
+    q, _, dots = op.mv_fused(st.p, opts=SpmvOpts(dot_xy=True))
+    pq = dots[1].to(st.rz.dtype)
+    alpha = torch.where(st.done, 0.0, st.rz / torch.where(pq == 0, 1.0, pq))
+    x = st.x + alpha[None, :] * st.p
+    r = st.r - alpha[None, :] * q
+    rr_new = _colsum(r)
+    z = M.apply(r)
+    rz_new = _inner(r, z)
+    beta = rz_new / torch.where(st.rz == 0, 1.0, st.rz)
+    p = torch.where(st.done[None, :], st.p, z + beta[None, :] * st.p)
+    return PrecondCGState(x=x, r=r, z=z, p=p, rz=rz_new, rr=rr_new,
+                          tol2=st.tol2, it=st.it + 1, maxiter=st.maxiter,
+                          done=st.done | (rr_new <= st.tol2))
+
+
 def cg_step(op, state, k: int, M=None):
     """Advance up to ``k`` iterations, stopping early when all columns are
-    done or ``maxiter`` is reached.  Dispatches on the state's type."""
-    _no_precond(M, "cg_step")
+    done or ``maxiter`` is reached.  Dispatches on the state's type; pass
+    the same ``M`` the state was initialized with (``None`` for a plain
+    :class:`CGState`)."""
     if isinstance(state, BlockCGState):
+        if M is not None:
+            raise ValueError("block CG states are unpreconditioned; "
+                             "M must be None")
         return run_chunk(op, "block_cg", k, state, block_cg_body)
-    return run_chunk(op, "cg", k, state, _cg_body)
+    if M is None:
+        if isinstance(state, PrecondCGState):
+            raise ValueError("state was initialized with a preconditioner; "
+                             "pass the same M to cg_step")
+        return run_chunk(op, "cg", k, state, _cg_body)
+    if not isinstance(state, PrecondCGState):
+        raise ValueError("state was initialized without a preconditioner; "
+                         "call cg_init(..., M=M) first")
+    return run_chunk(op, "cg_precond", k, state, _cg_precond_body, M)
 
 
 def cg_finalize(state) -> CGResult:
@@ -171,12 +247,12 @@ def cg_finalize(state) -> CGResult:
 def cg(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
        tol: float = 1e-8, maxiter: int = 500, M=None,
        block: bool = False) -> CGResult:
-    """CG, ``op`` SPD.  ``block=False`` solves the columns independently;
-    ``block=True`` shares one Krylov space across them (see
-    :func:`cg_init`)."""
+    """(P)CG.  ``op`` must be SPD; ``M`` too.  ``block=False`` solves the
+    columns independently; ``block=True`` shares one Krylov space across
+    them (see :func:`cg_init`)."""
     was1d = b.ndim == 1
     state = cg_init(op, b, x0, tol=tol, maxiter=maxiter, M=M, block=block)
-    state = cg_step(op, state, maxiter)
+    state = cg_step(op, state, maxiter, M=M)
     return _maybe_1d(cg_finalize(state), was1d)
 
 
@@ -184,10 +260,10 @@ def cg(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
 def pipelined_cg_init(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                       *, tol=1e-8, maxiter: int = 500, M=None,
                       block: bool = False) -> PCGState:
-    """Initial pipelined-CG stepper state (unpreconditioned).  ``block``
-    exists for signature parity: there is no shared-Krylov pipelined CG,
-    so ``block=True`` raises, as in the JAX package."""
-    _no_precond(M, "pipelined_cg")
+    """Initial pipelined-CG stepper state (unpreconditioned).  ``M`` and
+    ``block`` exist for signature parity: a preconditioner and
+    ``block=True`` raise, as in the JAX package."""
+    _no_pipelined_precond(M)
     if block:
         raise NotImplementedError(
             "pipelined_cg has no block (shared Krylov space) mode; use "
@@ -236,7 +312,7 @@ def _pcg_body(op, st: PCGState) -> PCGState:
 
 def pipelined_cg_step(op, state: PCGState, k: int, M=None) -> PCGState:
     """Advance up to ``k`` iterations (``M`` must be None)."""
-    _no_precond(M, "pipelined_cg_step")
+    _no_pipelined_precond(M)
     return run_chunk(op, "pipelined_cg", k, state, _pcg_body)
 
 

@@ -26,19 +26,21 @@ __all__ = ["run_chunk", "merge_columns", "merge_columns_masked",
            "snap_chunk", "clear_chunk_cache"]
 
 
-def run_chunk(op, name: str, k: int, state, body: Callable):
-    """Advance ``state`` by up to ``k`` iterations of ``body(op, state)``.
+def run_chunk(op, name: str, k: int, state, body: Callable, *args):
+    """Advance ``state`` by up to ``k`` iterations of
+    ``body(op, *args, state)``.
 
     The loop stops early once ``state.it`` reaches ``state.maxiter`` or
     every column's ``done`` flag is set — exactly the monolithic solver's
     termination test, so chunking never changes the iterate sequence.
     ``name`` labels the solver, as in the JAX package, where it keys the
-    cache of compiled chunks.
+    cache of compiled chunks.  ``args`` (a preconditioner) are handed to
+    ``body`` rather than captured by a closure.
     """
     i = 0
     k = int(k)
     while i < k and state.it < state.maxiter and not bool(state.done.all()):
-        state = body(op, state)
+        state = body(op, *args, state)
         i += 1
     return state
 

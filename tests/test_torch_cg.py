@@ -25,7 +25,8 @@ from repro_torch.interop import CGSTATE_ARRAYS, state_from_arrays
 from repro_torch.matrices import laplace2d, laplace3d, matpde
 from repro_torch.solvers import (GhostOperator, MatrixFreeOperator, cg,
                                  cg_finalize, cg_init, cg_step, make_operator,
-                                 merge_columns, pipelined_cg,
+                                 make_preconditioner, merge_columns,
+                                 pipelined_cg,
                                  pipelined_cg_finalize, pipelined_cg_init,
                                  pipelined_cg_step)
 from repro_torch.solvers import stepper
@@ -170,33 +171,43 @@ def test_per_column_tolerance_matches_jax():
     assert bool(res.converged.all())
 
 
-@pytest.mark.parametrize("M,block", [(object(), False), (None, True)],
+@pytest.mark.parametrize("M,block", [("block_jacobi", False), (None, True)],
                          ids=["M", "block"])
 def test_unported_modes_raise(M, block):
-    """Preconditioning is not ported and raises; block=True is ported for
-    cg (see test_torch_block.py), so only its preconditioned form and the
-    pipelined stepper, which has no block mode in either package, raise."""
+    """What still raises, as in the reference: a preconditioner with
+    ``block=True`` (the block stepper is unpreconditioned) and with the
+    pipelined stepper (no preconditioned variant), and the pipelined
+    stepper's ``block=True``.  ``cg_init(M=...)`` returns a
+    PrecondCGState, and a plain ``block=True`` a BlockCGState (see
+    test_torch_block.py and test_torch_precond.py)."""
     A, b, _ = case_study(np.float32)
     op = make_operator(A)
     bp = A.permute(b)
-    with pytest.raises(NotImplementedError):
-        pipelined_cg_init(op, bp, M=M, block=block)
     if M is not None:
+        M = make_preconditioner(M, matrix=A)
+        with pytest.raises(NotImplementedError, match="pipelined_cg"):
+            pipelined_cg_init(op, bp, M=M)
+        with pytest.raises(NotImplementedError, match="pipelined_cg"):
+            pipelined_cg(op, bp, M=M)
+        with pytest.raises(NotImplementedError, match="pipelined_cg"):
+            pipelined_cg_step(op, pipelined_cg_init(op, bp), 3, M=M)
+        with pytest.raises(NotImplementedError, match="block=True"):
+            cg(op, bp, M=M, block=True)
+        with pytest.raises(NotImplementedError, match="block=True"):
+            cg_init(op, bp, M=M, block=True)
+        assert type(cg_init(op, bp, M=M)).__name__ == "PrecondCGState"
+    else:
+        with pytest.raises(NotImplementedError):
+            pipelined_cg_init(op, bp, block=block)
+        M = make_preconditioner("block_jacobi", matrix=A)
         with pytest.raises(NotImplementedError):
             cg(op, bp, M=M, block=block)
         with pytest.raises(NotImplementedError):
             cg_init(op, bp, M=M, block=block)
-        st = cg_init(op, bp)
-        with pytest.raises(NotImplementedError):
+        st = cg_init(op, bp, block=block)
+        assert type(st).__name__ == "BlockCGState"
+        with pytest.raises(ValueError, match="unpreconditioned"):
             cg_step(op, st, 3, M=M)
-        with pytest.raises(NotImplementedError):
-            pipelined_cg(op, bp, M=M)
-    else:
-        with pytest.raises(NotImplementedError):
-            cg(op, bp, M=object(), block=block)
-        with pytest.raises(NotImplementedError):
-            cg_init(op, bp, M=object(), block=block)
-        assert type(cg_init(op, bp, block=block)).__name__ == "BlockCGState"
 
 
 def test_state_from_jax_resumes_identically():

@@ -44,12 +44,15 @@ def test_port_has_its_modules():
             "core/blockvec.py",
             "kernels/ops.py", "kernels/ref.py", "kernels/sellcs_spmv.py",
             "kernels/tsmttsm.py", "kernels/tsmm.py",
+            "kernels/block_diag.py", "kernels/fused_update.py",
             "kernels/_build.py", "kernels/csrc/sellcs_spmv.cu",
             "kernels/csrc/tsmttsm.cu", "kernels/csrc/tsmm.cu",
+            "kernels/csrc/block_diag.cu", "kernels/csrc/fused_update.cu",
+            "kernels/csrc/dtypes.cuh",
             "matrices/generators.py", "matrices/mmio.py",
             "solvers/operator.py", "solvers/stepper.py", "solvers/cg.py",
             "solvers/block.py", "solvers/minres.py", "solvers/lanczos.py",
-            "solvers/chebfd.py", "solvers/kpm.py",
+            "solvers/chebfd.py", "solvers/kpm.py", "solvers/precond.py",
             "interop.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
@@ -57,7 +60,9 @@ def test_port_has_its_modules():
 
 
 NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
-          "kernels/tsmm.py", "kernels/_build.py", "core/spmv.py",
+          "kernels/tsmm.py", "kernels/block_diag.py",
+          "kernels/fused_update.py", "kernels/ref.py", "kernels/_build.py",
+          "core/spmv.py",
           "core/execution.py", "core/blockvec.py", "solvers/block.py",
           "solvers/cg.py", "solvers/minres.py", "solvers/lanczos.py",
           "solvers/chebfd.py", "solvers/kpm.py", "../../chip_smoke.py"]
@@ -72,7 +77,8 @@ def test_no_try_around_build_or_launch(rel):
     assert "REPRO_" not in (PORT / rel).read_text()
 
 
-@pytest.mark.parametrize("name", ["sellcs_spmv", "tsmttsm", "tsmm"])
+@pytest.mark.parametrize("name", ["sellcs_spmv", "tsmttsm", "tsmm",
+                                  "block_diag", "fused_update"])
 def test_cuda_sources_return_the_launch_error(name):
     """Every CUDA source states what it replaces and its bound, and its C
     entry point returns ``cudaGetLastError()``."""
@@ -80,6 +86,18 @@ def test_cuda_sources_return_the_launch_error(name):
     assert "Replaces: repro/kernels/" in src and "Bound:" in src
     assert f'extern "C" int {name}_launch' in src
     assert "return (int)cudaGetLastError();" in src
+
+
+@pytest.mark.parametrize("name", ["sellcs_spmv", "tsmttsm", "tsmm",
+                                  "block_diag", "fused_update"])
+def test_cuda_sources_share_one_dtype_policy(name):
+    """The accumulation type, promotion and half conversions live in
+    ``csrc/dtypes.cuh`` alone; no source keeps a copy of them."""
+    src = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert '#include "dtypes.cuh"' in src
+    for own in ("struct Acc", "struct Promote", "load_as(double",
+                "store_as(float", "upcast("):
+        assert own not in src, own
 
 
 def _no_gpu(monkeypatch):
@@ -111,7 +129,8 @@ def test_launch_counters():
 
 
 def test_build_layout_and_missing_compiler(monkeypatch, tmp_path):
-    assert _build.sources() == ["sellcs_spmv", "tsmm", "tsmttsm"]
+    assert _build.sources() == ["block_diag", "fused_update", "sellcs_spmv",
+                                "tsmm", "tsmttsm"]
     lib = _build._library_path("sellcs_spmv")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert lib.name.startswith("libsellcs_spmv-") and lib.suffix == ".so"
@@ -120,6 +139,22 @@ def test_build_layout_and_missing_compiler(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+def test_a_header_edit_renames_every_library(monkeypatch, tmp_path):
+    """``_library_path`` hashes ``csrc/*.cuh`` too, so a library built
+    against an older header is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in _build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._library_path(n) for n in _build.sources()}
+    assert before == {n: _build._library_path(n) for n in _build.sources()}
+    with open(csrc / "dtypes.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build._library_path(n) for n in _build.sources()}
+    assert all(after[n] != before[n] for n in before)
 
 
 def _run_smoke(cwd):
@@ -193,3 +228,25 @@ def test_chip_smoke_block_phases_rehearse_on_cpu(monkeypatch):
     assert bcg["iters"] > 0 and bcg["state"].it == bcg["iters"]
     chip_smoke.phase_block_minres(fw, "cpu rehearsal")
     chip_smoke.phase_eigen(fw, "cpu rehearsal")
+
+
+def test_chip_smoke_precond_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's B4 and B5 grids, preconditioned CG (with the B5
+    residual check), preconditioned MINRES and Chebyshev PCG, run on the
+    CPU at a small size: the kernels' plain versions stand in (the launch
+    counts are then 0), so this checks the phases' shapes, bounds and
+    control flow, not the kernels."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("PRECOND_NX", 64),
+                        ("CHEB_PCG_NX", 32), ("B4_NB", (0, 1, 7, 40)),
+                        ("B5_NS", (0, 1, 37, 600))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    chip_smoke.phase_b4_grid()
+    chip_smoke.phase_b5_grid()
+    pcg = chip_smoke.phase_precond_cg("cpu rehearsal")
+    assert pcg["iters"] > 0 and pcg["plain_iters"] > pcg["iters"]
+    assert pcg["state"].it == pcg["iters"]
+    assert chip_smoke.phase_b5_residual(pcg, "cpu rehearsal") == 0
+    chip_smoke.phase_precond_minres(pcg, "cpu rehearsal")
+    chip_smoke.phase_chebyshev_pcg("cpu rehearsal")

@@ -21,7 +21,8 @@ from repro.solvers import make_operator as jmake_operator  # noqa: E402
 from repro_torch.core import from_coo, to_dense  # noqa: E402
 from repro_torch.interop import state_from_arrays  # noqa: E402
 from repro_torch.matrices import laplace2d, matpde  # noqa: E402
-from repro_torch.solvers import (MinresState, make_operator, minres,  # noqa: E402
+from repro_torch.solvers import (MinresState, make_operator,  # noqa: E402
+                                 make_preconditioner, minres,
                                  minres_finalize, minres_init, minres_step)
 
 jmin = importlib.import_module("repro.solvers.minres")
@@ -135,10 +136,18 @@ def test_jax_minres_state_continues_in_the_port():
 
 
 def test_minres_preconditioning_raises():
+    """Preconditioned MINRES runs in the port (parity in
+    test_torch_precond.py); what raises is what the reference refuses: a
+    state and an ``M`` that do not belong together."""
     A, b, _ = indefinite(np.float32)
     op = make_operator(A)
-    with pytest.raises(NotImplementedError, match="block-Jacobi"):
-        minres(op, A.permute(b), M=object())
+    M = make_preconditioner("block_jacobi_abs:8", matrix=A)
+    res = minres(op, A.permute(b), tol=1e-5, maxiter=800, M=M)
+    assert type(minres_init(op, A.permute(b), M=M)).__name__ == \
+        "PrecondMinresState"
+    assert bool(res.converged.all())
     st = minres_init(op, A.permute(b))
-    with pytest.raises(NotImplementedError, match="block-Jacobi"):
-        minres_step(op, st, 3, M=object())
+    with pytest.raises(ValueError, match="without a preconditioner"):
+        minres_step(op, st, 3, M=M)
+    with pytest.raises(ValueError, match="with a preconditioner"):
+        minres_step(op, minres_init(op, A.permute(b), M=M), 3)
