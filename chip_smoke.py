@@ -48,7 +48,26 @@ the card, holding every kernel against its plain PyTorch version:
 14. block-Jacobi preconditioned MINRES on the same matrix, and
     Chebyshev-preconditioned CG on anisotropic_laplace2d(1024);
 15. timing of B4 and B5 at the main shapes, and the time split of one
-    preconditioned CG iteration.
+    preconditioned CG iteration;
+16. B6 (the selective scan) against its plain version computed in
+    float64, over batch, sequence length, d_inner and state size, with dt
+    from 0 to large and A <= 0, each output held to a stated error bound
+    (the earlier phases' matrices are freed first);
+17. slice 8a's main path at full width: ``forward`` (the serving
+    prefill) of jamba-1.5-large at its published widths, cut to one
+    period of 8 layers (7 Mamba, attention at index 4) with a dense
+    SwiGLU FFN in every slot instead of MoE (one period with its four MoE
+    FFNs needs 90.5 GB), bfloat16, weights from a seed, B = 4, S = 4096:
+    B6 launches (one per Mamba layer), finite logits, tokens/s and the
+    split of one forward timed with CUDA events;
+18. ``launch.serve.generate`` on that model: a 16-token prompt and 32
+    greedy tokens, ms per token;
+19. the same model in float32, B = 1: ``forward`` (through B6) against 64
+    ``decode_step`` calls (plain PyTorch) within a stated tolerance;
+20. the registered SMOKE jamba (MoE, 4 experts): ``forward`` and decode
+    on the card against the port's CPU run of the same weights;
+21. timing of B6 at the main shape beside its plain version and its
+    bound.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -57,6 +76,9 @@ or of the JAX package.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -71,16 +93,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import SpmvOpts, execution, from_coo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_update  # noqa: E402
 from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
+from repro_torch.kernels.mamba_scan import MAX_N as SCAN_MAX_N  # noqa: E402
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    error_bound as scan_error_bound)
 from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
-                                     fused_axpby_dots, sellcs_spmv, tsmm,
-                                     tsmttsm)
+                                     fused_axpby_dots, mamba_scan,
+                                     sellcs_spmv, tsmm, tsmttsm)
 from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
-                                     fused_axpby_dots_ref, sellcs_spmv_ref,
-                                     tsmm_ref, tsmttsm_ref)
+                                     fused_axpby_dots_ref, mamba_scan_ref,
+                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.kernels.tsmttsm import MAX_DIM, summation_depth  # noqa: E402
 from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
                                   laplace3d, matpde)
@@ -89,6 +116,9 @@ from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E40
                                  lanczos_extrema, make_operator,
                                  make_preconditioner, minres,
                                  minres_finalize, minres_init, minres_step)
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), the bound's denominator
@@ -106,6 +136,8 @@ KERNELS = {
                           "src/repro/kernels/block_diag.py:50"),
     "fused_axpby_dots": ("src/repro_torch/kernels/csrc/fused_update.cu",
                          "src/repro/kernels/fused_update.py:42"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:57"),
 }
 # max |kernel - plain| / max |plain|, by compute dtype
 TOL = {torch.float64: {"vec": 1e-12, "dots": 1e-12},
@@ -139,6 +171,19 @@ B4_NB = (0, 1, 7, 4096)
 B5_NS = (0, 1, 37, 4109, 1 << 20)
 #: (from bw = 86 on a thread block has fewer threads than (dot, column) pairs)
 B5_BW = (1, 3, 4, 16, 86, 256)
+#: slice 8a: the B6 grid, and the jamba serving path (``lm_config``): its
+#: widths ("full": the published ones; "smoke": the registered SMOKE ones,
+#: for a CPU rehearsal), prefill batch and length, the serve loop's prompt
+#: and output lengths, the float32 decode-vs-forward length and the
+#: tolerances of the decode-vs-forward and MoE card-vs-CPU checks
+B6_B = (1, 3)
+B6_S = (1, 7, 64, 257, 4096)
+B6_DI = (1, 8, 100, 16384)
+B6_N = (1, 4, 16, SCAN_MAX_N)
+LM_ARCH, LM_WIDTHS, LM_SEED = "jamba_1_5_large_398b", "full", 0
+LM_BATCH, LM_SEQ = 4, 4096
+SERVE_PROMPT, SERVE_GEN = 16, 32
+DECODE_SEQ, DECODE_TOL, MOE_TOL = 64, 2e-3, 1e-4
 
 
 def sync() -> None:
@@ -217,7 +262,8 @@ def phase_build() -> None:
             if m:
                 inst = re.search(r"(sellcs_spmv_fused|tsmttsm_partial|"
                                  r"tsmttsm_finish|tsmm_rows|block_diag_rows|"
-                                 r"axpby_dots_partial|axpby_dots_finish)"
+                                 r"axpby_dots_partial|axpby_dots_finish|"
+                                 r"mamba_scan_rows)"
                                  r"I(\w+?)EEv",
                                  m.group(1))
                 entry = (f"{inst.group(1)}<{inst.group(2)}>" if inst
@@ -1369,6 +1415,355 @@ def phase_pcg_split(pcg, card) -> None:
           f"({pcg['plain_iters']} iterations)")
 
 
+# ----------------------------------------------------------------- phase 16
+def _b6_inputs(B, S, di, N, seed):
+    """dt >= 0 from 0 to large (a tenth of the entries 0, a tenth
+    log-uniform in [1, 300], so that exp(dt A) underflows), A <= 0 with a
+    column of zeros (no decay: the longest accumulation)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    def uni(*shape):
+        return torch.rand(shape, generator=g, device=DEVICE)
+
+    dt = rnd(B, S, di).abs() * 0.1
+    dt = torch.where(uni(B, S, di) < 0.1, 0.0, dt)
+    big = torch.exp(uni(B, S, di) * float(np.log(300.0)))
+    dt = torch.where(uni(B, S, di) < 0.1, big, dt)
+    A = -torch.exp(rnd(di, N))
+    A[:, 0] = 0.0
+    return dt, rnd(B, S, di), rnd(B, S, N), rnd(B, S, N), A
+
+
+def _b6_check(args, tag, worst):
+    """Kernel (plain version on the CPU) against the plain version in
+    float64, held to ``error_bound``; the worst ratio per N in ``worst``."""
+    got = mamba_scan(*args)
+    want = mamba_scan_ref(*(a.double() for a in args))
+    bound = scan_error_bound(*args)
+    err = (got.double() - want).abs()
+    ratio = float((err / bound).max()) if err.numel() else 0.0
+    N = args[4].shape[1]
+    if ratio > worst.get(N, (0.0, ""))[0]:
+        worst[N] = (ratio, tag)
+    require(got.dtype == torch.float32 and got.shape == want.shape,
+            f"B6 {tag}: {got.dtype} {tuple(got.shape)}")
+    require(ratio <= 1.0, f"B6 {tag}: error {ratio:.3f} of its bound")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_b6_grid() -> None:
+    """B6 against its plain version in float64 over batch, sequence,
+    d_inner and state sizes, each output held to ``error_bound``: twice
+    the first-order float32 rounding of the recurrence (CUDA's expf within
+    2 ulp, the rounded exponent, two products and a sum per step, N terms
+    in y), about (6 + |dt A|) u per step on the decayed state and 3 u on
+    each new term, so the bound grows with the steps a term survives."""
+    worst, n = {}, 0
+    for B in B6_B:
+        for S in B6_S:
+            for di in B6_DI:
+                for N in B6_N:
+                    args = _b6_inputs(B, S, di, N, seed=n)
+                    _b6_check(args, f"B={B} S={S} di={di} N={N}", worst)
+                    n += 1
+    sync()
+    print(f"[b6 grid] {n} cases (B {B6_B}, S {B6_S}, d_inner {B6_DI}, "
+          f"N {B6_N}; dt from 0 to 300, A <= 0) within 2 x first-order "
+          f"bound")
+    for N, (r, tag) in sorted(worst.items()):
+        print(f"[b6 grid]   N={N}: worst {r:.3f} of the bound ({tag})")
+
+
+# ----------------------------------------------------------------- phase 17
+def lm_config(dtype):
+    """The full-width path's model: jamba-1.5-large at its published widths
+    (``LM_WIDTHS = "full"``; the registered SMOKE widths in a CPU
+    rehearsal), one period of 8 layers (7 Mamba, attention at index 4), a
+    dense SwiGLU FFN in every slot instead of MoE, scan_impl "kernel"."""
+    base = (get_smoke_config(LM_ARCH) if LM_WIDTHS == "smoke"
+            else get_config(LM_ARCH))
+    return dataclasses.replace(
+        base, n_layers=base.period, moe=None, dtype=dtype,
+        pattern=tuple((mix, "mlp") for mix, _ in base.pattern),
+        ssm=dataclasses.replace(base.ssm, scan_impl="kernel"))
+
+
+def _n_mamba(cfg) -> int:
+    return sum(mix == "mamba" for mix, _ in cfg.full_pattern())
+
+
+def _tokens(cfg, B, S, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=DEVICE)
+
+
+def _forward_timed(cfg, model, tokens):
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = T.forward(cfg, model, {"tokens": tokens})
+    sync()
+    return logits, time.perf_counter() - t0
+
+
+def phase_prefill(card):
+    """Slice 8a's main path: ``forward`` (the serving prefill) of jamba at
+    full width in bfloat16, through B6 in each Mamba layer."""
+    cfg = lm_config(torch.bfloat16)
+    sync()
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, LM_SEED, DEVICE)
+    sync()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[prefill] {cfg.name} widths d={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"d_inner={cfg.ssm.inner(cfg.d_model)} N={cfg.ssm.d_state}, "
+          f"{cfg.n_layers} layers {[m for m, _ in cfg.pattern]}, dense FFN "
+          f"in every slot: {T.param_count(model) / 1e9:.3f} G parameters, "
+          f"{nbytes / 1e9:.2f} GB bf16, made from seed {LM_SEED} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tokens = _tokens(cfg, LM_BATCH, LM_SEQ, seed=1)
+    execution.reset_launch_counts()
+    logits, secs = _forward_timed(cfg, model, tokens)
+    launches = execution.launch_counts().get("mamba_scan", 0)
+    finite = bool(torch.isfinite(logits).all())
+    shape = tuple(logits.shape)
+    del logits
+    _, warm = _forward_timed(cfg, model, tokens)
+    ntok = LM_BATCH * LM_SEQ
+    print(f"[prefill] forward B={LM_BATCH} S={LM_SEQ}: first {secs:.3f} s, "
+          f"again {warm:.3f} s ({ntok / warm:.0f} tokens/s); logits {shape} "
+          f"finite={finite}; mamba_scan launches {launches} (one per Mamba "
+          f"layer: {_n_mamba(cfg)})  [{card}]")
+    require(finite, "prefill: non-finite logits")
+    require(shape == (LM_BATCH, LM_SEQ, cfg.padded_vocab),
+            f"prefill: logits {shape}")
+    require(launches == _n_mamba(cfg) or DEVICE == "cpu",
+            f"prefill: mamba_scan launches {launches} != {_n_mamba(cfg)}")
+    return dict(cfg=cfg, model=model, tokens=tokens, launches=launches,
+                secs=warm, tokens_per_s=ntok / warm)
+
+
+def phase_prefill_split(lm, card) -> None:
+    """Where one full-width forward goes: each layer's mixer and FFN, B6
+    and the LM head, timed alone with CUDA events on inputs of the
+    forward's shapes (the embedding output stands in for each layer's
+    input)."""
+    cfg, model, tokens = lm["cfg"], lm["model"], lm["tokens"]
+    x = L.embed_apply(model.embed, tokens)
+    pos = torch.arange(LM_SEQ, device=DEVICE).expand(LM_BATCH, LM_SEQ)
+    parts = {"mamba_scan (B6)": 0.0, "Mamba layers without B6": 0.0,
+             "attention layer": 0.0, "FFNs": 0.0, "final norm + LM head": 0.0}
+    b6_ms = None
+    for p in model.decoder:
+        for i, (mix, ffn) in enumerate(cfg.pattern):
+            pm = p[f"l{i}_mix"]
+            ms = time_ms(lambda: T._apply_mixer(
+                cfg, pm, x, mix, positions=pos, positions3=None),
+                warmup=1, iters=3)
+            if mix == "mamba":
+                if b6_ms is None:
+                    h = L.apply_norm(cfg.norm, pm["norm"], x)
+                    dt, xc, Bc, Cc, A, _ = SSM._scan_inputs(pm["mamba"], h,
+                                                            cfg.ssm)
+                    xf, A = xc.float(), A.contiguous()
+                    b6_ms = time_ms(lambda: mamba_scan(dt, xf, Bc, Cc, A),
+                                    warmup=1, iters=5)
+                    del h, dt, xc, Bc, Cc, xf
+                parts["mamba_scan (B6)"] += b6_ms
+                parts["Mamba layers without B6"] += ms - b6_ms
+            else:
+                parts["attention layer"] += ms
+            parts["FFNs"] += time_ms(lambda: T._apply_ffn(
+                cfg, p[f"l{i}_ffn"], x, ffn), warmup=1, iters=3)
+    parts["final norm + LM head"] = time_ms(lambda: L.lm_head_apply(
+        model.embed, L.apply_norm(cfg.norm, model.final_norm, x),
+        model.lm_head), warmup=1, iters=3)
+    total = 1e3 * lm["secs"]
+    print(f"[prefill split] one forward = {total:.1f} ms (B={LM_BATCH}, "
+          f"S={LM_SEQ}, bf16; host clock)  [{card}]")
+    for name, ms in parts.items():
+        print(f"[prefill split]   {name:24s} {ms:9.2f} ms "
+              f"({100 * ms / total:.1f}%)")
+    rest = total - sum(parts.values())
+    print(f"[prefill split]   {'rest (embedding, launches)':24s} "
+          f"{rest:9.2f} ms ({100 * rest / total:.1f}%)")
+
+
+# ----------------------------------------------------------------- phase 18
+def phase_serve(lm, card) -> None:
+    """``launch.serve.generate`` on the full-width model: the prompt token
+    by token through ``decode_step``, then greedy decode (plain PyTorch:
+    the decode step has no scan)."""
+    cfg, model = lm["cfg"], lm["model"]
+    prompts = _tokens(cfg, LM_BATCH, SERVE_PROMPT, seed=2)
+    execution.reset_launch_counts()
+    out = generate(cfg, model, prompts, SERVE_GEN)
+    launches = execution.launch_counts().get("mamba_scan", 0)
+    toks = out.tokens
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    n_dec = SERVE_GEN - 1
+    print(f"[serve] generate B={LM_BATCH} prompt={SERVE_PROMPT} "
+          f"gen={SERVE_GEN}: prefill {1e3 * out.prefill_s:.1f} ms "
+          f"({1e3 * out.prefill_s / SERVE_PROMPT:.2f} ms/token step), "
+          f"decode {1e3 * out.decode_s / n_dec:.2f} ms/token step "
+          f"({LM_BATCH * n_dec / out.decode_s:.1f} tokens/s), tokens in "
+          f"the vocabulary: {in_vocab}, mamba_scan launches {launches}  "
+          f"[{card}]")
+    print(f"[serve] first generations: {toks[:2, :8].tolist()}")
+    require(tuple(toks.shape) == (LM_BATCH, SERVE_GEN),
+            f"serve: tokens {tuple(toks.shape)}")
+    require(in_vocab, "serve: a token outside the vocabulary")
+    require(bool(torch.isfinite(out.logits).all()), "serve: non-finite logits")
+
+
+# ----------------------------------------------------------------- phase 19
+def phase_decode_vs_forward(card) -> None:
+    """The full-width model in float32, B=1: the logits of ``forward``
+    (through B6) against those of ``DECODE_SEQ`` ``decode_step`` calls
+    (plain PyTorch, no kernel).  Gate: max |diff| <= DECODE_TOL * max
+    |logit|; the two paths sum every product in other orders (online
+    against direct attention, a sequence-wide scan against one step at a
+    time, other GEMM shapes), and the longest contraction (d_ff = 24576)
+    alone allows 24576 u = 1.5e-3 relative; a wrong state in B6 moves the
+    logits by O(1)."""
+    cfg = lm_config(torch.float32)
+    model = T.init_params(cfg, LM_SEED, DEVICE)
+    tokens = _tokens(cfg, 1, DECODE_SEQ, seed=3)
+    execution.reset_launch_counts()
+    ref, secs = _forward_timed(cfg, model, tokens)
+    launches = execution.launch_counts().get("mamba_scan", 0)
+    cache = T.init_cache(cfg, 1, DECODE_SEQ, DEVICE)
+    outs = []
+    sync()
+    t0 = time.perf_counter()
+    for t in range(DECODE_SEQ):
+        logits, cache = T.decode_step(cfg, model, cache, tokens[:, t:t + 1], t)
+        outs.append(logits[:, 0])
+    sync()
+    dsecs = time.perf_counter() - t0
+    dec = torch.stack(outs, dim=1)
+    diff = float((dec - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[decode vs forward] f32, B=1, S={DECODE_SEQ}: forward {secs:.3f} "
+          f"s ({launches} mamba_scan launches), {DECODE_SEQ} decode steps "
+          f"{dsecs:.3f} s; max |decode - forward| {diff:.3e} = "
+          f"{diff / scale:.3e} of max |logit| {scale:.3f} (tol "
+          f"{DECODE_TOL})  [{card}]")
+    require(bool(torch.isfinite(ref).all()), "decode vs forward: non-finite")
+    require(diff <= DECODE_TOL * scale,
+            f"decode vs forward: {diff / scale:.3e} > {DECODE_TOL}")
+    require(launches == _n_mamba(cfg) or DEVICE == "cpu",
+            f"f32 forward: mamba_scan launches {launches}")
+
+
+# ----------------------------------------------------------------- phase 20
+def phase_moe(card) -> None:
+    """The registered SMOKE jamba (MoE, 4 experts, top 2) with weights from
+    a seed: ``forward`` (through B6) and decode on the card against the
+    port's own CPU run of the same weights.  As in the CPU parity tests,
+    the router weights are multiplied by 20 and the capacity factor is 8,
+    so near-tie expert choices cannot flip between the two devices.  Gate:
+    max |card - CPU| <= MOE_TOL * max |logit| (float32 round-off of eight
+    layers in other summation orders)."""
+    base = get_smoke_config(LM_ARCH)
+    cfg = dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, capacity_factor=8.0),
+        ssm=dataclasses.replace(base.ssm, scan_impl="kernel"))
+    host = T.init_params(cfg, LM_SEED, "cpu")
+    for name, w in host.named_parameters():
+        if name.endswith("router"):
+            w.mul_(20.0)
+    card_model = copy.deepcopy(host).to(DEVICE)
+    tok = torch.randint(0, cfg.vocab_size, (2, 12),
+                        generator=torch.Generator().manual_seed(4))
+    execution.reset_launch_counts()
+    got, aux = T.forward(cfg, card_model, {"tokens": tok.to(DEVICE)})
+    sync()
+    launches = execution.launch_counts().get("mamba_scan", 0)
+    want, want_aux = T.forward(cfg, host, {"tokens": tok})
+    err = rel_err(got.cpu(), want)
+    cd, hd = (T.init_cache(cfg, 2, 4, dev) for dev in (DEVICE, "cpu"))
+    derr = 0.0
+    for t in range(4):
+        a, cd = T.decode_step(cfg, card_model, cd, tok[:, t:t + 1].to(DEVICE),
+                              t)
+        b, hd = T.decode_step(cfg, host, hd, tok[:, t:t + 1], t)
+        derr = max(derr, rel_err(a.cpu(), b))
+    print(f"[moe] {cfg.name} ({cfg.moe.n_experts} experts, top "
+          f"{cfg.moe.top_k}): card against CPU, forward {err:.3e} (aux "
+          f"{float(aux):.6f} / {float(want_aux):.6f}), 4 decode steps "
+          f"{derr:.3e} of max |logit| (tol {MOE_TOL}); mamba_scan launches "
+          f"{launches}  [{card}]")
+    require(err <= MOE_TOL and derr <= MOE_TOL,
+            f"moe: card differs from CPU by {max(err, derr):.3e}")
+    require(abs(float(aux) - float(want_aux)) <= MOE_TOL * abs(float(want_aux)),
+            "moe: load-balancing loss differs")
+    require(launches == _n_mamba(cfg) or DEVICE == "cpu",
+            f"moe forward: mamba_scan launches {launches}")
+
+
+# ----------------------------------------------------------------- phase 21
+#: exponentials the special-function units issue per clock and SM (Hopper)
+SFU_EXP_PER_CLK = 16
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
+
+
+def phase_b6_timing(card):
+    """B6 at the main shape (B 4, S 4096, d_inner 16384, N 16): kernel, the
+    plain version once, and the bound: the larger of the bytes (dt, xc,
+    Bc, Cc, A read once, y written once) over 3.35 TB/s and the
+    exponentials (B S di N) at 16 per clock per SM."""
+    cfg = lm_config(torch.bfloat16)
+    B, S, di, N = LM_BATCH, LM_SEQ, cfg.ssm.inner(cfg.d_model), cfg.ssm.d_state
+    args = list(_b6_inputs(B, S, di, N, seed=21))
+    args[0] = args[0].clamp(max=1.0)          # dt as the model has it
+    y = mamba_scan(*args)
+    want = mamba_scan_ref(*(a.double() for a in args))
+    err = float((y.double() - want).abs().max())
+    ratio = float(((y.double() - want).abs()
+                   / scan_error_bound(*args)).max())
+    del want
+    ms = time_ms(lambda: mamba_scan(*args), warmup=3, iters=20)
+    sync()
+    t0 = time.perf_counter()
+    mamba_scan_ref(*args)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = _nbytes(*args, y)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    props = torch.cuda.get_device_properties(0)
+    clock = _sm_clock_hz()
+    nexp = B * S * di * N
+    exp_ms = 1e3 * nexp / (SFU_EXP_PER_CLK * props.multi_processor_count
+                           * clock)
+    flops_ms = 1e3 * 5.0 * nexp / PEAK_FLOPS[torch.float32]
+    ops_ms = max(exp_ms, flops_ms)
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"[timing] mamba_scan f32 B={B} S={S} di={di} N={N}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms (once), library n/a (no "
+          f"single PyTorch call computes a selective scan), bound "
+          f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for "
+          f"{nbytes / 1e9:.3f} GB; {nexp / 1e9:.2f} G exponentials "
+          f"{exp_ms:.4f} ms at {SFU_EXP_PER_CLK}/clock/SM x "
+          f"{props.multi_processor_count} SMs x {clock / 1e9:.2f} GHz; "
+          f"flops {flops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of bound, "
+          f"max abs err {err:.3e} ({ratio:.3f} of its bound)  [{card}]")
+    require(ratio <= 1.0, f"B6 timing inputs: error {ratio:.3f} of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                err=err)
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1387,6 +1782,10 @@ def _kernel_entry(name, launches, row):
 
 
 def main() -> int:
+    # a float32 product on the card runs in full float32 (the references
+    # here are float32 and float64); stated, not left to the defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = timed("environment", phase_environment)
     timed("build", phase_build)
     timed("spmv grid", phase_grid)
@@ -1418,7 +1817,7 @@ def main() -> int:
                   f"solve ({100 * kern_s / solve_s:.1f}% in the SpMV kernel)")
     main_row = next(r for r in rows if r["label"] == "f64" and r["b"] == 4)
     f64 = torch.float64
-    print(json.dumps({"kernels": [
+    entries = [
         _kernel_entry(KERNEL, fw["launches"], main_row),
         _kernel_entry("tsmttsm", bcg["launches"]["tsmttsm"],
                       tsm[("tsmttsm", "kahan", f64)]),
@@ -1430,7 +1829,27 @@ def main() -> int:
         # B5 has no solver path: its launches are the PCG residual check's
         _kernel_entry("fused_axpby_dots", b5_launches,
                       pre[("fused_axpby_dots", "f64")]),
-    ]}))
+    ]
+    # the LM phases need the card's memory: keep only the numbers above
+    del fw, bcg, pcg, rows, tsm, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timed("b6 grid", phase_b6_grid)
+    lm = timed("prefill at full width", phase_prefill, card)
+    timed("prefill split", phase_prefill_split, lm, card)
+    timed("serve at full width", phase_serve, lm, card)
+    launches = lm["launches"]
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("decode vs forward, f32, full width", phase_decode_vs_forward, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("moe card vs cpu", phase_moe, card)
+    b6 = timed("b6 timing", phase_b6_timing, card)
+    entries.append(_kernel_entry("mamba_scan", launches, b6))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,7 @@
+"""Config registry of the port: the architectures ported so far."""
+from repro_torch.configs.base import (SHAPES, ShapeSpec, get_config,
+                                      get_smoke_config, list_archs, register,
+                                      shape_applicable)
+
+__all__ = ["SHAPES", "ShapeSpec", "get_config", "get_smoke_config",
+           "list_archs", "register", "shape_applicable"]

@@ -1,26 +1,30 @@
-"""Carry the JAX package's matrices and solver states into the port.
+"""Carry the JAX package's matrices, solver states and model weights into
+the port.
 
-The port's counterpart of loading weights: the arrays of a matrix (or a
-solver state) built by the JAX package, handed over as numpy arrays, become
-the port's tensors on ``device``, so both packages can be held to the same
-inputs.  Nothing here imports the JAX package; the caller converts with
+The port's counterpart of loading weights: the arrays of a matrix, a
+solver state or an LM's parameter tree built by the JAX package, handed
+over as numpy arrays, become the port's tensors on ``device``, so both
+packages can be held to the same inputs.  Nothing here imports the JAX package; the caller converts with
 ``np.asarray`` on its side.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.execution import resolve_device
 from repro_torch.core.sellcs import SellCS
+from repro_torch.models.layers import params
+from repro_torch.models.transformer import Model, ModelConfig
 from repro_torch.solvers.block import BlockCGState, BlockMinresState
 from repro_torch.solvers.cg import CGState, PrecondCGState
 from repro_torch.solvers.minres import MinresState, PrecondMinresState
 
 __all__ = ["SELLCS_ARRAYS", "SELLCS_META", "CGSTATE_ARRAYS", "STATE_TYPES",
-           "tensor_from_array", "sellcs_from_arrays", "state_from_arrays"]
+           "tensor_from_array", "sellcs_from_arrays", "state_from_arrays",
+           "model_from_arrays"]
 
 #: the eight array fields of a SELL-C-sigma matrix, in both packages
 SELLCS_ARRAYS = ("vals", "cols", "chunk_off", "chunk_len", "rowids",
@@ -92,3 +96,38 @@ def state_from_arrays(arrays: Mapping[str, object], device=None):
     return st(**{f: (int(arrays[f]) if f in _INT_FIELDS
                      else tensor_from_array(arrays[f], dev))
                  for f in st._fields})
+
+
+def _module(tree: Mapping[str, Any], dev, period=None):
+    """A nested dict of arrays as nested ``ModuleDict``s whose leaves are
+    ``ParameterDict``s; ``period`` picks one slice of arrays stacked over
+    periods."""
+    if all(not isinstance(v, Mapping) for v in tree.values()):
+        return params(**{k: tensor_from_array(
+            v if period is None else np.asarray(v)[period], dev)
+            for k, v in tree.items()})
+    return torch.nn.ModuleDict({k: _module(v, dev, period)
+                                for k, v in tree.items()})
+
+
+def model_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
+                      device=None) -> Model:
+    """A port :class:`Model` from the JAX package's parameter pytree
+    (``jax.tree.map(np.asarray, params)``).  The decoder's arrays are
+    stacked over the pattern's periods under ``decoder/l{i}_mix`` and
+    ``decoder/l{i}_ffn``; each period becomes one entry of
+    ``Model.decoder``.  ``device=None`` means the card."""
+    dev = resolve_device(device)
+    dec = tree["decoder"]
+    want = {f"l{i}_{part}" for i in range(cfg.period)
+            for part in ("mix", "ffn")}
+    if set(dec) != want:
+        raise ValueError(f"model_from_arrays: decoder entries {sorted(dec)} "
+                         f"do not match the pattern's {sorted(want)}")
+    out = {"embed": _module(tree["embed"], dev),
+           "final_norm": _module(tree["final_norm"], dev),
+           "decoder": [{k: _module(v, dev, period) for k, v in dec.items()}
+                       for period in range(cfg.n_periods)]}
+    if "lm_head" in tree:
+        out["lm_head"] = _module(tree["lm_head"], dev)
+    return Model(cfg, out)

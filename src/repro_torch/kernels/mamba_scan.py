@@ -1,0 +1,135 @@
+"""Selective-SSM (Mamba) scan on Hopper: the wrapper of ``csrc/mamba_scan.cu``.
+
+The CUDA port of ``repro/kernels/mamba_scan.py:mamba_scan_pallas`` (B6):
+``h <- exp(dt * A) h + dt * xc * Bc`` and ``y = sum_n h * Cc``, recurrent
+over the whole sequence, with the state never written to device memory.
+One thread owns one channel ``(b, d)`` and keeps its ``N`` states in
+registers (see the note at the top of the CUDA source).  This wrapper
+validates the operands, allocates ``y`` and launches on the current stream
+without synchronising.  It has no ``d_tile`` and no ``s_blk``, and needs
+no padding: any ``B``, ``S`` and ``d_inner`` go through as they are.
+
+It takes contiguous float32 CUDA tensors with ``N <= MAX_N`` only and
+raises on anything else; the plain version is
+``repro_torch.kernels.ref.mamba_scan_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import execution
+from repro_torch.kernels import _build
+from repro_torch.kernels.sellcs_spmv import check_operand
+
+__all__ = ["mamba_scan_cuda", "MAX_N", "check_shapes", "error_bound"]
+
+#: largest state size the kernel takes (a thread keeps N states and its
+#: row of A in registers); Mamba uses 16
+MAX_N = 64
+#: most batch rows in one launch (the grid's y dimension)
+MAX_B = 65535
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
+
+
+def _entry():
+    fn = _build.load("mamba_scan").mamba_scan_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_shapes(fn: str, dt, xc, Bc, Cc, A):
+    """``(B, S, di, N)`` of the operands; raise unless ``dt`` and ``xc`` are
+    ``(B, S, di)``, ``Bc`` and ``Cc`` ``(B, S, N)`` and ``A`` ``(di, N)``
+    (the JAX kernel's contract)."""
+    if dt.ndim != 3 or tuple(xc.shape) != tuple(dt.shape):
+        raise ValueError(f"{fn}: dt{tuple(dt.shape)} and xc"
+                         f"{tuple(xc.shape)} must both be (B, S, di)")
+    B, S, di = (int(s) for s in dt.shape)
+    if A.ndim != 2 or A.shape[0] != di:
+        raise ValueError(f"{fn}: A{tuple(A.shape)} must be (di={di}, N)")
+    N = int(A.shape[1])
+    for name, t in (("Bc", Bc), ("Cc", Cc)):
+        if tuple(t.shape) != (B, S, N):
+            raise ValueError(f"{fn}: {name}{tuple(t.shape)} must be "
+                             f"(B, S, N) = {(B, S, N)}")
+    return B, S, di, N
+
+
+#: float32's unit roundoff
+_U = 2.0 ** -24
+#: twice float32's smallest subnormal: what one rounding near underflow
+#: may lose in absolute terms
+_TINY = 2.0 ** -148
+
+
+def error_bound(dt, xc, Bc, Cc, A) -> torch.Tensor:
+    """A bound on ``|y_kernel - y|`` for each output, with ``y`` the exact
+    scan of the same float32 inputs, computed in float64, ``(B, S, di)``.
+
+    Per channel and state the kernel forms ``a = expf(fl(dt A))`` (CUDA's
+    expf is within 2 ulp = 4u; the rounded argument adds ``|dt A| u``),
+    ``b = dt xc Bc`` (two roundings) and ``h = a h + b`` (one more rounding
+    each for the product and the sum), then ``y = sum_n h Cc`` (``N``
+    roundings).  To first order the state's error ``E`` then obeys
+
+        E_s = a E_{s-1} + (6 + |dt A|) u a H_{s-1} + 3 u |b| + tiny (H_{s-1} + 1)
+        H_s = a H_{s-1} + |b|
+
+    with ``H`` the same recurrence on magnitudes (``|a| <= 1`` since
+    ``A <= 0``, so no error grows), ``u = 2^-24`` and ``tiny = 2^-148``
+    for roundings near underflow; and ``|dy| <= sum_n |Cc| E + N u
+    sum_n |Cc| H``.  The bound returned is twice that, for the
+    second-order terms.
+    """
+    dt, xc, Bc, Cc, A = (t.double() for t in (dt, xc, Bc, Cc, A))
+    B, S, di = dt.shape
+    N = A.shape[1]
+    H = torch.zeros((B, di, N), dtype=torch.float64, device=dt.device)
+    E = torch.zeros_like(H)
+    out = torch.empty((B, S, di), dtype=torch.float64, device=dt.device)
+    for s in range(S):
+        z = dt[:, s, :, None] * A
+        a = torch.exp(z)
+        b = ((dt[:, s] * xc[:, s])[..., None] * Bc[:, s, None, :]).abs()
+        E = (a * E + ((6.0 + z.abs()) * _U * a + _TINY) * H + 3.0 * _U * b
+             + _TINY)
+        H = a * H + b
+        c = Cc[:, s].abs()[:, None, :]
+        out[:, s] = 2.0 * ((c * E).sum(-1) + N * _U * (c * H).sum(-1))
+    return out
+
+
+def mamba_scan_cuda(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,
+                    Cc: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Run the selective scan on the card: ``y`` ``(B, S, di)`` float32."""
+    fn = "mamba_scan"
+    device = dt.device
+    if device.type != "cuda":
+        raise ValueError(f"mamba_scan_cuda takes CUDA tensors, dt is on "
+                         f"{device}")
+    B, S, di, N = check_shapes(fn, dt, xc, Bc, Cc, A)
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"{fn}: N={N} outside 1..{MAX_N}")
+    if B > MAX_B:
+        raise ValueError(f"{fn}: B={B} above {MAX_B}")
+    for name, t, shape in (("dt", dt, (B, S, di)), ("xc", xc, (B, S, di)),
+                           ("Bc", Bc, (B, S, N)), ("Cc", Cc, (B, S, N)),
+                           ("A", A, (di, N))):
+        check_operand(fn, name, t, device, torch.float32, shape)
+    y = torch.empty((B, S, di), dtype=torch.float32, device=device)
+    if y.numel() == 0:
+        return y                               # nothing to launch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _entry()(dt.data_ptr(), xc.data_ptr(), Bc.data_ptr(),
+                      Cc.data_ptr(), A.data_ptr(), y.data_ptr(), B, S, di, N,
+                      stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    execution.count_launch(fn)
+    return y

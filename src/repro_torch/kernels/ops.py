@@ -18,6 +18,9 @@ because a CUDA kernel cannot run there.
 * ``fused_axpby_dots`` — ``a x + b y`` and its column dots in one sweep
   (kernel B5).  No solver calls it, in either package; it is the op the
   JAX package exposes.
+* ``mamba_scan`` — the selective-SSM scan of the Mamba mixer (kernel B6).
+  It has no ``d_tile`` or ``s_blk`` and pads nothing: the CUDA kernel
+  takes any shape, with ``N <= MAX_N``, in float32 only.
 """
 from __future__ import annotations
 
@@ -30,15 +33,17 @@ from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, as2d, x_rows
 from repro_torch.kernels.block_diag import block_diag_cuda, check_shapes
 from repro_torch.kernels.fused_update import fused_axpby_dots_cuda
+from repro_torch.kernels.mamba_scan import check_shapes as scan_shapes
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.ref import (block_diag_matmul_ref,
-                                     fused_axpby_dots_ref, sellcs_spmv_ref,
-                                     tsmm_ref, tsmttsm_ref)
+                                     fused_axpby_dots_ref, mamba_scan_ref,
+                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
 from repro_torch.kernels.sellcs_spmv import sellcs_spmv_cuda
 from repro_torch.kernels.tsmm import tsmm_cuda
 from repro_torch.kernels.tsmttsm import tsmttsm_cuda
 
 __all__ = ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_inplace",
-           "block_jacobi_apply", "fused_axpby_dots"]
+           "block_jacobi_apply", "fused_axpby_dots", "mamba_scan"]
 
 
 def _col2d(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -176,3 +181,24 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         out = out[:, 0]
         dots = None if dots is None else dots[:, 0]
     return out, dots
+
+
+def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,
+               Cc: torch.Tensor, A: torch.Tensor, *,
+               impl: Optional[str] = None) -> torch.Tensor:
+    """State-resident selective scan: ``y[b,s,d] = sum_n h[b,s,d,n]
+    Cc[b,s,n]`` with ``h = exp(dt A) h + dt xc Bc``, recurrent over s.
+
+    ``dt``, ``xc`` ``(B, S, di)``; ``Bc``, ``Cc`` ``(B, S, N)``; ``A``
+    ``(di, N)``.  CUDA tensors launch kernel B6 (float32 only,
+    ``N <= MAX_N``; anything else raises), on contiguous copies of
+    strided operands; CPU tensors, or
+    ``impl="ref"``, run the plain version in the inputs' dtype.
+    """
+    if impl not in (None, "ref"):
+        raise ValueError(f"mamba_scan: impl must be None or 'ref', got "
+                         f"{impl!r}")
+    scan_shapes("mamba_scan", dt, xc, Bc, Cc, A)
+    if impl == "ref" or dt.device.type == "cpu":
+        return mamba_scan_ref(dt, xc, Bc, Cc, A)
+    return mamba_scan_cuda(*(t.contiguous() for t in (dt, xc, Bc, Cc, A)))

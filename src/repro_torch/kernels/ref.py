@@ -13,7 +13,7 @@ from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, spmv_ref, storage_acc_dtype
 
 __all__ = ["sellcs_spmv_ref", "tsmttsm_ref", "tsmm_ref",
-           "block_diag_matmul_ref", "fused_axpby_dots_ref"]
+           "block_diag_matmul_ref", "fused_axpby_dots_ref", "mamba_scan_ref"]
 
 
 def sellcs_spmv_ref(A: SellCS, x, y=None, z=None, opts: SpmvOpts = SpmvOpts()):
@@ -83,3 +83,23 @@ def fused_axpby_dots_ref(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
             torch.sum(xf * xf, dim=0) if dot_xx else zero,
         ])
     return ynew.to(out_dtype), dots
+
+
+def mamba_scan_ref(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,
+                   Cc: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Plain version of B6, the selective scan: a loop over the sequence in
+    the dtype of its inputs (float64 inputs make it the card-side oracle).
+
+    ``dt``, ``xc`` ``(B, S, di)``; ``Bc``, ``Cc`` ``(B, S, N)``; ``A``
+    ``(di, N)``.  ``h <- exp(dt A) h + (dt xc) Bc`` from ``h = 0``, and
+    ``y[:, s] = sum_n h Cc[:, s]``; returns ``y`` ``(B, S, di)``.
+    """
+    B, S, di = dt.shape
+    h = torch.zeros((B, di, A.shape[1]), dtype=dt.dtype, device=dt.device)
+    y = torch.empty((B, S, di), dtype=dt.dtype, device=dt.device)
+    for s in range(S):
+        dt_s = dt[:, s]
+        h = (torch.exp(dt_s[..., None] * A) * h
+             + (dt_s * xc[:, s])[..., None] * Bc[:, s, None, :])
+        y[:, s] = torch.einsum("bdn,bn->bd", h, Cc[:, s])
+    return y

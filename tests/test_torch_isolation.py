@@ -45,10 +45,14 @@ def test_port_has_its_modules():
             "kernels/ops.py", "kernels/ref.py", "kernels/sellcs_spmv.py",
             "kernels/tsmttsm.py", "kernels/tsmm.py",
             "kernels/block_diag.py", "kernels/fused_update.py",
+            "kernels/mamba_scan.py",
             "kernels/_build.py", "kernels/csrc/sellcs_spmv.cu",
             "kernels/csrc/tsmttsm.cu", "kernels/csrc/tsmm.cu",
             "kernels/csrc/block_diag.cu", "kernels/csrc/fused_update.cu",
-            "kernels/csrc/dtypes.cuh",
+            "kernels/csrc/mamba_scan.cu", "kernels/csrc/dtypes.cuh",
+            "models/layers.py", "models/ssm.py", "models/moe.py",
+            "models/transformer.py", "configs/base.py",
+            "configs/jamba_1_5_large_398b.py", "launch/serve.py",
             "matrices/generators.py", "matrices/mmio.py",
             "solvers/operator.py", "solvers/stepper.py", "solvers/cg.py",
             "solvers/block.py", "solvers/minres.py", "solvers/lanczos.py",
@@ -61,7 +65,10 @@ def test_port_has_its_modules():
 
 NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
           "kernels/tsmm.py", "kernels/block_diag.py",
-          "kernels/fused_update.py", "kernels/ref.py", "kernels/_build.py",
+          "kernels/fused_update.py", "kernels/mamba_scan.py",
+          "kernels/ref.py", "kernels/_build.py", "models/layers.py",
+          "models/ssm.py", "models/moe.py", "models/transformer.py",
+          "launch/serve.py", "interop.py",
           "core/spmv.py",
           "core/execution.py", "core/blockvec.py", "solvers/block.py",
           "solvers/cg.py", "solvers/minres.py", "solvers/lanczos.py",
@@ -78,7 +85,7 @@ def test_no_try_around_build_or_launch(rel):
 
 
 @pytest.mark.parametrize("name", ["sellcs_spmv", "tsmttsm", "tsmm",
-                                  "block_diag", "fused_update"])
+                                  "block_diag", "fused_update", "mamba_scan"])
 def test_cuda_sources_return_the_launch_error(name):
     """Every CUDA source states what it replaces and its bound, and its C
     entry point returns ``cudaGetLastError()``."""
@@ -129,8 +136,8 @@ def test_launch_counters():
 
 
 def test_build_layout_and_missing_compiler(monkeypatch, tmp_path):
-    assert _build.sources() == ["block_diag", "fused_update", "sellcs_spmv",
-                                "tsmm", "tsmttsm"]
+    assert _build.sources() == ["block_diag", "fused_update", "mamba_scan",
+                                "sellcs_spmv", "tsmm", "tsmttsm"]
     lib = _build._library_path("sellcs_spmv")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert lib.name.startswith("libsellcs_spmv-") and lib.suffix == ".so"
@@ -250,3 +257,35 @@ def test_chip_smoke_precond_phases_rehearse_on_cpu(monkeypatch):
     assert chip_smoke.phase_b5_residual(pcg, "cpu rehearsal") == 0
     chip_smoke.phase_precond_minres(pcg, "cpu rehearsal")
     chip_smoke.phase_chebyshev_pcg("cpu rehearsal")
+
+
+def test_chip_smoke_lm_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's B6 grid and slice 8a's phases (prefill, serve,
+    float32 decode against forward, MoE), run on the CPU at the registered
+    SMOKE widths and small shapes: the scan's plain version stands in (the
+    launch counts are then 0), and the MoE phase compares the CPU with
+    itself, so this checks the phases' shapes, bounds and control flow,
+    not the kernel."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("LM_WIDTHS", "smoke"),
+                        ("LM_BATCH", 2), ("LM_SEQ", 12), ("SERVE_PROMPT", 3),
+                        ("SERVE_GEN", 4), ("DECODE_SEQ", 6),
+                        ("B6_B", (1, 2)), ("B6_S", (1, 7, 70)),
+                        ("B6_DI", (1, 9)), ("B6_N", (1, 4, 64))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    chip_smoke.phase_b6_grid()
+    lm = chip_smoke.phase_prefill("cpu rehearsal")
+    assert lm["cfg"].moe is None and lm["cfg"].n_layers == 8
+    assert lm["cfg"].ssm.scan_impl == "kernel"
+    assert chip_smoke._n_mamba(lm["cfg"]) == 7
+    chip_smoke.phase_serve(lm, "cpu rehearsal")
+    chip_smoke.phase_decode_vs_forward("cpu rehearsal")
+    chip_smoke.phase_moe("cpu rehearsal")
+    full = chip_smoke.get_config("jamba_1_5_large_398b")
+    monkeypatch.setattr(chip_smoke, "LM_WIDTHS", "full")
+    cfg = chip_smoke.lm_config(torch.bfloat16)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+            cfg.vocab_size) == (full.d_model, full.n_heads, full.n_kv_heads,
+                                full.d_ff, full.vocab_size)
+    assert cfg.ssm.inner(cfg.d_model) == 16384 and cfg.ssm.d_state == 16

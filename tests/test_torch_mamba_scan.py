@@ -1,0 +1,123 @@
+"""Kernel B6 (``csrc/mamba_scan.cu``, the selective scan) against its plain
+version on the card, and the wrapper's contract.
+
+The ``gpu``-marked tests need an NVIDIA GPU and ``nvcc``; each decides
+inside itself whether a card exists and skips here.  The kernel is held to
+``kernels.mamba_scan.error_bound``, a first-order bound on its float32
+rounding against the plain version computed in float64 from the same
+inputs (twice the first-order terms), so the tolerance grows with the
+length of the recurrence and shrinks where the state decays.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import execution
+from repro_torch.kernels import mamba_scan as ms
+from repro_torch.kernels.ops import mamba_scan
+from repro_torch.kernels.ref import mamba_scan_ref
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+
+
+def inputs(B, S, di, N, seed=0, device="cpu", dt_scale=0.1):
+    """dt >= 0 from 0 to large (a tenth of the entries 0, a tenth large
+    enough that exp(dt A) underflows), A <= 0 (a column of zeros)."""
+    rng = np.random.default_rng(seed)
+    dt = np.abs(rng.standard_normal((B, S, di))) * dt_scale
+    dt[rng.random((B, S, di)) < 0.1] = 0.0
+    dt[rng.random((B, S, di)) < 0.1] = 200.0
+    xc = rng.standard_normal((B, S, di))
+    Bc = rng.standard_normal((B, S, N))
+    Cc = rng.standard_normal((B, S, N))
+    A = -np.exp(rng.standard_normal((di, N)))
+    A[:, 0] = 0.0
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                 for a in (dt, xc, Bc, Cc, A))
+
+
+def test_cpu_tensors_run_the_plain_version():
+    args = inputs(2, 9, 5, 3)
+    execution.reset_launch_counts()
+    torch.testing.assert_close(mamba_scan(*args), mamba_scan_ref(*args),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(mamba_scan(*args, impl="ref"),
+                               mamba_scan_ref(*args), rtol=0, atol=0)
+    assert execution.launch_counts().get("mamba_scan", 0) == 0
+
+
+def test_wrapper_checks_shapes_and_impl():
+    dt, xc, Bc, Cc, A = inputs(1, 4, 3, 2)
+    with pytest.raises(ValueError, match="impl"):
+        mamba_scan(dt, xc, Bc, Cc, A, impl="pallas")
+    with pytest.raises(ValueError, match="must both be"):
+        mamba_scan(dt, xc[:, :3], Bc, Cc, A)
+    with pytest.raises(ValueError, match="A"):
+        mamba_scan(dt, xc, Bc, Cc, A[:2])
+    with pytest.raises(ValueError, match="Cc"):
+        mamba_scan(dt, xc, Bc, Cc[..., :1], A)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ms.mamba_scan_cuda(dt, xc, Bc, Cc, A)
+
+
+def test_error_bound_holds_for_the_plain_float32_version():
+    """The plain version in float32 rounds at the places the kernel does
+    (though ``torch.exp`` is not CUDA's expf), so the bound must hold for
+    it too; and it is not vacuous: the error uses a fair part of it."""
+    args = inputs(2, 300, 6, 4, seed=3)
+    got = mamba_scan_ref(*args).double()
+    want = mamba_scan_ref(*(a.double() for a in args))
+    bound = ms.error_bound(*args)
+    ratio = ((got - want).abs() / bound).max().item()
+    assert 1e-3 < ratio <= 1.0, ratio
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,N", [
+    (1, 1, 1, 1), (1, 7, 8, 4), (3, 64, 100, 16), (2, 257, 130, 16),
+    (1, 300, 64, 33), (2, 70, 40, ms.MAX_N), (1, 16, 8, 2), (2, 64, 32, 4),
+    (1, 128, 64, 8), (3, 32, 16, 16)])
+def test_kernel_matches_plain_on_card(B, S, di, N):
+    need_card()
+    args = inputs(B, S, di, N, seed=B * S + di + N, device="cuda")
+    execution.reset_launch_counts()
+    got = mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert execution.launch_counts()["mamba_scan"] == 1
+    assert got.dtype == torch.float32 and got.shape == (B, S, di)
+    want = mamba_scan_ref(*(a.double() for a in args))
+    bound = ms.error_bound(*args)
+    assert torch.all((got.double() - want).abs() <= bound)
+
+
+@pytest.mark.gpu
+def test_empty_shapes_launch_nothing_wrong():
+    need_card()
+    for shape in ((0, 4, 8, 2), (2, 0, 8, 2), (2, 4, 0, 2)):
+        args = inputs(*shape, device="cuda")
+        assert mamba_scan(*args).shape == shape[:3]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_does_not_take():
+    need_card()
+    dt, xc, Bc, Cc, A = inputs(1, 8, 16, 4, device="cuda")
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32"):
+            mamba_scan(dt.to(dtype), xc, Bc, Cc, A)
+        with pytest.raises(TypeError, match="float32"):
+            mamba_scan(dt, xc, Bc, Cc, A.to(dtype))
+    wide = torch.zeros((1, 8, 32), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mamba_scan_cuda(dt, wide[..., ::2], Bc, Cc, A)
+    # the op hands the kernel contiguous copies of strided operands
+    torch.testing.assert_close(mamba_scan(dt, wide[..., ::2], Bc, Cc, A),
+                               mamba_scan(dt, torch.zeros_like(dt), Bc, Cc,
+                                          A), rtol=0, atol=0)
+    big = inputs(1, 8, 16, ms.MAX_N + 1, device="cuda")
+    with pytest.raises(ValueError, match="N=65"):
+        mamba_scan(*big)
