@@ -15,7 +15,8 @@ the card, holding every kernel against its plain PyTorch version:
    windows, store/compute dtypes, block widths and fusion flags;
 4. B2 (tsmttsm, with and without Kahan) and B3 (tsmm, with and without
    the output operand) against their plain versions computed in float64,
-   over row counts, widths, dtypes and alpha/beta pairs;
+   over row counts, widths, dtypes and alpha/beta pairs, and B2 on views
+   off a 16-byte boundary (its stages then fill by plain loads);
 5. the paper's case study (MATPDE, CG) with B1's launch count;
 6. slice 1's main path at full width: column CG (``block=False``, four
    independent right-hand sides) on laplace3d(160) (4,096,000 rows) in
@@ -31,8 +32,9 @@ the card, holding every kernel against its plain PyTorch version:
     laplace3d window with closed-form eigenvalues, KPM moments at full
     width;
 11. timing of every kernel, its plain version and one PyTorch call that
-    computes the same function, beside the memory-bandwidth bound, and
-    the time split of one full-width block-CG iteration;
+    computes the same function, beside the memory-bandwidth bound (B1 at
+    b = 1, 4 and 16), and the time split of one full-width block-CG
+    iteration;
 12. B4 (block-diagonal matmul, the block-Jacobi apply) and B5 (fused
     axpby + dots) against their plain versions computed in float64, over
     block sizes, widths, block counts, row counts, dtypes, coefficients
@@ -49,6 +51,11 @@ the card, holding every kernel against its plain PyTorch version:
     Chebyshev-preconditioned CG on anisotropic_laplace2d(1024);
 15. timing of B4 and B5 at the main shapes, and the time split of one
     preconditioned CG iteration;
+15b. ``run_chunk``, which reads the stopping test one iteration late,
+    against a loop that reads it every iteration, on column CG, PCG and
+    block CG at full width: equal states, ms per iteration in turns,
+    synchronising calls per iteration, and a profiler split of the
+    iterations by kind of kernel with the time the card sat idle;
 16. B6 (the selective scan) against its plain version computed in
     float64, over batch, sequence length, d_inner and state size, with dt
     from 0 to large and A <= 0, each output held to a stated error bound
@@ -79,6 +86,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
+import importlib
 import json
 import re
 import subprocess
@@ -120,6 +128,8 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
+cg_mod = importlib.import_module("repro_torch.solvers.cg")
+from repro_torch.solvers import run_chunk  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), the bound's denominator
 HBM_BYTES_PER_S = 3.35e12
@@ -155,6 +165,12 @@ NX = 160
 WIDTH = 16
 TSM_NS = (0, 1, 37, 4109, 1 << 20)
 TSM_DIMS = (1, 3, 8, 16, MAX_DIM)
+#: (m, k) of B2's cases on views off a 16-byte boundary (the stages then
+#: fill by plain loads)
+TSM_ODD = ((3, 5), (1, 7), (5, 3), (7, 9))
+#: B1's timed calls: (width, with CG's <p, Ap> dot) — 1 and 4 as column
+#: CG and PCG call it, 16 as block CG calls it (no dot) and with the dot
+SPMV_TIMED = ((1, True), (4, True), (WIDTH, False), (WIDTH, True))
 #: ChebFD on laplace3d(CHEB_NX): window, degree and sweeps with which the
 #: JAX package converges on the CPU (four eigenvalues inside the window)
 CHEB_NX, CHEB_TARGET, CHEB_DEGREE, CHEB_SWEEPS = 16, (0.05, 0.25), 150, 4
@@ -198,6 +214,13 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def dropped(name: str) -> int:
+    """Iterations ``run_chunk`` enqueued past the end of solver ``name``'s
+    run and discarded since the counters were reset (at most one per
+    ``run_chunk`` call): they launch their kernels like any other."""
+    return execution.discarded_counts().get(name, 0)
 
 
 def rel_err(got, want) -> float:
@@ -401,11 +424,15 @@ def phase_case_study() -> None:
     sync()
     launches = execution.launch_counts().get(KERNEL, 0)
     conv = bool(res.converged.all())
+    d = dropped("cg")
     print(f"[case study] matpde(16) f32 b=2: {res.iters} iterations, "
-          f"converged={conv}, kernel launches {launches}")
+          f"converged={conv}, kernel launches {launches} ({d} discarded "
+          f"iteration)")
     require(conv, "case study did not converge")
-    require(launches == res.iters + 1,
-            f"case study: {launches} launches != iters + 1 = {res.iters + 1}")
+    require(d <= 1, f"case study: {d} discarded iterations in one chunk")
+    require(launches == res.iters + d + 1,
+            f"case study: {launches} launches != iters + discarded + 1 = "
+            f"{res.iters + d + 1}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -423,16 +450,19 @@ def _solve(A, b, tol, label, card):
     sync()
     secs = time.perf_counter() - t0
     launches = execution.launch_counts().get(KERNEL, 0)
+    d = dropped("cg")
     relres = _true_relres(A, b, res.x)
     conv = bool(res.converged.all())
     print(f"[full width] {label}: {res.iters} iterations in {secs:.3f} s "
           f"({1e3 * secs / max(res.iters, 1):.3f} ms/iter), converged={conv}, "
           f"true rel residual {relres:.3e} (tol {tol}), kernel launches "
-          f"{launches}  [{card}]")
+          f"{launches} ({d} discarded iteration)  [{card}]")
     require(conv, f"{label}: not converged")
     require(relres <= 10 * tol, f"{label}: true residual {relres} > {10 * tol}")
-    require(launches == res.iters + 1,
-            f"{label}: {launches} launches != iters + 1 = {res.iters + 1}")
+    require(d <= 1, f"{label}: {d} discarded iterations in one chunk")
+    require(launches == res.iters + d + 1,
+            f"{label}: {launches} launches != iters + discarded + 1 = "
+            f"{res.iters + d + 1}")
     return res, launches, secs
 
 
@@ -510,11 +540,11 @@ def phase_timing(fw, card):
     csr = _library_csr(A64, fw["coo"])
     rows = []
     for label, A in (("f64", A64), ("bf16-store/f32", A16)):
-        for b in (1, 4):
+        for b, dot in SPMV_TIMED:
             g = torch.Generator(device="cuda").manual_seed(2)
             x = torch.randn(A.nrows_pad, b, dtype=A.dtype, device="cuda",
                             generator=g)
-            opts = SpmvOpts(dot_xy=True)           # what CG asks of the kernel
+            opts = SpmvOpts(dot_xy=dot)    # what CG / block CG ask of it
             yk, _, dk = sellcs_spmv(A, x, opts=opts)
             yr, _, dr = sellcs_spmv_ref(A, x, opts=opts)
             err = (yk.double() - yr.double()).abs().max().item()
@@ -529,19 +559,25 @@ def phase_timing(fw, card):
                 lib_err = rel_err(csr @ x, yk)
                 require(lib_err <= 1e-12, f"library product disagrees {lib_err}")
                 lib_ms = time_ms(lambda: csr @ x)
-            nbytes = sum(t.numel() * t.element_size() for t in
-                         (A.vals, A.cols, A.chunk_off, A.chunk_len, x, yk, dk))
+                if lib_ms < ms:
+                    print(f"[timing] f64 b={b}: the library's csr @ x "
+                          f"({lib_ms:.4f} ms) is faster than the kernel "
+                          f"({ms:.4f} ms)")
+            nbytes = _nbytes(A.vals, A.cols, A.chunk_off, A.chunk_len, x, yk,
+                             dk)
             bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             gbs = nbytes / (ms * 1e-3) / 1e9
-            print(f"[timing] {label} b={b}: kernel {ms:.4f} ms, plain "
+            print(f"[timing] {label} b={b} {'<p, Ap>' if dot else 'no dots'}"
+                  f": kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library(csr@x) "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
                   f"{gbs:.1f} GB/s = {100 * bound_ms / ms:.1f}% of bound, "
                   f"y max abs err {err:.3e}, dots rel err {dots_err:.3e}  "
                   f"[{card}]")
-            rows.append(dict(label=label, b=b, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound_ms, err=err))
+            rows.append(dict(label=label, b=b, dot=dot, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, err=err))
     return rows
 
 
@@ -656,11 +692,33 @@ def phase_tsm_grid() -> None:
                         _tsm_check(got, want, scale, dt, m, m, tag,
                                    worst.setdefault(key, [0.0, "", 0.0]))
                         n_cases += 3
+        # V and W one value into their buffers: B2's stages fill by plain
+        # loads where a bulk copy cannot take them
+        for n in TSM_NS[1:]:
+            for m, k in TSM_ODD:
+                V, W = (torch.randn(n * w + 1, generator=g,
+                                    dtype=torch.float64,
+                                    device=DEVICE).to(dt)[1:].view(n, w)
+                        for w in (m, k))
+                Vd, Wd = V.double(), W.double()
+                want = tsmttsm_ref(Vd, Wd)
+                for kahan in (False, True):
+                    got = tsmttsm(V, W, kahan=kahan)
+                    key = ("tsmttsm view" + (" kahan" if kahan else ""),
+                           str(dt)[6:])
+                    depth = (kahan_depth(n, m, k, dt) if kahan
+                             else summation_depth(n, m, k))
+                    _tsm_check(got, want, Vd.abs().T @ Wd.abs(), dt, depth,
+                               n, f"{str(dt)[6:]} n={n} m={m} k={k} view "
+                               f"kahan={kahan}",
+                               worst.setdefault(key, [0.0, "", 0.0]))
+                    n_cases += 1
     for (kern, dt), (ratio, tag, err) in sorted(worst.items()):
         print(f"[tsm grid] {kern:13s} {dt:9s} worst error {err:.3e} = "
               f"{ratio:.3f} of its bound  (at {tag})")
     print(f"[tsm grid] {n_cases} cases within their bounds: n in {TSM_NS}, "
-          f"m, k in {TSM_DIMS}, alpha/beta {TSM_COEFS}")
+          f"m, k in {TSM_DIMS}, alpha/beta {TSM_COEFS}; tsmttsm on views "
+          f"off a 16-byte boundary at (m, k) in {TSM_ODD}")
     print(f"[tsm grid] tsmttsm float32 n={max(TSM_NS)}, all m, k, alpha/beta: "
           + _require_kahan_gain(gain, "tsm grid float32"))
 
@@ -705,12 +763,16 @@ def phase_block_cg(fw, card):
           f"{bool(res.converged.all())}  [{card}]")
     print(f"[block cg] true relative residual per column: "
           f"{' '.join(f'{r:.2e}' for r in relres.tolist())}")
+    d = dropped("block_cg")
     print(f"[block cg] launches {launches} (per iteration: 1 sellcs_spmv, "
-          f"2 tsmttsm, 4 tsmm; init: 1 each)")
+          f"2 tsmttsm, 4 tsmm; init: 1 each; {d} discarded iteration)")
     require(bool(res.converged.all()), "block CG: not converged")
     require(float(relres.max()) <= 10 * tol,
             f"block CG: true residual {float(relres.max())} > {10 * tol}")
-    want = {"sellcs_spmv": it + 1, "tsmttsm": 2 * it + 1, "tsmm": 4 * it + 1}
+    require(d <= 1, f"block CG: {d} discarded iterations in one chunk")
+    n_it = it + d
+    want = {"sellcs_spmv": n_it + 1, "tsmttsm": 2 * n_it + 1,
+            "tsmm": 4 * n_it + 1}
     require(launches == want or DEVICE == "cpu",
             f"block CG launches {launches} != {want}")
 
@@ -756,17 +818,20 @@ def phase_block_minres(fw, card) -> None:
     sync()
     secs = time.perf_counter() - t0
     launches = _counts()
+    d = dropped("block_minres")
     relres = _colwise_relres(A, b, res.x)
     print(f"[block minres] laplace3d({NX}) f64 width {WIDTH} tol {tol}: "
           f"{res.iters} iterations in {secs:.3f} s "
           f"({1e3 * secs / max(res.iters, 1):.3f} ms/iter), converged="
           f"{bool(res.converged.all())}, max true relative residual "
           f"{float(relres.max()):.3e}, launches {launches} (per iteration: 1 "
-          f"sellcs_spmv, 4 tsmttsm, 9 tsmm; init: 1 each)  [{card}]")
+          f"sellcs_spmv, 4 tsmttsm, 9 tsmm; init: 1 each; {d} discarded "
+          f"iteration)  [{card}]")
     require(bool(res.converged.all()), "block MINRES: not converged")
     require(float(relres.max()) <= 10 * tol,
             f"block MINRES: true residual {float(relres.max())} > {10 * tol}")
-    it = res.iters
+    require(d <= 1, f"block MINRES: {d} discarded iterations in one chunk")
+    it = res.iters + d
     want = {"sellcs_spmv": it + 1, "tsmttsm": 4 * it + 1, "tsmm": 9 * it + 1}
     require(launches == want or DEVICE == "cpu",
             f"block MINRES launches {launches} != {want}")
@@ -951,7 +1016,7 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
               f"{k * ms:.4f} ms ({100 * k * ms / total:.1f}%)")
     print(f"[block cg split]   {'rest':20s} {rest:.4f} ms "
           f"({100 * rest / total:.1f}%): vector arithmetic, launches and "
-          f"the per-iteration host synchronisation")
+          f"the host syncs left in the (b, b) algebra (phase 15b)")
 
 
 # ----------------------------------------------------------------- phase 12
@@ -1158,6 +1223,7 @@ def phase_precond_cg(card):
     secs = time.perf_counter() - t0
     launches = _counts(PRECOND_KERNELS)
     it = res.iters
+    d = dropped("cg_precond")
     relres = _colwise_relres(A, b, res.x)
     ms_iter = 1e3 * secs / max(it, 1)
     print(f"[pcg] block_jacobi PCG f64 b={PRECOND_WIDTH} tol {PCG_TOL}: {it} "
@@ -1166,11 +1232,12 @@ def phase_precond_cg(card):
     print(f"[pcg] true relative residual per column: "
           f"{' '.join(f'{r:.2e}' for r in relres.tolist())}")
     print(f"[pcg] launches {launches} (per iteration 1 sellcs_spmv and 1 "
-          f"block_diag_matmul; cg_init 1 each)")
+          f"block_diag_matmul; cg_init 1 each; {d} discarded iteration)")
     require(bool(res.converged.all()), "PCG: not converged")
     require(float(relres.max()) <= 10 * PCG_TOL,
             f"PCG: true residual {float(relres.max())} > {10 * PCG_TOL}")
-    want = {"sellcs_spmv": it + 1, "block_diag_matmul": it + 1}
+    require(d <= 1, f"PCG: {d} discarded iterations in one chunk")
+    want = {"sellcs_spmv": it + d + 1, "block_diag_matmul": it + d + 1}
     require(launches == want or DEVICE == "cpu",
             f"PCG launches {launches} != {want}")
 
@@ -1252,6 +1319,7 @@ def phase_precond_minres(pcg, card) -> None:
     secs = time.perf_counter() - t0
     launches = _counts(PRECOND_KERNELS)
     it = res.iters
+    d = dropped("minres_precond")
     mrel = _m_relres(M, A, b, res.x)
     relres = _colwise_relres(A, b, res.x)
     print(f"[pminres] block_jacobi MINRES f64 b={PRECOND_WIDTH} tol "
@@ -1261,12 +1329,14 @@ def phase_precond_minres(pcg, card) -> None:
           f"in the M-norm {' '.join(f'{v:.2e}' for v in mrel.tolist())}, in "
           f"the 2-norm {' '.join(f'{v:.2e}' for v in relres.tolist())}; "
           f"launches {launches} (per iteration 1 sellcs_spmv, 1 "
-          f"block_diag_matmul; init 1 and 2)  [{card}]")
+          f"block_diag_matmul; init 1 and 2; {d} discarded iteration)  "
+          f"[{card}]")
     require(bool(res.converged.all()), "PMINRES: not converged")
     require(float(mrel.max()) <= 10 * PMINRES_TOL,
             f"PMINRES: M-norm residual {float(mrel.max())} > "
             f"{10 * PMINRES_TOL}")
-    want = {"sellcs_spmv": it + 1, "block_diag_matmul": it + 2}
+    require(d <= 1, f"PMINRES: {d} discarded iterations in one chunk")
+    want = {"sellcs_spmv": it + d + 1, "block_diag_matmul": it + d + 2}
     require(launches == want or DEVICE == "cpu",
             f"PMINRES launches {launches} != {want}")
     st = minres_init(op, b, tol=PMINRES_TOL, maxiter=maxiter, M=M)
@@ -1300,6 +1370,7 @@ def phase_chebyshev_pcg(card) -> None:
     secs = time.perf_counter() - t0
     launches = _counts(PRECOND_KERNELS)
     it = res.iters
+    d = dropped("cg_precond")
     relres = _colwise_relres(A, b, res.x)
     print(f"[cheb pcg] chebyshev:4 PCG f64 b={PRECOND_WIDTH} tol {PCG_TOL}, "
           f"spectrum ({spectrum[0]:.6g}, {spectrum[1]:.6g}) -> interval "
@@ -1307,11 +1378,13 @@ def phase_chebyshev_pcg(card) -> None:
           f" in {secs:.3f} s ({1e3 * secs / max(it, 1):.3f} ms/iter), "
           f"converged={bool(res.converged.all())}, max true relative "
           f"residual {float(relres.max()):.2e}, launches {launches} "
-          f"(4 sellcs_spmv per iteration and at init)  [{card}]")
+          f"(4 sellcs_spmv per iteration and at init; {d} discarded "
+          f"iteration)  [{card}]")
     require(bool(res.converged.all()), "Chebyshev PCG: not converged")
     require(float(relres.max()) <= 10 * PCG_TOL,
             f"Chebyshev PCG: true residual {float(relres.max())}")
-    want = {"sellcs_spmv": M.degree * (it + 1), "block_diag_matmul": 0}
+    require(d <= 1, f"Chebyshev PCG: {d} discarded iterations in one chunk")
+    want = {"sellcs_spmv": M.degree * (it + d + 1), "block_diag_matmul": 0}
     require(launches == want or DEVICE == "cpu",
             f"Chebyshev PCG launches {launches} != {want}")
 
@@ -1408,11 +1481,146 @@ def phase_pcg_split(pcg, card) -> None:
               f"({100 * ms / total:.1f}%)")
     print(f"[pcg split]   {'rest':20s} {rest:.4f} ms ({100 * rest / total:.1f}"
           f"%): vector arithmetic (about ten passes over ({PRECOND_NX}^2, "
-          f"{PRECOND_WIDTH}) vectors), launches and the per-iteration host "
-          f"synchronisation")
+          f"{PRECOND_WIDTH}) vectors) and launches (phase 15b splits it)")
     print(f"[pcg split] time to solution: PCG {pcg['secs']:.3f} s "
           f"({pcg['iters']} iterations), plain CG {pcg['plain_secs']:.3f} s "
           f"({pcg['plain_iters']} iterations)")
+
+
+# ---------------------------------------------------------------- phase 15b
+#: iterations of each stepper comparison, and of its profiled window
+STEP_ITERS = {"cg": 200, "cg_precond": 200, "block_cg": 40}
+STEP_PROFILED = {"cg": 50, "cg_precond": 50, "block_cg": 10}
+#: kernel name fragments -> the category they are counted under (the
+#: rest: cuBLAS/cuSOLVER kernels of the (b, b) algebra and small ops)
+KERNEL_KINDS = (("sellcs_spmv", "B1 sellcs_spmv"),
+                ("block_diag", "B4 block_diag"),
+                ("tsmttsm", "B2 tsmttsm"), ("tsmm", "B3 tsmm"),
+                ("Memcpy", "copies"), ("elementwise", "vector passes"),
+                ("reduce", "vector passes"))
+
+
+def _read_every_iteration(op, st, k, body, *args):
+    """The stopping test read on the host before every iteration: what
+    the late-read ``run_chunk`` is compared with."""
+    i = 0
+    while i < k and st.it < st.maxiter and not bool(st.done.all()):
+        st = body(op, *args, st)
+        i += 1
+    return st
+
+
+def _device_split(run, iters):
+    """``run()`` under ``torch.profiler`` (device activity only): per
+    iteration, the device time of each kind of kernel, the time the card
+    had no kernel running between the window's first and last kernel, and
+    the wall time.  Returns None if the profiler saw no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    kinds = {}
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        kind = next((k for frag, k in KERNEL_KINDS if frag in name),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + (end - start)
+        if start > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = start, end
+        else:
+            cur_e = max(cur_e, end)
+    busy += cur_e - cur_s
+    window = spans[-1][1] - spans[0][0]
+    ms = {k: v * 1e-3 / iters for k, v in kinds.items()}
+    return dict(kinds=ms, idle=(window - busy) * 1e-3 / iters,
+                idle_share=(window - busy) / window,
+                wall=1e3 * wall / iters)
+
+
+def _syncs(run) -> int:
+    """Synchronising CUDA calls ``run()`` makes (torch's sync debug
+    mode; the late-read loop's event wait is not one of them)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        run()
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_stepper(fw, bcg, pcg, card) -> None:
+    """The stopping test read one iteration late (``run_chunk``) against
+    the loop that reads it before every iteration, at full width on the
+    three main solver paths: equal states, ms per iteration in turns
+    (every-iteration, late, late, every-iteration), host syncs per
+    iteration, and the split of a late-read window by kind of kernel with
+    the card's idle time."""
+    A = fw["A64"]
+    op64 = make_operator(A)
+    b4 = A.permute(torch.from_numpy(
+        np.random.default_rng(0).standard_normal((A.nrows, 4))))
+    cases = [
+        ("cg", "column CG f64 b=4", op64,
+         cg_init(op64, b4, tol=1e-8, maxiter=3000), cg_mod._cg_body, ()),
+        ("cg_precond", f"block-Jacobi PCG f64 b={PRECOND_WIDTH}", pcg["op"],
+         cg_init(pcg["op"], pcg["b"], tol=PCG_TOL, maxiter=8 * pcg["A"].nrows,
+                 M=pcg["M"]), cg_mod._cg_precond_body, (pcg["M"],)),
+        ("block_cg", f"block CG f64 width {WIDTH}", bcg["op"],
+         cg_init(bcg["op"], bcg["b"], tol=1e-8, maxiter=3000, block=True),
+         block.block_cg_body, ()),
+    ]
+    for name, label, op, st0, body, args in cases:
+        k = STEP_ITERS[name]
+        times = {"every": [], "late": []}
+        outs = {}
+        for kind in ("every", "late", "late", "every"):
+            sync()
+            t0 = time.perf_counter()
+            if kind == "late":
+                out = run_chunk(op, name, k, st0, body, *args)
+            else:
+                out = _read_every_iteration(op, st0, k, body, *args)
+            sync()
+            times[kind].append(1e3 * (time.perf_counter() - t0) / k)
+            outs[kind] = out
+        same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                   for a, b in zip(outs["late"], outs["every"]))
+        require(same and outs["late"].it == k,
+                f"{label}: late-read states differ from every-iteration ones")
+        print(f"[stepper] {label}, {k} iterations: ms/iter read every "
+              f"iteration {' / '.join(f'{t:.3f}' for t in times['every'])},"
+              f" read one late {' / '.join(f'{t:.3f}' for t in times['late'])}"
+              f"; states bit-identical: {same}  [{card}]")
+        if DEVICE != "cuda":
+            continue
+        syncs_late = _syncs(lambda: run_chunk(op, name, 3, st0, body, *args))
+        syncs_every = _syncs(lambda: _read_every_iteration(op, st0, 3, body,
+                                                           *args))
+        print(f"[stepper] {label}: synchronising calls in 3 iterations "
+              f"(torch's sync debug mode): read one late {syncs_late}, read "
+              f"every iteration {syncs_every}")
+        kp = STEP_PROFILED[name]
+        split = _device_split(lambda: run_chunk(op, name, kp, st0, body, *args),
+                              kp)
+        if split is None:
+            print(f"[stepper] {label}: the profiler saw no device kernels; "
+                  f"split not measured")
+            continue
+        parts = ", ".join(f"{kind} {ms:.4f}" for kind, ms in
+                          sorted(split["kinds"].items()))
+        print(f"[stepper split] {label}, {kp} late-read iterations under the "
+              f"profiler: {split['wall']:.3f} ms/iter wall; device ms/iter: "
+              f"{parts}; card idle {split['idle']:.4f} ms/iter "
+              f"({100 * split['idle_share']:.1f}% of the window)  [{card}]")
 
 
 # ----------------------------------------------------------------- phase 16
@@ -1807,6 +2015,7 @@ def main() -> int:
     timed("chebyshev PCG", phase_chebyshev_pcg, card)
     pre = timed("precond timing", phase_precond_timing, pcg, card)
     timed("pcg split", phase_pcg_split, pcg, card)
+    timed("stepper", phase_stepper, fw, bcg, pcg, card)
     for r in rows:
         if r["b"] == 4:
             n = fw["launches"] if r["label"] == "f64" else fw["launches16"]

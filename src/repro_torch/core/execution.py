@@ -10,6 +10,9 @@ or when a caller asks for ``impl="ref"``.
 What stays is bookkeeping: every kernel wrapper adds one to its launch
 counter at the point where it launches, so a run can show that its main
 path went through the kernels (``chip_smoke.py`` reads the counters).
+``solvers/stepper.run_chunk`` enqueues one iteration ahead of its
+stopping test and counts each iteration it then drops, by solver name, so
+launches per solve are ``(iterations + discarded) * per-iteration + init``.
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ from typing import Dict, Optional, Union
 import torch
 
 __all__ = ["resolve_device", "count_launch", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "count_discarded", "discarded_counts"]
 
 _launches: Dict[str, int] = {}
+_discarded: Dict[str, int] = {}
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -44,7 +48,20 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def count_discarded(name: str) -> None:
+    """Record one solver iteration of ``name`` that ``run_chunk`` enqueued
+    and then dropped (every column was already done)."""
+    _discarded[name] = _discarded.get(name, 0) + 1
+
+
+def discarded_counts() -> Dict[str, int]:
+    """A copy of the discarded-iteration counters, by solver name."""
+    return dict(_discarded)
+
+
 def reset_launch_counts() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter and discarded-iteration counter to 0."""
     for name in _launches:
         _launches[name] = 0
+    for name in _discarded:
+        _discarded[name] = 0

@@ -14,22 +14,38 @@
 // stored slot and column the kernel sits far below the card's ridge point.
 //
 // Design:
-// * One thread block owns one C-row chunk; thread `lane` owns row
-//   chunk*C + lane and walks the chunk's whole padded width.  The
-//   chunk-column-major layout puts vals[(off+j)*C + lane] of neighbouring
-//   lanes next to each other, so the value and index streams are coalesced.
-//   There is no TPU-style (w_tile, C) slab, so any chunk width works.
-// * x is gathered row-major (x[col*b + k]); the b columns of one row sit
-//   together, so a block vector amortises each index load over b products.
-// * The block width is a template parameter BW <= 16 with the accumulators
-//   in registers; wider blocks use more blocks along grid.y.
+// * One thread block owns one C-row chunk (one slice of up to 16 columns
+//   along grid.y).  Each row is spread over TPR neighbouring threads, and
+//   each thread owns CPT neighbouring columns of it, loaded and stored as
+//   one 16-byte vector (double2 or float4) where the columns allow
+//   (kernels/sellcs_spmv.py:launch_geometry picks TPR and CPT).  At b = 16
+//   in float64 that is 8 threads a row and 4 rows a warp: one warp load of
+//   x reads 4 whole 128-byte rows, and the y and z stores are contiguous.
+//   At b = 1 it is one thread a row, as a plain SELL-C kernel.
+// * The TPR threads of a row read the same vals[s] and cols[s]; the
+//   chunk-column-major layout puts the slots of a chunk's neighbouring
+//   rows next to each other, so those loads are broadcasts from one
+//   sector and the value and index streams stay coalesced.
+// * Occupancy, not the chain of loads of one row, decides the speed: the
+//   kernel is held to 64 registers a thread (__launch_bounds__ with two
+//   512-thread blocks), so an SM holds four 256-thread chunks at b = 16.
+//   Rows of kUnroll slots or more take them kUnroll at a time, values,
+//   indices and gathers in flight together; the products are added in
+//   slot order either way (y is the same as one slot at a time).  On the
+//   H100, more registers for deeper unrolling or for prefetching the
+//   row's own operands, two vectors a thread, and persistent blocks that
+//   walk ranges of chunks with the next chunk's indices in flight were
+//   all slower (PERF.md section 6).
+// * A block has at most kMaxThreads threads; a chunk whose C * TPR is
+//   larger is walked in passes of blockDim / TPR rows.
 // * Narrow stored values (bf16, f16, or f32 under f64 compute) are upcast in
 //   registers, so the value stream moves at the storage width.
-// * The dots are reduced in a fixed order (warp shuffles, then warps in
-//   order through shared memory) without atomics, so results are
+// * The dots asked for are reduced in a fixed order (each thread over its
+//   rows in pass order, warp shuffles over the rows of a warp, then warps
+//   in order through shared memory) without atomics, so results are
 //   bit-for-bit reproducible from run to run.
-// * Lanes are rounded up to whole warps; lanes >= C only feed zeros to the
-//   reductions.
+// * Threads are rounded up to whole warps; rows >= C only feed zeros to
+//   the reductions.
 
 #include <cuda_runtime.h>
 
@@ -37,8 +53,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;            // largest C the wrapper accepts
+constexpr int kMaxThreads = 512;  // kernels/sellcs_spmv.py:MAX_THREADS
 constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxBW = 16;        // columns of one grid.y slice
+constexpr int kUnroll = 8;        // slots in flight per thread, long rows
 
 enum Flags {
   kHasYin = 1,
@@ -49,92 +67,162 @@ enum Flags {
   kDotXX = 32,
 };
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+// A 16-byte vector of the compute type, taken apart and put together.
+__device__ __forceinline__ void split16(const double2& t, double* o) {
+  o[0] = t.x;
+  o[1] = t.y;
+}
+__device__ __forceinline__ void split16(const float4& t, float* o) {
+  o[0] = t.x;
+  o[1] = t.y;
+  o[2] = t.z;
+  o[3] = t.w;
+}
+__device__ __forceinline__ double2 join16(const double* o) {
+  return make_double2(o[0], o[1]);
+}
+__device__ __forceinline__ float4 join16(const float* o) {
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+template <typename CT> struct Vec16;
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<float> { using type = float4; };
+
+// CPT neighbouring values of the compute type: one value, or one 16-byte
+// vector (double2, float4).
+template <typename CT, int CPT> struct Pack {
+  CT v[CPT];
+  __device__ __forceinline__ void load(const CT* p) {
+    if constexpr (CPT == 1)
+      v[0] = __ldg(p);
+    else
+      split16(__ldg(reinterpret_cast<const typename Vec16<CT>::type*>(p)), v);
+  }
+  __device__ __forceinline__ void store(CT* p) const {
+    if constexpr (CPT == 1)
+      p[0] = v[0];
+    else
+      *reinterpret_cast<typename Vec16<CT>::type*>(p) = join16(v);
+  }
+};
+
+// Sum over the rows of a warp: lanes l, l + tpr, l + 2 tpr, ... hold the
+// same columns; afterwards lane l < tpr holds their sum.
+__device__ __forceinline__ double rows_sum(double v, int tpr) {
+  for (int o = 16; o >= tpr; o >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <typename VT, typename CT, int BW>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename VT, typename CT, int CPT>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const int* __restrict__ chunk_off,
                   const int* __restrict__ chunk_len, const CT* __restrict__ x,
                   const CT* __restrict__ y_in, const CT* __restrict__ z_in,
                   const CT* __restrict__ gamma, CT* __restrict__ y,
                   CT* __restrict__ z, double* __restrict__ part, int C, int b,
-                  int gamma_width, CT alpha, CT beta, CT delta, CT eta,
-                  int flags) {
-  __shared__ double warp_part[kMaxWarps][3 * BW];
+                  int bw, int tpr, int gamma_width, CT alpha, CT beta,
+                  CT delta, CT eta, int flags) {
+  __shared__ double warp_part[kMaxWarps][3][kMaxBW];
 
   const int c = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int k0 = blockIdx.y * BW;
-  const bool active = lane < C;
-  const long long row = (long long)c * C + lane;
-
-  CT acc[BW];
-#pragma unroll
-  for (int k = 0; k < BW; ++k) acc[k] = CT(0);
-
-  if (active) {
-    const long long base = (long long)chunk_off[c] * C + lane;
-    const int len = chunk_len[c];
-    for (int j = 0; j < len; ++j) {
-      const long long s = base + (long long)j * C;
-      const CT a = load_as<CT>(vals[s]);
-      const CT* xr = x + (long long)cols[s] * b + k0;
-#pragma unroll
-      for (int k = 0; k < BW; ++k)
-        if (k0 + k < b) acc[k] += a * xr[k];
-    }
-  }
-
+  const int sub = threadIdx.x % tpr;
+  const int rip = threadIdx.x / tpr;  // row within a pass
+  const int rows_per_pass = blockDim.x / tpr;
+  const int kk = blockIdx.y * bw + sub * CPT;  // first column of the thread
+  const bool col_ok = kk < b;  // CPT > 1: b % CPT == 0, all or none
   const bool any_dot = flags & (kDotYY | kDotXY | kDotXX);
   const bool need_xrow = flags & (kHasGamma | kDotXY | kDotXX);
-  const int warp = threadIdx.x >> 5;
-  const int wl = threadIdx.x & 31;
+  const long long off = (long long)chunk_off[c] * C;
+  const int len = chunk_len[c];
 
+  double d_yy[CPT], d_xy[CPT], d_xx[CPT];
 #pragma unroll
-  for (int k = 0; k < BW; ++k) {
-    if (k0 + k >= b) break;  // uniform across the block
-    double p_yy = 0.0, p_xy = 0.0, p_xx = 0.0;
-    if (active) {
-      const long long o = row * b + k0 + k;
-      const CT xv = need_xrow ? x[o] : CT(0);
-      CT a = acc[k];
-      if (flags & kHasGamma) a -= gamma[gamma_width == 1 ? 0 : k0 + k] * xv;
-      CT yv = alpha * a;
-      if (flags & kHasYin) yv += beta * y_in[o];
-      y[o] = yv;
-      if (flags & kChain) z[o] = delta * z_in[o] + eta * yv;
-      if (flags & kDotYY) p_yy = (double)yv * (double)yv;
-      if (flags & kDotXY) p_xy = (double)xv * (double)yv;
-      if (flags & kDotXX) p_xx = (double)xv * (double)xv;
-    }
-    if (any_dot) {
-      p_yy = warp_sum(p_yy);
-      p_xy = warp_sum(p_xy);
-      p_xx = warp_sum(p_xx);
-      if (wl == 0) {
-        warp_part[warp][k] = p_yy;
-        warp_part[warp][BW + k] = p_xy;
-        warp_part[warp][2 * BW + k] = p_xx;
+  for (int e = 0; e < CPT; ++e) d_yy[e] = d_xy[e] = d_xx[e] = 0.0;
+
+  for (int r0 = 0; r0 < C; r0 += rows_per_pass) {
+    const int lr = r0 + rip;
+    if (lr >= C || !col_ok) continue;
+    const long long row = (long long)c * C + lr;
+    const long long base = off + lr;
+
+    CT acc[CPT];
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) acc[e] = CT(0);
+    int j = 0;
+    for (; j + kUnroll <= len; j += kUnroll) {
+      CT a[kUnroll];
+      int col[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long s = base + (long long)(j + u) * C;
+        a[u] = load_as<CT>(vals[s]);
+        col[u] = __ldg(cols + s);
       }
+      Pack<CT, CPT> xv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) xv[u].load(x + (long long)col[u] * b + kk);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int e = 0; e < CPT; ++e) acc[e] += a[u] * xv[u].v[e];
     }
+    for (; j < len; ++j) {
+      const long long s = base + (long long)j * C;
+      const CT a = load_as<CT>(vals[s]);
+      Pack<CT, CPT> xv;
+      xv.load(x + (long long)__ldg(cols + s) * b + kk);
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) acc[e] += a * xv.v[e];
+    }
+
+    const long long o = row * b + kk;
+    Pack<CT, CPT> xr, yv, yi, zi;
+    if (need_xrow) xr.load(x + o);
+    if (flags & kHasYin) yi.load(y_in + o);
+    if (flags & kChain) zi.load(z_in + o);
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) {
+      CT av = acc[e];
+      if (flags & kHasGamma)
+        av -= gamma[gamma_width == 1 ? 0 : kk + e] * xr.v[e];
+      CT yvv = alpha * av;
+      if (flags & kHasYin) yvv += beta * yi.v[e];
+      yv.v[e] = yvv;
+      if (flags & kChain) zi.v[e] = delta * zi.v[e] + eta * yvv;
+      if (flags & kDotYY) d_yy[e] += (double)yvv * (double)yvv;
+      if (flags & kDotXY) d_xy[e] += (double)xr.v[e] * (double)yvv;
+      if (flags & kDotXX) d_xx[e] += (double)xr.v[e] * (double)xr.v[e];
+    }
+    yv.store(y + o);
+    if (flags & kChain) zi.store(z + o);
   }
 
-  if (any_dot) {
-    __syncthreads();
-    const int nwarps = blockDim.x >> 5;
-    for (int t = threadIdx.x; t < 3 * BW; t += blockDim.x) {
-      const int d = t / BW;
-      const int k = t % BW;
-      if (k0 + k < b) {
-        double s = 0.0;
-        for (int w = 0; w < nwarps; ++w) s += warp_part[w][t];
-        part[((long long)c * 3 + d) * b + k0 + k] = s;
-      }
+  if (!any_dot) return;  // uniform across the block
+  const int warp = threadIdx.x >> 5;
+  const int wl = threadIdx.x & 31;
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) {
+    const double s_yy = (flags & kDotYY) ? rows_sum(d_yy[e], tpr) : 0.0;
+    const double s_xy = (flags & kDotXY) ? rows_sum(d_xy[e], tpr) : 0.0;
+    const double s_xx = (flags & kDotXX) ? rows_sum(d_xx[e], tpr) : 0.0;
+    if (wl < tpr) {
+      warp_part[warp][0][sub * CPT + e] = s_yy;
+      warp_part[warp][1][sub * CPT + e] = s_xy;
+      warp_part[warp][2][sub * CPT + e] = s_xx;
+    }
+  }
+  __syncthreads();
+  const int nwarps = blockDim.x >> 5;
+  for (int t = threadIdx.x; t < 3 * bw; t += blockDim.x) {
+    const int d = t / bw;
+    const int col = t % bw;
+    const int k = blockIdx.y * bw + col;
+    if (k < b) {
+      double s = 0.0;
+      for (int w = 0; w < nwarps; ++w) s += warp_part[w][d][col];
+      part[((long long)c * 3 + d) * b + k] = s;
     }
   }
 }
@@ -151,72 +239,79 @@ struct Args {
   void* y;
   void* z;
   double* part;
-  int nchunks, C, b, gamma_width, flags;
+  int nchunks, C, b, bw, tpr, threads, gamma_width, flags;
   double alpha, beta, delta, eta;
 };
 
-template <typename VT, typename CT, int BW>
-void launch_bw(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.nchunks, (a.b + BW - 1) / BW);
-  const dim3 block(((a.C + 31) / 32) * 32);
-  sellcs_spmv_fused<VT, CT, BW><<<grid, block, 0, stream>>>(
+template <typename VT, typename CT, int CPT>
+void launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.nchunks, (a.b + a.bw - 1) / a.bw);
+  sellcs_spmv_fused<VT, CT, CPT><<<grid, a.threads, 0, stream>>>(
       static_cast<const VT*>(a.vals), a.cols, a.chunk_off, a.chunk_len,
       static_cast<const CT*>(a.x), static_cast<const CT*>(a.y_in),
       static_cast<const CT*>(a.z_in), static_cast<const CT*>(a.gamma),
-      static_cast<CT*>(a.y), static_cast<CT*>(a.z), a.part, a.C, a.b,
-      a.gamma_width, (CT)a.alpha, (CT)a.beta, (CT)a.delta, (CT)a.eta,
+      static_cast<CT*>(a.y), static_cast<CT*>(a.z), a.part, a.C, a.b, a.bw,
+      a.tpr, a.gamma_width, (CT)a.alpha, (CT)a.beta, (CT)a.delta, (CT)a.eta,
       a.flags);
 }
 
+// CPT is 1, or one 16-byte vector of the compute type.
 template <typename VT, typename CT>
-void launch_ct(const Args& a, cudaStream_t stream) {
-  if (a.b <= 1)
-    launch_bw<VT, CT, 1>(a, stream);
-  else if (a.b <= 2)
-    launch_bw<VT, CT, 2>(a, stream);
-  else if (a.b <= 4)
-    launch_bw<VT, CT, 4>(a, stream);
-  else if (a.b <= 8)
-    launch_bw<VT, CT, 8>(a, stream);
+int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
+  constexpr int kVec = 16 / (int)sizeof(CT);
+  if (cpt == 1)
+    launch<VT, CT, 1>(a, stream);
+  else if (cpt == kVec)
+    launch<VT, CT, kVec>(a, stream);
   else
-    launch_bw<VT, CT, 16>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
 // store: 0 float64, 1 float32, 2 bfloat16, 3 float16; compute: 0 float64,
-// 1 float32.  Returns cudaGetLastError() after the launch (0 on success).
+// 1 float32.  bw (columns per grid.y slice, <= 16), tpr (threads per row),
+// cpt (columns per thread, tpr * cpt == bw) and threads (per block) come
+// from kernels/sellcs_spmv.py:launch_geometry; cpt > 1 needs b % cpt == 0
+// and x, y_in, z_in, y and z on 16-byte boundaries.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int sellcs_spmv_launch(
     int store, int compute, const void* vals, const void* cols,
     const void* chunk_off, const void* chunk_len, const void* x,
     const void* y_in, const void* z_in, const void* gamma, void* y, void* z,
-    void* part, int nchunks, int C, int b, int gamma_width, double alpha,
-    double beta, double delta, double eta, int flags, void* stream) {
-  if (C < 1 || C > kMaxThreads || nchunks < 1 || b < 1)
+    void* part, int nchunks, int C, int b, int bw, int tpr, int cpt,
+    int threads, int gamma_width, double alpha, double beta, double delta,
+    double eta, int flags, void* stream) {
+  if (C < 1 || nchunks < 1 || b < 1 || bw < 1 || bw > kMaxBW || tpr < 1 ||
+      cpt < 1 || tpr * cpt != bw || (cpt > 1 && b % cpt) || threads < 32 ||
+      threads > kMaxThreads || threads % 32 || 32 % tpr)
     return (int)cudaErrorInvalidValue;
   const Args a{vals, static_cast<const int*>(cols),
                static_cast<const int*>(chunk_off),
                static_cast<const int*>(chunk_len), x, y_in, z_in, gamma, y, z,
-               static_cast<double*>(part), nchunks, C, b, gamma_width, flags,
-               alpha, beta, delta, eta};
+               static_cast<double*>(part), nchunks, C, b, bw, tpr, threads,
+               gamma_width, flags, alpha, beta, delta, eta};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
   if (compute == 0) {
     switch (store) {
-      case 0: launch_ct<double, double>(a, s); break;
-      case 1: launch_ct<float, double>(a, s); break;
-      case 2: launch_ct<__nv_bfloat16, double>(a, s); break;
-      case 3: launch_ct<__half, double>(a, s); break;
+      case 0: rc = launch_cpt<double, double>(cpt, a, s); break;
+      case 1: rc = launch_cpt<float, double>(cpt, a, s); break;
+      case 2: rc = launch_cpt<__nv_bfloat16, double>(cpt, a, s); break;
+      case 3: rc = launch_cpt<__half, double>(cpt, a, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else if (compute == 1) {
     switch (store) {
-      case 1: launch_ct<float, float>(a, s); break;
-      case 2: launch_ct<__nv_bfloat16, float>(a, s); break;
-      case 3: launch_ct<__half, float>(a, s); break;
+      case 1: rc = launch_cpt<float, float>(cpt, a, s); break;
+      case 2: rc = launch_cpt<__nv_bfloat16, float>(cpt, a, s); break;
+      case 3: rc = launch_cpt<__half, float>(cpt, a, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 """Fused SELL-C-sigma SpM(M)V on Hopper: the wrapper of ``csrc/sellcs_spmv.cu``.
 
 The CUDA port of ``repro/kernels/sellcs_spmv.py:sellcs_spmv_pallas`` (B1).
-One thread block owns one C-row chunk, one thread one row; the kernel
-computes ``y = alpha (A - gamma I) x + beta y_in``, the chained
-``z = delta z_in + eta y`` and per-chunk float64 partial dots in one sweep
-(see the note at the top of the CUDA source).  This wrapper validates the
-operands, allocates the outputs, launches on the current stream without
-synchronising, and sums the per-chunk dots over chunks in float64 as the
-JAX wrapper does outside its ``pallas_call``.
+One thread block owns one C-row chunk, and :func:`launch_geometry` spreads
+each row over a few threads that own neighbouring columns as 16-byte
+vectors; the kernel computes ``y = alpha (A - gamma I) x + beta y_in``,
+the chained ``z = delta z_in + eta y`` and per-chunk float64 partial dots
+in one sweep (see the note at the top of the CUDA source).  This wrapper
+validates the operands, picks the launch geometry, allocates the outputs,
+launches on the current stream without synchronising, and sums the
+per-chunk dots over chunks in float64 as the JAX wrapper does outside its
+``pallas_call``.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; the plain version is ``repro_torch.kernels.ref.sellcs_spmv_ref``.
@@ -15,17 +17,23 @@ take; the plain version is ``repro_torch.kernels.ref.sellcs_spmv_ref``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import execution
 from repro_torch.kernels import _build
 
-__all__ = ["sellcs_spmv_cuda", "check_operand", "MAX_C"]
+__all__ = ["sellcs_spmv_cuda", "check_operand", "launch_geometry",
+           "Geometry", "MAX_C", "MAX_THREADS"]
 
-#: largest chunk height: one block of C threads (rounded up to whole warps)
+#: largest chunk height
 MAX_C = 256
+#: threads of one block at most; a chunk whose rows need more is walked
+#: in passes
+MAX_THREADS = 512
+#: columns of one grid.y slice at most
+_MAX_BW = 16
 
 _STORE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                 torch.float16: 3}
@@ -33,7 +41,37 @@ _COMPUTE_CODES = {torch.float64: 0, torch.float32: 1}
 _HAS_YIN, _HAS_GAMMA, _CHAIN, _DOT_YY, _DOT_XY, _DOT_XX = 1, 2, 4, 8, 16, 32
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 4 + [_D] * 4 + [_I, _P]
+_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 4 + [_I, _P]
+
+
+class Geometry(NamedTuple):
+    bw: int        # columns of one grid.y slice (a power of two, <= 16)
+    cpt: int       # columns of one thread, moved as one vector when > 1
+    tpr: int       # threads of one row (tpr * cpt == bw)
+    threads: int   # threads of one block (whole warps, <= MAX_THREADS)
+    slices: int    # grid.y: column slices of bw
+
+
+def launch_geometry(b: int, C: int, compute_dtype: torch.dtype,
+                    vectors: bool = True) -> Geometry:
+    """How the kernel spreads a chunk of ``C`` rows and ``b`` columns.
+
+    A slice of ``bw`` columns (the smallest power of two >= ``b``, at most
+    16) is split over ``tpr`` threads a row, each owning ``cpt``
+    neighbouring columns: one 16-byte vector (2 float64 or 4 float32
+    values) when ``b`` is a multiple of it and ``vectors`` allows (the
+    operands lie on 16-byte boundaries), else one column.  So b=16 in
+    float64 is 8 threads a row, b=4 two, b=1 one.  A block holds the
+    chunk's ``C * tpr`` threads, rounded up to whole warps and capped at
+    :data:`MAX_THREADS` (then the chunk is walked in passes)."""
+    bw = 1
+    while bw < min(b, _MAX_BW):
+        bw *= 2
+    vec = 128 // torch.finfo(compute_dtype).bits
+    cpt = vec if vectors and b % vec == 0 and bw >= vec else 1
+    tpr = bw // cpt
+    threads = min(-(-C * tpr // 32) * 32, MAX_THREADS)
+    return Geometry(bw, cpt, tpr, threads, -(-b // bw))
 
 
 def _entry():
@@ -140,6 +178,9 @@ def sellcs_spmv_cuda(
 
     y = torch.empty((n_pad, b), dtype=ct, device=device)
     z = torch.empty((n_pad, b), dtype=ct, device=device) if chain else None
+    geo = launch_geometry(b, C, ct, all(
+        t.data_ptr() % 16 == 0 for t in (x, y_in, z_in if chain else None)
+        if t is not None))
     part = (torch.empty((nchunks, 3, b), dtype=torch.float64, device=device)
             if any_dot else None)
     if n_pad and b:
@@ -156,7 +197,8 @@ def sellcs_spmv_cuda(
                 _ptr(vals), _ptr(cols), _ptr(chunk_off), _ptr(chunk_len),
                 _ptr(x), _ptr(y_in), _ptr(z_in if chain else None), _ptr(g),
                 _ptr(y), _ptr(z), _ptr(part),
-                nchunks, C, b, 0 if g is None else g.numel(),
+                nchunks, C, b, geo.bw, geo.tpr, geo.cpt, geo.threads,
+                0 if g is None else g.numel(),
                 float(alpha), float(beta),
                 0.0 if delta is None else float(delta),
                 0.0 if eta is None else float(eta),

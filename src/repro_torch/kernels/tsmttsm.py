@@ -3,10 +3,12 @@
 The CUDA port of ``repro/kernels/tsmttsm.py:tsmttsm_pallas`` (B2):
 ``X = alpha * V^T W + beta * X`` for real V ``(n, m)`` and W ``(n, k)``,
 row-major, with optional Kahan compensation.  Blocks reduce row ranges
-into ``(m, k)`` partials and a second kernel sums them in block order
-(see the note at the top of the CUDA source).  This wrapper validates the
-operands, picks the row partition from the shapes alone, allocates the
-partials and the result, and launches on the current stream without
+into ``(m, k)`` partials, streaming their rows through a ring of
+shared-memory stages filled by bulk copies, and a second kernel sums the
+partials in block order (see the note at the top of the CUDA source).
+This wrapper validates the operands, picks the row partition from the
+shapes alone and the stage size from the shapes and the dtype, allocates
+the partials and the result, and launches on the current stream without
 synchronising.
 
 It takes CUDA tensors only and raises on anything the kernel does not
@@ -25,7 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sellcs_spmv import check_operand
 
 __all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
-           "DTYPE_CODES"]
+           "stage_rows", "bulk_aligned", "DTYPE_CODES"]
 
 #: largest m and k the kernels take (a thread tile of 4 x 4 results, at
 #: most 256 tiles)
@@ -34,12 +36,17 @@ MAX_DIM = 64
 #: the card's SM count, so the summation order is the same on every card)
 MAX_BLOCKS = 528
 _TILE, _THREADS, _GROUP = 4, 256, 8
+#: bytes of one shared-memory stage, at most (the ring has three)
+STAGE_BYTES = 32768
+#: the most rows of one lane a stage holds
+_MAX_LANE_ROWS = 64
 
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3}
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _P, _P, _D, _D, _I, _P]
+_ARGTYPES = [_I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P, _P, _D,
+             _D, _I, _P]
 
 
 def _entry():
@@ -49,14 +56,19 @@ def _entry():
     return fn
 
 
+def _lanes(m: int, k: int) -> int:
+    """Row lanes of a block: 256 threads over the ``ceil(m/4) * ceil(k/4)``
+    result tiles of one row."""
+    return _THREADS // (-(-m // _TILE) * -(-k // _TILE))
+
+
 def row_partition(n: int, m: int, k: int):
     """``(rows_per_block, nblocks)`` for ``n`` rows: at most
     :data:`MAX_BLOCKS` blocks, each a whole number of the block's row-lane
-    sweeps (lanes x 8-row groups)."""
+    sweeps (lanes x 8-row groups).  A function of ``(n, m, k)`` alone."""
     if n == 0:
         return 0, 0
-    tiles = -(-m // _TILE) * -(-k // _TILE)
-    sweep = (_THREADS // tiles) * _GROUP
+    sweep = _lanes(m, k) * _GROUP
     rows = -(-n // MAX_BLOCKS)
     rows = -(-rows // sweep) * sweep
     return rows, -(-n // rows)
@@ -64,11 +76,41 @@ def row_partition(n: int, m: int, k: int):
 
 def summation_depth(n: int, m: int, k: int) -> int:
     """The longest chain of additions any product passes through in the
-    kernel: its lane's rows of one block, then the lanes, then the blocks
-    (the ``depth`` of the standard bound ``depth * u * sum |terms|``)."""
+    kernel: its lane's rows of one block (a lane takes every L-th row of
+    the block, in 8-row groups summed plainly and then added in order;
+    the shared-memory stages do not change that order), then the lanes
+    in lane order, then the blocks in block order (the ``depth`` of the
+    standard bound ``depth * u * sum |terms|``)."""
     rows, nblocks = row_partition(n, m, k)
-    lanes = _THREADS // (-(-m // _TILE) * -(-k // _TILE))
+    lanes = _lanes(m, k)
     return -(-rows // lanes) + lanes + nblocks
+
+
+def stage_rows(m: int, k: int, itemsize: int) -> int:
+    """Rows of V and W in one shared-memory stage: the row lanes times
+    the largest power of two (at most 64) of rows per lane that keeps a
+    stage within :data:`STAGE_BYTES`.  It sets only how the rows are
+    fetched, never the order in which they are summed."""
+    lanes = _lanes(m, k)
+    row_bytes = (m + k) * itemsize
+    q = 1
+    while q < _MAX_LANE_ROWS and 2 * q * lanes * row_bytes <= STAGE_BYTES:
+        q *= 2
+    return lanes * q
+
+
+def bulk_aligned(V: torch.Tensor, W: torch.Tensor, rows_per_block: int,
+                 tile_rows: int) -> bool:
+    """Whether the kernel may fill its stages with 16-byte bulk copies:
+    V and W start on 16-byte boundaries, and a block's rows and a stage's
+    rows of each are whole multiples of 16 bytes (the ragged last tile is
+    checked in the kernel)."""
+    sizes = (rows_per_block * V.shape[1] * V.element_size(),
+             rows_per_block * W.shape[1] * W.element_size(),
+             tile_rows * V.shape[1] * V.element_size(),
+             tile_rows * W.shape[1] * W.element_size())
+    return (V.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0
+            and all(b % 16 == 0 for b in sizes))
 
 
 def check_dims(fn: str, m: int, k: int) -> None:
@@ -110,6 +152,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
             raise TypeError(f"{fn}: X must be real, got {X.dtype}")
         x_in = X.to(acc).contiguous()
     rows, nblocks = row_partition(n, m, k)
+    tile_rows = stage_rows(m, k, V.element_size())
+    bulk = bulk_aligned(V, W, rows, tile_rows)
     part = torch.empty((nblocks, m, k), dtype=acc, device=device)
     comp = torch.empty_like(part) if kahan else None
     out = torch.empty((m, k), dtype=V.dtype, device=device)
@@ -118,7 +162,7 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
         rc = _entry()(
             DTYPE_CODES[V.dtype], int(kahan), V.data_ptr(), W.data_ptr(),
             part.data_ptr(), None if comp is None else comp.data_ptr(),
-            n, m, k, rows, nblocks,
+            n, m, k, rows, nblocks, tile_rows, int(bulk),
             None if x_in is None else x_in.data_ptr(), out.data_ptr(),
             float(alpha), float(beta), int(x_in is not None), stream)
     if rc != 0:

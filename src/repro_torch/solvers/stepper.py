@@ -12,8 +12,10 @@ initialized columns into a running state without touching the survivors.
 monolithic solver uses, stopping early at ``maxiter`` or when every
 column has converged — the stopping test of the JAX package's bounded
 ``while_loop``.  Composing chunks is therefore bit-identical to one
-monolithic solve.  The loop is plain Python and reads ``done`` on the
-host once per iteration.
+monolithic solve.  The loop is plain Python.  It reads each iteration's
+``done`` one iteration late: iteration i+1 is enqueued before iteration
+i's flag reaches the host, so the card never drains while Python enqueues
+the next iteration's launches.
 """
 from __future__ import annotations
 
@@ -22,8 +24,32 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import execution
+
 __all__ = ["run_chunk", "merge_columns", "merge_columns_masked",
            "snap_chunk", "clear_chunk_cache"]
+
+
+def _post_all_done(done: torch.Tensor, host):
+    """Start reading ``done.all()`` without waiting for the card: the flag
+    goes into ``host`` (a pinned host scalar) by a non-blocking copy, with
+    an event recorded after it.  On the CPU (``host`` None) the flag is
+    already on the host."""
+    flag = done.all()
+    if host is None:
+        return flag, None
+    host.copy_(flag, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(flag.device))
+    return host, event
+
+
+def _all_done(posted) -> bool:
+    """The flag :func:`_post_all_done` started; waits for its event only."""
+    host, event = posted
+    if event is not None:
+        event.synchronize()
+    return bool(host)
 
 
 def run_chunk(op, name: str, k: int, state, body: Callable, *args):
@@ -36,13 +62,39 @@ def run_chunk(op, name: str, k: int, state, body: Callable, *args):
     ``name`` labels the solver, as in the JAX package, where it keys the
     cache of compiled chunks.  ``args`` (a preconditioner) are handed to
     ``body`` rather than captured by a closure.
+
+    The test on ``done`` is read one iteration late: the body of
+    iteration i+1 is enqueued before iteration i's flag is read, so the
+    host waits only for that flag while the card already runs the next
+    iteration.  When the flag says every column is done, state i is
+    returned and the speculative state i+1 is dropped (bodies are
+    functional, so nothing else changed), and
+    ``execution.count_discarded(name)`` records it: at most one per call.
+    ``k`` and ``maxiter`` are host integers, so the loop never enqueues an
+    iteration past either of them.
     """
-    i = 0
     k = int(k)
-    while i < k and state.it < state.maxiter and not bool(state.done.all()):
-        state = body(op, *args, state)
-        i += 1
-    return state
+    if k <= 0 or state.it >= state.maxiter:
+        return state
+    # two pinned slots: iteration i's flag is read before slot i % 2 is
+    # written again
+    slots = (tuple(torch.empty((), dtype=torch.bool, pin_memory=True)
+                   for _ in range(2))
+             if state.done.device.type == "cuda" else (None, None))
+    i = 0
+    posted = _post_all_done(state.done, slots[0])
+    while True:
+        nxt = body(op, *args, state)
+        more = i + 1 < k and nxt.it < nxt.maxiter
+        nxt_posted = (_post_all_done(nxt.done, slots[(i + 1) % 2]) if more
+                      else None)
+        if _all_done(posted):
+            execution.count_discarded(name)
+            return state
+        state, i = nxt, i + 1
+        if not more:
+            return state
+        posted = nxt_posted
 
 
 def snap_chunk(k, k_max: int) -> int:

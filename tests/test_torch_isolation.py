@@ -259,6 +259,27 @@ def test_chip_smoke_precond_phases_rehearse_on_cpu(monkeypatch):
     chip_smoke.phase_chebyshev_pcg("cpu rehearsal")
 
 
+def test_chip_smoke_stepper_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's comparison of the late-read ``run_chunk`` with the
+    loop that reads ``done`` every iteration, on the CPU at a small size
+    (the profiler split and the sync count need the card and are left
+    out there): it checks the states' equality and the control flow."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("PRECOND_NX", 64),
+                        ("STEP_ITERS", {"cg": 7, "cg_precond": 5,
+                                        "block_cg": 3})):
+        monkeypatch.setattr(chip_smoke, name, value)
+    r, c, v, n = chip_smoke.laplace3d(12)
+    fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu")}
+    bcg = chip_smoke.phase_block_cg(fw, "cpu rehearsal")
+    pcg = chip_smoke.phase_precond_cg("cpu rehearsal")
+    execution.reset_launch_counts()
+    chip_smoke.phase_stepper(fw, bcg, pcg, "cpu rehearsal")
+    assert execution.discarded_counts().get("cg", 0) == 0
+
+
 def test_chip_smoke_lm_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's B6 grid and slice 8a's phases (prefill, serve,
     float32 decode against forward, MoE), run on the CPU at the registered

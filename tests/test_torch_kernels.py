@@ -22,9 +22,14 @@ import torch
 from repro_torch.core import SpmvOpts, execution, from_coo
 from repro_torch.kernels.ops import sellcs_spmv, tsmm, tsmttsm
 from repro_torch.kernels.ref import sellcs_spmv_ref, tsmm_ref, tsmttsm_ref
-from repro_torch.kernels.sellcs_spmv import MAX_C, sellcs_spmv_cuda
+from repro_torch.kernels.sellcs_spmv import (MAX_C, MAX_THREADS,
+                                             launch_geometry,
+                                             sellcs_spmv_cuda)
 from repro_torch.kernels.tsmm import tsmm_cuda
-from repro_torch.kernels.tsmttsm import MAX_DIM, tsmttsm_cuda
+from repro_torch.kernels.tsmttsm import (MAX_BLOCKS, MAX_DIM, STAGE_BYTES,
+                                         bulk_aligned, row_partition,
+                                         stage_rows, summation_depth,
+                                         tsmttsm_cuda)
 from repro_torch.matrices import anisotropic_laplace2d, matpde
 from repro_torch.solvers import cg, cg_init, cg_step, make_operator
 
@@ -68,7 +73,7 @@ def rel_err(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("flag", list(FLAGS))
-@pytest.mark.parametrize("b", [1, 3, 16, 20])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 8, 16, 20])
 @pytest.mark.parametrize("store,np_ct", PAIRS,
                          ids=[f"{s}-{np.dtype(c).name}" for s, c in PAIRS])
 def test_kernel_matches_plain_on_card(store, np_ct, b, flag):
@@ -111,6 +116,33 @@ def test_kernel_rectangular_part_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [8, 128, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("np_ct", [np.float64, np.float32])
+def test_kernel_passes_and_unaligned_operands_on_card(np_ct, aligned, C):
+    """A chunk of C rows at b=16 takes C * tpr threads, walked in passes
+    above 512; operands off a 16-byte boundary (views one value into a
+    buffer) take the one-column-a-thread path.  Every flag at once."""
+    need_card()
+    A = _matrix(n=5 * C + 3, C=C, sigma=4 * C, dtype=np_ct, device="cuda")
+    ct, b, n = A.dtype, 16, A.nrows_pad
+    g = torch.Generator(device="cuda").manual_seed(C)
+    x, y, z = (torch.randn(n * b + 1, dtype=ct, device="cuda",
+                           generator=g)[int(not aligned):][:n * b].view(n, b)
+               for _ in range(3))
+    assert (x.data_ptr() % 16 == 0) == aligned
+    opts = SpmvOpts(alpha=1.1, beta=0.5, delta=0.3, eta=-0.8,
+                    gamma=torch.linspace(-1, 1, b, dtype=ct, device="cuda"),
+                    dot_yy=True, dot_xy=True, dot_xx=True)
+    got = sellcs_spmv(A, x, y, z, opts)
+    want = sellcs_spmv_ref(A, x, y, z, opts)
+    vec_tol, dot_tol = (1e-12, 1e-12) if ct == torch.float64 else (1e-5, 1e-6)
+    assert rel_err(got[0], want[0]) <= vec_tol
+    assert rel_err(got[1], want[1]) <= vec_tol
+    assert rel_err(got[2], want[2]) <= dot_tol
+
+
+@pytest.mark.gpu
 def test_kernel_dots_are_deterministic_on_card():
     need_card()
     A = _matrix(n=5000, C=32, sigma=256, dtype=np.float32, device="cuda")
@@ -134,7 +166,10 @@ def test_case_study_on_card_launches_once_per_iteration():
     res = cg(make_operator(A), A.permute(b), tol=1e-6, maxiter=600)
     assert bool(res.converged.all())
     assert abs(res.iters - 53) <= 1
-    assert execution.launch_counts()["sellcs_spmv"] == res.iters + 1
+    # run_chunk enqueues one iteration past the last and drops it
+    dropped = execution.discarded_counts().get("cg", 0)
+    assert dropped == 1
+    assert execution.launch_counts()["sellcs_spmv"] == res.iters + dropped + 1
 
 
 @pytest.mark.gpu
@@ -155,6 +190,39 @@ def test_wrapper_refusals_on_card():
     with pytest.raises(ValueError, match="outside"):
         sellcs_spmv_cuda(A.vals, A.cols, A.chunk_off, A.chunk_len, x,
                          C=MAX_C + 1)
+
+
+def test_launch_geometry_spreads_rows_over_vector_threads():
+    """b=16 in float64: 8 threads a row, each one double2, 4 rows a warp;
+    b=4: two threads a row; b=1: one (as a plain SELL-C kernel)."""
+    f64, f32 = torch.float64, torch.float32
+    assert launch_geometry(16, 32, f64) == (16, 2, 8, 256, 1)
+    assert launch_geometry(4, 32, f64) == (4, 2, 2, 64, 1)
+    assert launch_geometry(1, 32, f64) == (1, 1, 1, 32, 1)
+    assert launch_geometry(16, 32, f32) == (16, 4, 4, 128, 1)
+    assert launch_geometry(4, 32, f32) == (4, 4, 1, 32, 1)
+    # odd widths and operands off a 16-byte boundary: one column a thread
+    assert launch_geometry(3, 32, f64) == (4, 1, 4, 128, 1)
+    assert launch_geometry(16, 32, f64, vectors=False) == (16, 1, 16, 512, 1)
+    # C * tpr above MAX_THREADS: the block walks the chunk in passes
+    assert launch_geometry(16, 256, f64) == (16, 2, 8, MAX_THREADS, 1)
+    assert launch_geometry(20, 32, f64) == (16, 2, 8, 256, 2)
+
+
+@pytest.mark.parametrize("ct", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_launch_geometry_is_what_the_kernel_takes(ct):
+    for b in range(1, 41):
+        for C in (1, 8, 31, 32, 100, MAX_C):
+            for vectors in (True, False):
+                g = launch_geometry(b, C, ct, vectors)
+                assert g.bw in (1, 2, 4, 8, 16) and g.tpr * g.cpt == g.bw
+                assert g.cpt == 1 or (vectors and b % g.cpt == 0
+                                      and g.cpt * ct.itemsize == 16)
+                assert 32 % g.tpr == 0 and g.threads % 32 == 0
+                assert min(C * g.tpr, MAX_THREADS) <= g.threads <= MAX_THREADS
+                assert g.bw * (g.slices - 1) < b <= g.bw * g.slices
+                assert g.bw >= min(b, 16)
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -219,6 +287,52 @@ def test_tsmttsm_matches_plain_on_card(dtype, n, m, k, kahan, with_x):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+def test_tsmttsm_kahan_at_the_block_cg_shape_on_card(dtype):
+    """4,096,000 x 16 (block CG on laplace3d(160)), Kahan, against the
+    compensated bound, and bulk-copied (the operands are aligned)."""
+    need_card()
+    V, W, X = _tsm_inputs(4_096_000, 16, 16, dtype, 16)
+    rows, _ = row_partition(4_096_000, 16, 16)
+    assert bulk_aligned(V, W, rows, stage_rows(16, 16, V.element_size()))
+    got = tsmttsm(V, W, X, 0.5, -2.0, kahan=True)
+    Vd, Wd, Xd = V.double(), W.double(), X.double()
+    want = tsmttsm_ref(Vd, Wd, Xd, 0.5, -2.0)
+    _within(got, want, 0.5 * (Vd.abs().T @ Wd.abs()) + 2.0 * Xd.abs(), dtype,
+            KAHAN_TOL)
+    assert torch.equal(got, tsmttsm(V, W, X, 0.5, -2.0, kahan=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kahan", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,m,k", [(37, 3, 5), (4109, 1, 7), (70001, 5, 3),
+                                   (70001, 7, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_tsmttsm_odd_widths_and_unaligned_views_on_card(dtype, n, m, k,
+                                                        offset, kahan):
+    """Odd m and k, and V and W as views one value into their buffers (off
+    a 16-byte boundary): the stages are filled by plain loads where a bulk
+    copy cannot take them, with the same sums."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(n + m + k)
+    V, W = (torch.randn(n * w + offset, generator=g, device="cuda",
+                        dtype=torch.float64).to(dtype)[offset:].view(n, w)
+            for w in (m, k))
+    rows, _ = row_partition(n, m, k)
+    if offset:
+        assert not bulk_aligned(V, W, rows, stage_rows(m, k, V.element_size()))
+    got = tsmttsm(V, W, kahan=kahan)
+    Vd, Wd = V.double(), W.double()
+    _within(got, tsmttsm_ref(Vd, Wd), Vd.abs().T @ Wd.abs(), dtype,
+            KAHAN_TOL if kahan else TSM_TOL)
+    # the same values at an aligned address give the same bits
+    assert torch.equal(got, tsmttsm(V.clone(), W.clone(), kahan=kahan))
+
+
+@pytest.mark.gpu
 def test_tsmttsm_kahan_beats_plain_sum_on_card():
     """float32 over 2^20 rows, pooled over four (m, k): the compensated
     kernel's rms error is at most half the plain sum's on the same inputs
@@ -279,6 +393,74 @@ def test_tsm_wrapper_refusals_on_card():
         tsmm(V, X, None, 1.0, 2.0)
 
 
+@pytest.mark.parametrize("m,k", [(1, 1), (3, 8), (5, 3), (16, 16),
+                                 (1, 64), (64, 64)])
+@pytest.mark.parametrize("n", [1, 37, 4109, 70001, 1 << 20, 4_096_000])
+def test_tsmttsm_row_partition_covers_n(n, m, k):
+    """Whole row-lane sweeps (lanes x 8-row groups) per block, at most
+    MAX_BLOCKS blocks, together exactly the n rows."""
+    rows, nblocks = row_partition(n, m, k)
+    lanes = 256 // (-(-m // 4) * -(-k // 4))
+    assert rows % (lanes * 8) == 0 and 1 <= nblocks <= MAX_BLOCKS
+    assert (nblocks - 1) * rows < n <= nblocks * rows
+    assert row_partition(0, m, k) == (0, 0)
+
+
+def test_tsmttsm_row_partition_depends_on_the_shape_alone(monkeypatch):
+    """The partition, and so the summation order, is a function of
+    (n, m, k): it asks nothing of a card."""
+    def no_card(*a, **kw):
+        raise AssertionError("the partition asked the card")
+
+    for name in ("get_device_properties", "device_count", "is_available"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    assert row_partition(4_096_000, 16, 16) == (7808, 525)
+    assert row_partition(37, 3, 8) == (1024, 1)
+    assert row_partition(4109, 64, 64) == (8, 514)
+    assert row_partition(1 << 20, 1, 1) == (2048, 512)
+
+
+def test_tsmttsm_summation_depth_by_hand():
+    # 16 x 16: 16 lanes; a lane's 7808 / 16 = 488 rows, 16 lanes, 525 blocks
+    assert summation_depth(4_096_000, 16, 16) == 488 + 16 + 525
+    # 3 x 8: 2 tiles a row, 128 lanes of 8 rows in one block
+    assert summation_depth(37, 3, 8) == 8 + 128 + 1
+    # 64 x 64: 256 tiles a row, one lane, blocks of 8 rows
+    assert summation_depth(4109, 64, 64) == 8 + 1 + 514
+    assert summation_depth(1 << 20, 1, 1) == 8 + 256 + 512
+    assert summation_depth(0, 16, 16) == 0 + 16 + 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+def test_tsmttsm_stage_rows(itemsize):
+    assert stage_rows(16, 16, 8) == 128          # 32 KB: one group a lane
+    assert stage_rows(16, 16, 4) == 256
+    assert stage_rows(64, 64, 8) == 32
+    assert stage_rows(1, 1, 8) == 2048
+    assert stage_rows(3, 8, 8) == 256
+    for m in range(1, MAX_DIM + 1, 3):
+        for k in range(1, MAX_DIM + 1, 5):
+            lanes = 256 // (-(-m // 4) * -(-k // 4))
+            rows = stage_rows(m, k, itemsize)
+            per_lane = rows // lanes
+            assert rows % lanes == 0 and per_lane & (per_lane - 1) == 0
+            assert 1 <= per_lane <= 64
+            assert rows * (m + k) * itemsize <= STAGE_BYTES
+
+
+def test_tsmttsm_bulk_aligned():
+    V = torch.zeros(4096, 16, dtype=torch.float64)
+    rows, _ = row_partition(4096, 16, 16)
+    assert bulk_aligned(V, V, rows, stage_rows(16, 16, 8))
+    U = torch.zeros(4096 * 3 + 1, dtype=torch.float32)[1:].view(4096, 3)
+    rows, _ = row_partition(4096, 3, 3)
+    assert not bulk_aligned(U, U, rows, stage_rows(3, 3, 4))
+    # odd widths in a narrow type at an aligned base: whole sweeps of rows
+    # keep the sizes multiples of 16 bytes
+    B = torch.zeros(4096, 3, dtype=torch.bfloat16)
+    assert bulk_aligned(B, B, rows, stage_rows(3, 3, 2))
+
+
 def test_tsm_wrappers_refuse_cpu_tensors():
     V = torch.zeros(10, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -309,7 +491,8 @@ def test_block_cg_iteration_launches_each_kernel():
     execution.reset_launch_counts()
     st = cg_step(op, st, 5)
     assert st.it == 5
-    assert counts() == (5, 10, 20)
+    it = st.it + execution.discarded_counts().get("block_cg", 0)
+    assert counts() == (it, 2 * it, 4 * it)
     res = cg(op, A.permute(b), tol=1e-8, maxiter=400, block=True)
     col = cg(op, A.permute(b), tol=1e-8, maxiter=400)
     assert bool(res.converged.all()) and res.iters <= col.iters

@@ -637,9 +637,12 @@ def test_pcg_on_card_matches_the_cpu_count(spec):
     counts = execution.launch_counts()
     assert bool(res.converged)
     assert abs(res.iters - RECORD[spec]) <= 1
+    # run_chunk enqueues one iteration past the last and drops it
+    dropped = execution.discarded_counts().get("cg_precond", 0)
+    assert dropped == 1
     if spec.startswith("block_jacobi"):
         assert counts["sellcs_spmv"] == counts["block_diag_matmul"] \
-            == res.iters + 1
+            == res.iters + dropped + 1
     else:
-        assert counts["sellcs_spmv"] == 4 * (res.iters + 1)
+        assert counts["sellcs_spmv"] == 4 * (res.iters + dropped + 1)
         assert counts.get("block_diag_matmul", 0) == 0
