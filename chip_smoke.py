@@ -10,7 +10,9 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (one
 the card, holding every kernel against its plain PyTorch version:
 
 1. environment: card name and power limit, CUDA and nvcc versions;
-2. build: seconds and the compiler's register/shared-memory/spill report;
+2. build: seconds and the compiler's register/shared-memory/spill report
+   (no B6 instance may spill), and the instructions per state update in
+   B6's hot loop (``cuobjdump -sass``);
 3. B1 (fused SpMV) against plain over a grid of chunk heights, sorting
    windows, store/compute dtypes, block widths and fusion flags;
 4. B2 (tsmttsm, with and without Kahan) and B3 (tsmm, with and without
@@ -60,6 +62,9 @@ the card, holding every kernel against its plain PyTorch version:
     float64, over batch, sequence length, d_inner and state size, with dt
     from 0 to large and A <= 0, each output held to a stated error bound
     (the earlier phases' matrices are freed first);
+16b. B6's exponential (``ex2.approx.ftz.f32``) on every finite float32
+    argument <= 0 against exp2 in float64, held to the error
+    ``error_bound`` charges for it;
 17. slice 8a's main path at full width: ``forward`` (the serving
     prefill) of jamba-1.5-large at its published widths, cut to one
     period of 8 layers (7 Mamba, attention at index 4) with a dense
@@ -74,7 +79,10 @@ the card, holding every kernel against its plain PyTorch version:
 20. the registered SMOKE jamba (MoE, 4 experts): ``forward`` and decode
     on the card against the port's CPU run of the same weights;
 21. timing of B6 at the main shape beside its plain version and its
-    bound.
+    bound, on the grid's inputs and on the model's own, and B6 back to
+    back under the prefill split's protocol and this phase's, on an idle
+    card and right after bf16 products, with the SM clock and throttle
+    reasons sampled during each window (why B6 is slower in the split).
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -91,6 +99,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -108,7 +117,7 @@ from repro_torch.kernels import fused_update  # noqa: E402
 from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
 from repro_torch.kernels.mamba_scan import MAX_N as SCAN_MAX_N  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
-    error_bound as scan_error_bound)
+    EXP_FLUSH, EXP_REL, EXP_ULP, exp2_cuda, error_bound as scan_error_bound)
 from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
                                      fused_axpby_dots, mamba_scan,
                                      sellcs_spmv, tsmm, tsmttsm)
@@ -196,6 +205,10 @@ B6_B = (1, 3)
 B6_S = (1, 7, 64, 257, 4096)
 B6_DI = (1, 8, 100, 16384)
 B6_N = (1, 4, 16, SCAN_MAX_N)
+#: B6's exponential: float32 arguments per launch, and the stride through
+#: their bit patterns (1: every finite argument <= 0; a CPU rehearsal
+#: strides)
+EXP2_CHUNK, EXP2_STRIDE = 1 << 28, 1
 LM_ARCH, LM_WIDTHS, LM_SEED = "jamba_1_5_large_398b", "full", 0
 LM_BATCH, LM_SEQ = 4, 4096
 SERVE_PROMPT, SERVE_GEN = 16, 32
@@ -269,15 +282,62 @@ def phase_environment() -> str:
 
 
 # ------------------------------------------------------------------ phase 2
+#: B6's template instances in mangled names: (lanes per channel, states per
+#: lane)
+SCAN_INSTANCE = r"mamba_scan_rowsILi(\d+)ELi(\d+)E"
+
+
+def sass_hot_loop(lib: Path, pattern: str = SCAN_INSTANCE):
+    """``hot_loops`` of the SASS of the library ``lib`` (``cuobjdump
+    -sass``)."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    return hot_loops(out, pattern)
+
+
+def hot_loops(sass: str, pattern: str = SCAN_INSTANCE):
+    """For each function in the SASS listing ``sass`` whose mangled name
+    matches ``pattern``: its innermost loop (a backward branch with no
+    other inside it) with the most MUFU.EX2 instructions, as ``{"<l,n>":
+    (instructions, MUFU.EX2, {opcode: count})}``.  One MUFU.EX2 is one
+    state update, so instructions / MUFU.EX2 is what a state update
+    costs."""
+    loops = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.search(pattern, chunk.split("\n", 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t.strip()))
+               for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);",
+                                      chunk)]
+        spans = []
+        for a, t in ins:
+            target = re.search(r"0x([0-9a-f]+)", t)
+            if t.startswith("BRA") and target and int(target.group(1), 16) < a:
+                spans.append((int(target.group(1), 16), a))
+        best = (0, 0, {})
+        for lo, hi in spans:
+            if any(o != (lo, hi) and lo <= o[0] and o[1] <= hi for o in spans):
+                continue                              # not innermost
+            ops = [t.split()[0] for a, t in ins if lo <= a <= hi]
+            mufu = sum(op.startswith("MUFU.EX2") for op in ops)
+            if mufu > best[1]:
+                hist = {}
+                for op in ops:
+                    hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
+                best = (len(ops), mufu, hist)
+        loops[f"<{m.group(1)},{m.group(2)}>"] = best
+    return loops
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.build()
     print(f"[build] {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for name in _build.sources():
-        log = _build.build_logs.get(name)
-        if log is None:
-            print(f"[build] {name}: already built, no compiler report")
-            continue
+        log = _build.build_log(name)
+        require(log is not None, f"build: no compiler report for {name}")
         # one line per template instance: registers, shared memory, spills
         entry, spill = "?", ""
         for line in log.splitlines():
@@ -293,12 +353,26 @@ def phase_build() -> None:
                          else m.group(1))
             elif "spill" in line:
                 spill = line.strip()
+                require(not entry.startswith("mamba_scan_rows")
+                        or ("0 bytes spill stores" in spill
+                            and "0 bytes spill loads" in spill),
+                        f"build: {entry} spills: {spill}")
             elif "registers" in line:
                 regs = re.search(r"Used \d+ registers", line)
                 smem = re.search(r"\d+ bytes smem", line)
                 print(f"[ptxas] {name}{entry}: "
                       f"{regs.group(0) if regs else '?'}, "
                       f"{smem.group(0) if smem else 'no smem'}; {spill}")
+    loops = sass_hot_loop(_build._library_path("mamba_scan"))
+    require(len(loops) == 5, f"build: mamba_scan_rows instances {list(loops)}")
+    for inst, (n, mufu, hist) in loops.items():
+        require(mufu > 0, f"build: no MUFU.EX2 loop in mamba_scan_rows{inst}")
+        npl = int(inst.strip("<>").split(",")[1])
+        mix = ", ".join(f"{op} {k}" for op, k in
+                        sorted(hist.items(), key=lambda kv: -kv[1]))
+        print(f"[sass] mamba_scan_rows{inst} hot loop: {n} instructions for "
+              f"{mufu} MUFU.EX2 = {n / mufu:.2f} per state update, "
+              f"{n * npl / mufu:.1f} per timestep of a thread ({mix})")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1665,10 +1739,12 @@ def _b6_check(args, tag, worst):
 def phase_b6_grid() -> None:
     """B6 against its plain version in float64 over batch, sequence,
     d_inner and state sizes, each output held to ``error_bound``: twice
-    the first-order float32 rounding of the recurrence (CUDA's expf within
-    2 ulp, the rounded exponent, two products and a sum per step, N terms
-    in y), about (6 + |dt A|) u per step on the decayed state and 3 u on
-    each new term, so the bound grows with the steps a term survives."""
+    the first-order float32 rounding of the recurrence (ex2.approx.ftz
+    within 2 ulp of the rounded 2^x, the exponent dt A log2(e) rounded
+    three times, a result below 2^-126 flushed to 0, two products and a
+    sum per step, N terms in y), about (7 + 3 |dt A|) u per step and
+    2^-126 absolute per factor on the decayed state and 3 u on each new
+    term, so the bound grows with the steps a term survives."""
     worst, n = {}, 0
     for B in B6_B:
         for S in B6_S:
@@ -1683,6 +1759,65 @@ def phase_b6_grid() -> None:
           f"bound")
     for N, (r, tag) in sorted(worst.items()):
         print(f"[b6 grid]   N={N}: worst {r:.3f} of the bound ({tag})")
+
+
+def phase_b6_exp2() -> None:
+    """B6's exponential, ``ex2.approx.ftz.f32`` (``exp2_cuda``; on the CPU
+    ``torch.exp2`` flushed below 2^-126 stands in), on every finite
+    float32 argument <= 0 (+0, -0 and the bit patterns down to -FLT_MAX)
+    against ``torch.exp2`` in float64.  Gates, the constants
+    ``error_bound`` charges: where 2^x >= 2^-125 (an error of a few ulp
+    cannot reach the flushed range there) at most EXP_ULP ulp from the
+    correctly rounded 2^x; where 2^x < 2^-126 (the subnormal range) at
+    most EXP_FLUSH; and everywhere |error| <= EXP_REL 2^x + EXP_FLUSH."""
+    u = 2.0 ** -24
+    end = 0x7F800000                          # the magnitude bits of -inf
+    worst = {key: (0.0, None) for key in ("ulp", "rel", "abs", "model")}
+    n = 0
+    for lo in range(-1, end, EXP2_CHUNK * EXP2_STRIDE):
+        hi = min(end, lo + EXP2_CHUNK * EXP2_STRIDE)
+        # -1 stands for +0, i >= 0 for the negative float of magnitude bits i
+        bits = torch.arange(lo, hi, EXP2_STRIDE, dtype=torch.int64,
+                            device=DEVICE)
+        x = torch.where(bits < 0, 0, bits - (1 << 31)).to(
+            torch.int32).view(torch.float32)
+        del bits
+        if DEVICE == "cuda":
+            r = exp2_cuda(x)
+        else:
+            r = torch.exp2(x)
+            r = torch.where(r < EXP_FLUSH, 0.0, r)
+        exact = torch.exp2(x.double())
+        normal = exact >= 2.0 ** -125
+        # ulp from the correctly rounded 2^x: the distance of two positive
+        # floats' bit patterns
+        ulps = (r.view(torch.int32).long()
+                - exact.float().view(torch.int32).long()).abs()
+        err = (r.double() - exact).abs()
+        del r
+        for key, e in (("ulp", torch.where(normal, ulps.double(), 0.0)),
+                       ("rel", torch.where(normal, err / exact / u, 0.0)),
+                       ("abs", torch.where(exact < 2.0 ** -126, err, 0.0)),
+                       ("model", err / (EXP_REL * exact + EXP_FLUSH))):
+            k = int(e.argmax())
+            if float(e[k]) > worst[key][0]:
+                worst[key] = (float(e[k]), float(x[k]))
+        n += x.numel()
+        del x, exact, normal, ulps, err, e
+    sync()
+    (w_ulp, x_ulp), (w_rel, x_rel), (w_abs, x_abs), (w_model, _) = (
+        worst[k] for k in ("ulp", "rel", "abs", "model"))
+    print(f"[b6 exp2] ex2.approx.ftz.f32 on {n} float32 arguments <= 0 "
+          f"(stride {EXP2_STRIDE}) against exp2 in float64, where 2^x >= "
+          f"2^-125: largest error {w_ulp:.0f} ulp from the correctly rounded "
+          f"2^x (x = {x_ulp!r}; stated {EXP_ULP}), largest relative error "
+          f"{w_rel:.4f} u (x = {x_rel!r}; stated {EXP_REL / u:.0f} u); where "
+          f"2^x < 2^-126: worst absolute error {w_abs:.4e} (x = {x_abs!r}; "
+          f"stated 2^-126 = {EXP_FLUSH:.4e}); largest error {w_model:.4f} of "
+          f"{EXP_REL / u:.0f}u 2^x + 2^-126")
+    require(w_ulp <= EXP_ULP, f"B6 exp2: {w_ulp} ulp > {EXP_ULP}")
+    require(w_abs <= EXP_FLUSH, f"B6 exp2: {w_abs:.4e} > 2^-126")
+    require(w_model <= 1.0, f"B6 exp2: {w_model} of its model")
 
 
 # ----------------------------------------------------------------- phase 17
@@ -1755,11 +1890,12 @@ def phase_prefill(card):
                 secs=warm, tokens_per_s=ntok / warm)
 
 
-def phase_prefill_split(lm, card) -> None:
+def phase_prefill_split(lm, card, sampler):
     """Where one full-width forward goes: each layer's mixer and FFN, B6
     and the LM head, timed alone with CUDA events on inputs of the
     forward's shapes (the embedding output stands in for each layer's
-    input)."""
+    input), with the SM clock while B6 ran (``sampler``).  Returns B6's
+    inputs there, the first Mamba layer's, on the host."""
     cfg, model, tokens = lm["cfg"], lm["model"], lm["tokens"]
     x = L.embed_apply(model.embed, tokens)
     pos = torch.arange(LM_SEQ, device=DEVICE).expand(LM_BATCH, LM_SEQ)
@@ -1777,10 +1913,14 @@ def phase_prefill_split(lm, card) -> None:
                     h = L.apply_norm(cfg.norm, pm["norm"], x)
                     dt, xc, Bc, Cc, A, _ = SSM._scan_inputs(pm["mamba"], h,
                                                             cfg.ssm)
-                    xf, A = xc.float(), A.contiguous()
-                    b6_ms = time_ms(lambda: mamba_scan(dt, xf, Bc, Cc, A),
+                    scan_args = (dt, xc.float(), Bc, Cc, A.contiguous())
+                    t0 = time.perf_counter()
+                    b6_ms = time_ms(lambda: mamba_scan(*scan_args),
                                     warmup=1, iters=5)
-                    del h, dt, xc, Bc, Cc, xf
+                    b6_window = (t0, time.perf_counter())
+                    # kept on the host for the B6 timing phase
+                    scan_args = tuple(t.cpu() for t in scan_args)
+                    del h, dt, xc, Bc, Cc, A
                 parts["mamba_scan (B6)"] += b6_ms
                 parts["Mamba layers without B6"] += ms - b6_ms
             else:
@@ -1799,6 +1939,10 @@ def phase_prefill_split(lm, card) -> None:
     rest = total - sum(parts.values())
     print(f"[prefill split]   {'rest (embedding, launches)':24s} "
           f"{rest:9.2f} ms ({100 * rest / total:.1f}%)")
+    print(f"[prefill split] one B6 call {b6_ms:.4f} ms (warm-up 1, 5 calls, "
+          f"right after the layer's projections): "
+          f"{sampler.during(*b6_window)}")
+    return scan_args
 
 
 # ----------------------------------------------------------------- phase 18
@@ -1926,47 +2070,179 @@ def _sm_clock_hz() -> float:
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
-def phase_b6_timing(card):
+#: what ``ClockSampler`` reads, and the names of the throttle reasons' bits
+CLOCK_QUERY = "clocks.sm,power.draw,clocks_throttle_reasons.active"
+THROTTLE_BITS = {0x1: "idle", 0x2: "application clocks", 0x4: "SW power cap",
+                 0x8: "HW slowdown", 0x10: "sync boost", 0x20: "SW thermal",
+                 0x40: "HW thermal", 0x80: "HW power brake",
+                 0x100: "display clocks"}
+
+
+class ClockSampler:
+    """``nvidia-smi`` in the background, reading the SM clock, the power
+    draw and the active throttle reasons every 5 ms, so that a timed
+    window can say what the card ran at.  A context manager: the process
+    ends on exit."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={CLOCK_QUERY}",
+             "--format=csv,noheader,nounits", "-lms", "5"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        deadline = time.perf_counter() + 5.0     # nvidia-smi's start-up
+        while (not self.samples and self.proc.poll() is None
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        return self
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.samples.append((time.perf_counter(), line.strip()))
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait()
+        self.reader.join()
+
+    def during(self, t0: float, t1: float) -> str:
+        """The samples taken between host times ``t0`` and ``t1`` (the
+        nearest one if none was)."""
+        got = [(t, line) for t, line in self.samples if t0 <= t <= t1]
+        where = f"{len(got)} samples in the window"
+        if not got and self.samples:
+            t, line = min(self.samples, key=lambda s: min(abs(s[0] - t0),
+                                                          abs(s[0] - t1)))
+            got = [(t, line)]
+            where = (f"no sample in the window; nearest "
+                     f"{1e3 * (t - t1 if t > t1 else t - t0):+.0f} ms from it")
+        rows = [[f.strip() for f in line.split(",")] for _, line in got]
+        rows = [r for r in rows if len(r) == 3
+                and all(re.fullmatch(r"[0-9.]+|0x[0-9a-fA-F]+", f) for f in r)]
+        if not rows:
+            return f"no clock sample ({[line for _, line in got][:1]})"
+        clocks = [float(r[0]) for r in rows]
+        watts = [float(r[1]) for r in rows]
+        mask = 0
+        for r in rows:
+            mask |= int(r[2], 16)
+        why = "+".join(n for b, n in THROTTLE_BITS.items() if mask & b)
+        return (f"SM clock {min(clocks):.0f}-{max(clocks):.0f} MHz, power "
+                f"{min(watts):.0f}-{max(watts):.0f} W, throttle reasons "
+                f"{why or 'none'} ({where})")
+
+
+#: the B6 gap trials: repeats of each, and bf16 products of in_proj's shape
+#: run just before a "hot" trial (as the split times B6 right after the
+#: layer's projections)
+B6_GAP_REPEATS, B6_HOT_PRODUCTS = 3, 30
+
+
+def _b6_gap(card, sampler, inputs, in_proj):
+    """B6 back to back on each set of ``inputs`` under the split's protocol
+    (warm-up 1, 5 calls) and the timing phase's (warm-up 3, 20 calls),
+    each on an idle card and right after ``B6_HOT_PRODUCTS`` products of
+    ``in_proj``'s shape, with the clock sampled during each window."""
+    a, w = in_proj
+    out = torch.empty((a.shape[0], w.shape[1]), dtype=a.dtype, device=DEVICE)
+    for label, args in inputs.items():
+        for warmup, iters in ((1, 5), (3, 20)):
+            for hot in (False, True):
+                times = []
+                for _ in range(B6_GAP_REPEATS):
+                    sync()
+                    if hot:
+                        for _ in range(B6_HOT_PRODUCTS):
+                            torch.matmul(a, w, out=out)
+                    else:
+                        time.sleep(0.5)
+                    t0 = time.perf_counter()
+                    times.append(time_ms(lambda: mamba_scan(*args),
+                                         warmup=warmup, iters=iters))
+                    t1 = time.perf_counter()
+                print(f"[b6 gap] {label}, warm-up {warmup} + {iters} calls, "
+                      f"{'after the products' if hot else 'idle card'}: "
+                      f"{' / '.join(f'{t:.4f}' for t in times)} ms; last "
+                      f"window: {sampler.during(t0, t1)}  [{card}]")
+
+
+def phase_b6_timing(card, model_args):
     """B6 at the main shape (B 4, S 4096, d_inner 16384, N 16): kernel, the
     plain version once, and the bound: the larger of the bytes (dt, xc,
     Bc, Cc, A read once, y written once) over 3.35 TB/s and the
-    exponentials (B S di N) at 16 per clock per SM."""
+    exponentials (B S di N) at 16 per clock per SM.  Then why B6 runs
+    slower inside the prefill split than here (``_b6_gap``), on the grid's
+    inputs (dt clamped to 1) and on the model's own (``model_args``: the
+    first Mamba layer's ``SSM._scan_inputs`` in the split, dt near
+    softplus(-4.6), A = -(1..16)), each held to ``error_bound`` too; with
+    the SM clock and the throttle reasons sampled during every window."""
     cfg = lm_config(torch.bfloat16)
     B, S, di, N = LM_BATCH, LM_SEQ, cfg.ssm.inner(cfg.d_model), cfg.ssm.d_state
     args = list(_b6_inputs(B, S, di, N, seed=21))
     args[0] = args[0].clamp(max=1.0)          # dt as the model has it
-    y = mamba_scan(*args)
-    want = mamba_scan_ref(*(a.double() for a in args))
-    err = float((y.double() - want).abs().max())
-    ratio = float(((y.double() - want).abs()
-                   / scan_error_bound(*args)).max())
-    del want
-    ms = time_ms(lambda: mamba_scan(*args), warmup=3, iters=20)
-    sync()
-    t0 = time.perf_counter()
-    mamba_scan_ref(*args)
-    sync()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    nbytes = _nbytes(*args, y)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    props = torch.cuda.get_device_properties(0)
-    clock = _sm_clock_hz()
-    nexp = B * S * di * N
-    exp_ms = 1e3 * nexp / (SFU_EXP_PER_CLK * props.multi_processor_count
-                           * clock)
-    flops_ms = 1e3 * 5.0 * nexp / PEAK_FLOPS[torch.float32]
-    ops_ms = max(exp_ms, flops_ms)
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[timing] mamba_scan f32 B={B} S={S} di={di} N={N}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.1f} ms (once), library n/a (no "
-          f"single PyTorch call computes a selective scan), bound "
-          f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for "
-          f"{nbytes / 1e9:.3f} GB; {nexp / 1e9:.2f} G exponentials "
-          f"{exp_ms:.4f} ms at {SFU_EXP_PER_CLK}/clock/SM x "
-          f"{props.multi_processor_count} SMs x {clock / 1e9:.2f} GHz; "
-          f"flops {flops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of bound, "
-          f"max abs err {err:.3e} ({ratio:.3f} of its bound)  [{card}]")
-    require(ratio <= 1.0, f"B6 timing inputs: error {ratio:.3f} of bound")
+    model_args = [t.to(DEVICE) for t in model_args]
+    require(tuple(model_args[0].shape) == (B, S, di)
+            and tuple(model_args[4].shape) == (di, N),
+            f"B6 timing: model inputs {[tuple(t.shape) for t in model_args]}")
+    errs = {}
+    for label, a in (("grid", args), ("model", model_args)):
+        y = mamba_scan(*a)
+        want = mamba_scan_ref(*(t.double() for t in a))
+        diff = (y.double() - want).abs()
+        del want
+        errs[label] = (float(diff.max()),
+                       float((diff / scan_error_bound(*a)).max()))
+        del diff
+    with ClockSampler() as sampler:
+        t0 = time.perf_counter()
+        ms = time_ms(lambda: mamba_scan(*args), warmup=3, iters=20)
+        clock_note = sampler.during(t0, time.perf_counter())
+        t0 = time.perf_counter()
+        model_ms = time_ms(lambda: mamba_scan(*model_args), warmup=3,
+                           iters=20)
+        model_note = sampler.during(t0, time.perf_counter())
+        sync()
+        t0 = time.perf_counter()
+        mamba_scan_ref(*args)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = _nbytes(*args, y)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        props = torch.cuda.get_device_properties(0)
+        clock = _sm_clock_hz()
+        nexp = B * S * di * N
+        exp_ms = 1e3 * nexp / (SFU_EXP_PER_CLK * props.multi_processor_count
+                               * clock)
+        flops_ms = 1e3 * 5.0 * nexp / PEAK_FLOPS[torch.float32]
+        ops_ms = max(exp_ms, flops_ms)
+        bound_ms = max(bytes_ms, ops_ms)
+        err, ratio = errs["grid"]
+        print(f"[timing] mamba_scan f32 B={B} S={S} di={di} N={N}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms (once), library n/a (no "
+              f"single PyTorch call computes a selective scan), bound "
+              f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for "
+              f"{nbytes / 1e9:.3f} GB; {nexp / 1e9:.2f} G exponentials "
+              f"{exp_ms:.4f} ms at {SFU_EXP_PER_CLK}/clock/SM x "
+              f"{props.multi_processor_count} SMs x {clock / 1e9:.2f} GHz; "
+              f"flops {flops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of "
+              f"bound, max abs err {err:.3e} ({ratio:.3f} of its bound); "
+              f"{clock_note}  [{card}]")
+        print(f"[timing] mamba_scan on the model's inputs (the split's first "
+              f"Mamba layer): {model_ms:.4f} ms, "
+              f"{100 * bound_ms / model_ms:.1f}% of bound, max abs err "
+              f"{errs['model'][0]:.3e} ({errs['model'][1]:.3f} of its bound); "
+              f"{model_note}  [{card}]")
+        d_model = cfg.d_model
+        in_proj = (torch.randn((B * S, d_model), dtype=torch.bfloat16,
+                               device=DEVICE),
+                   torch.randn((d_model, 2 * di), dtype=torch.bfloat16,
+                               device=DEVICE) * d_model ** -0.5)
+        _b6_gap(card, sampler, {"grid inputs": args,
+                                "model inputs": model_args}, in_proj)
+    for label, (e, r) in errs.items():
+        require(r <= 1.0, f"B6 timing, {label} inputs: error {r:.3f} of bound")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 err=err)
@@ -2045,8 +2321,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     timed("b6 grid", phase_b6_grid)
+    timed("b6 exponential", phase_b6_exp2)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm = timed("prefill at full width", phase_prefill, card)
-    timed("prefill split", phase_prefill_split, lm, card)
+    with ClockSampler() as sampler:
+        scan_args = timed("prefill split", phase_prefill_split, lm, card,
+                          sampler)
     timed("serve at full width", phase_serve, lm, card)
     launches = lm["launches"]
     del lm
@@ -2056,7 +2337,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("moe card vs cpu", phase_moe, card)
-    b6 = timed("b6 timing", phase_b6_timing, card)
+    b6 = timed("b6 timing", phase_b6_timing, card, scan_args)
     entries.append(_kernel_entry("mamba_scan", launches, b6))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -6,7 +6,9 @@ of the checkout (git-ignored).  The library's file name carries a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header never loads a stale build.
 ``build()`` starts one ``nvcc`` per source, all together, and waits for
-them; ``load()`` builds what is missing and returns the loaded library.
+them; ``load()`` builds what is missing and returns the loaded library;
+``build_log()`` returns the compiler's report of the current build, kept
+beside the library.
 
 A missing ``nvcc`` or a failed compile raises: there is no path that
 skips the kernel.
@@ -22,7 +24,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "sources", "build", "load",
-           "build_logs"]
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,9 +32,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
-#: name -> compiler output (ptxas registers, shared memory, spills) of the
-#: builds made by this process
-build_logs: Dict[str, str] = {}
 
 
 def sources() -> List[str]:
@@ -78,13 +77,21 @@ def build(names: Optional[Iterable[str]] = None) -> None:
     failed = []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+
+
+def build_log(name: str) -> Optional[str]:
+    """The compiler's output (ptxas registers, shared memory and spills of
+    each kernel) for the current build of ``csrc/<name>.cu``, or None if
+    it is not built."""
+    log = _library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

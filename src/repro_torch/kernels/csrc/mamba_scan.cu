@@ -14,34 +14,52 @@
 // bytes about equally.  The call must read dt and xc and write y, 12 bytes
 // per (b, s, d), plus Bc, Cc and A, which are N / di of that; and it must
 // evaluate B * S * di * N exponentials, which the special-function units
-// issue at 16 per clock per SM.  No state is ever written to device memory.
+// (MUFU) issue at 16 per clock per SM, a quarter of a warp per clock on
+// each of the SM's four schedulers.  So a warp's step over its states is
+// SFU-bound while it issues fewer than 8 instructions per state, and the
+// loads of dt and xc must stay in flight meanwhile.  No state is ever
+// written to device memory.
 //
 // Design:
+// * One exponential is one MUFU.EX2.  Each thread forms a2 = A * log2(e)
+//   once, at entry, and takes exp(dt A) as ex2.approx.ftz.f32(dt * a2):
+//   an FMUL and a MUFU, where expf is a libdevice routine of several FMA
+//   pipe instructions around its MUFU.  A is a trained parameter, so
+//   exp(dt A[d, n]) cannot be formed as powers of one exponential per
+//   channel.  Why this is accurate enough: ex2.approx is within 2 ulp of
+//   the correctly rounded 2^x (2.5 ulp of 2^x, a relative 5u with u =
+//   2^-24), the rounding of a2 and of dt * a2 perturbs the exponent by 3
+//   units of roundoff (a relative 3 |dt A| u in the result), and .ftz
+//   flushes results below 2^-126 to 0, an absolute error of at most 2^-126
+//   on a factor that multiplies a state.  kernels/mamba_scan.py:error_bound
+//   charges each of these, and chip_smoke.py measures ex2 on every float32
+//   argument <= 0 through mamba_exp2_launch below.  The inline
+//   PTX touches this exponential alone: no file-wide fast-math flags.
+// * A state update is then five instructions: FMUL (dt a2), MUFU.EX2, FMUL
+//   (dt xc Bc), FFMA (h), FFMA (the share of y), with Bc and Cc read from
+//   shared memory as float4 broadcasts.  Per timestep a thread adds two
+//   shared-memory loads (dt, xc), a product and a store, which its NPL
+//   states share: about 6.1 instructions a state in all.
 // * The TPU kernel keeps a (d_tile, N) state in VMEM while its grid walks
 //   (batch x d_tile) in order.  Here each channel (b, d) belongs to LANES
 //   neighbouring threads of one warp, and each of them keeps NPL of its N
-//   states and the same entries of A in registers for the whole sequence;
-//   nothing carries between thread blocks, so any number run at once.
-//   Splitting a channel over lanes puts more warps in flight (at B = 4,
-//   di = 16384, N = 16: two lanes of 8 states, 31 warps per SM) and
-//   shortens each thread's chain of dependent operations per timestep.
-//   Each lane sums its states' share of y, and the lanes add theirs with
-//   warp shuffles.
-// * A thread block takes 128 / LANES consecutive channels d of batch row b
-//   (blockIdx.y), so a warp's loads of dt and xc and its stores of y are
-//   contiguous.  __launch_bounds__ keeps registers at 64 or below, so that
-//   eight blocks fit on an SM and B = 4, di = 16384 runs in one wave.
-// * All channels of a batch row share Bc[b, s, :] and Cc[b, s, :]: the
-//   block stages them in shared memory, kTile timesteps at a time, rows
-//   padded with zeros to LANES * NPL states, and a lane reads its NPL
-//   entries as float4 broadcasts.  A padded state has A = 0 and Bc = Cc = 0,
-//   so it stays 0 and adds 0: no branch on N in the inner loop.
-// * A thread loads dt and xc for kUnroll timesteps before it uses any, so
-//   that many loads are in flight while the recurrence runs; it walks
-//   pointers to dt, xc and y one row (di entries) per timestep instead of
-//   computing 64-bit offsets, which cost as much as the state update.
-// * expf, not __expf (A is a trained parameter: exp(dt * A[d, n]) cannot be
-//   rewritten as powers of one exponential), and no fast-math flags.
+//   states and the same entries of a2 in registers for the whole sequence;
+//   nothing carries between thread blocks, so any number run at once.  At
+//   N <= 16 one thread owns a whole channel: no shuffle, no duplicate
+//   loads of dt and xc, and 16 independent exponentials per timestep
+//   (128 registers a thread: at B = 4, di = 16384, 512 blocks of 128
+//   threads, four per SM, in one wave).  Above N = 16, LANES = 2 or 4
+//   lanes of 16 states add their shares of y with warp shuffles.
+// * A thread block takes CH = 128 / LANES consecutive channels d of batch
+//   row b (blockIdx.y), so its rows of dt, xc and y are contiguous.
+// * The block copies kTile timesteps of dt, xc (its CH channels), Bc and Cc
+//   (all N states) into a two-stage ring in shared memory with cp.async,
+//   the next stage in flight while the current one is used, so that no
+//   register holds a load in flight (dt and xc 16 bytes a copy where every
+//   row is 16-byte aligned, 4 bytes otherwise).  The entries no copy
+//   writes are zero: states past N (a2 = 0 and Bc = Cc = 0, so such a
+//   state stays 0 and adds 0: no branch on N in the inner loop) and
+//   channels past di (computed on and never stored).
 // * Any S, di and B: the ragged ends are masked; no padding in memory.
 //   Threads of channels past di compute on zeros and store nothing, so
 //   every lane of a warp reaches every shuffle.
@@ -51,89 +69,163 @@
 namespace {
 
 constexpr int kThreads = 128;   // threads per block
-constexpr int kTile = 64;       // timesteps of Bc, Cc staged at a time
-constexpr int kUnroll = 8;      // timesteps of dt, xc loaded before use
+constexpr int kTile = 16;       // timesteps per shared-memory stage
 constexpr int kMaxN = 64;
 
+// 2^x by one MUFU.EX2: within 2 ulp of the rounded 2^x, results below
+// 2^-126 flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ unsigned smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem(dst)), "l"(src) : "memory");
+}
+
+// One timestep of one lane: NPL states, returns the channel's y (summed
+// over its LANES lanes).
 template <int LANES, int NPL>
-__global__ void __launch_bounds__(kThreads, 8)
+__device__ __forceinline__ float step(float (&h)[NPL], const float (&a2)[NPL],
+                                      float dt, float x, const float* bt,
+                                      const float* ct) {
+  const float dtx = dt * x;
+  const float4* b4 = reinterpret_cast<const float4*>(bt);
+  const float4* c4 = reinterpret_cast<const float4*>(ct);
+  float acc[2] = {0.f, 0.f};                 // two chains of the y sum
+#pragma unroll
+  for (int q = 0; q < NPL / 4; ++q) {
+    const float4 bq = b4[q], cq = c4[q];
+    const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+    const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * q + k;
+      h[j] = fmaf(ex2(dt * a2[j]), h[j], dtx * bv[k]);
+      acc[k & 1] = fmaf(h[j], cv[k], acc[k & 1]);
+    }
+  }
+  float y = acc[0] + acc[1];
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o /= 2)
+    y += __shfl_xor_sync(0xffffffffu, y, o);
+  return y;
+}
+
+template <int LANES, int NPL>
+__global__ void __launch_bounds__(kThreads, NPL > 8 ? 4 : 8)
 mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
                 const float* __restrict__ Bc, const float* __restrict__ Cc,
                 const float* __restrict__ A, float* __restrict__ y, int S,
                 int di, int N) {
   constexpr int NS = LANES * NPL;              // padded states per row
-  __shared__ __align__(16) float sb[kTile][NS];
-  __shared__ __align__(16) float sc[kTile][NS];
+  constexpr int CH = kThreads / LANES;         // channels per block
+  static_assert(CH % 4 == 0, "16-byte copies of whole channel rows");
+  __shared__ __align__(16) float sb[2][kTile][NS];
+  __shared__ __align__(16) float sc[2][kTile][NS];
+  __shared__ __align__(16) float sd[2][kTile][CH];
+  __shared__ __align__(16) float sx[2][kTile][CH];
 
   const int b = blockIdx.y;
   const int lane = threadIdx.x % LANES;
-  const int d = blockIdx.x * (kThreads / LANES) + threadIdx.x / LANES;
-  const bool active = d < di;
+  const int c = threadIdx.x / LANES;           // this thread's channel
+  const int d0 = blockIdx.x * CH;
+  const int d = d0 + c;
+  const int nch = min(CH, di - d0);            // channels of this block
+  const bool active = c < nch;
   const int n0 = lane * NPL;
 
-  float a[NPL], h[NPL];
+  float a2[NPL], h[NPL];
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
-    a[j] = (active && n0 + j < N) ? A[(long long)d * N + n0 + j] : 0.f;
+    a2[j] = (active && n0 + j < N)
+                ? A[(long long)d * N + n0 + j] * 1.4426950408889634f
+                : 0.f;
     h[j] = 0.f;
   }
 
   const long long row0 = (long long)b * S;   // timestep 0 of batch row b
-  const float* bb = Bc + row0 * N;
-  const float* cb = Cc + row0 * N;
-  // this channel's entries of dt, xc and y at the next timestep to load
-  // or store; each step is di entries further on
-  const float* pdt = dt + row0 * di + d;
-  const float* pxc = xc + row0 * di + d;
-  float* py = y + row0 * di + d;
+  // zeros where no copy ever writes: states past N, channels past di
+  for (int i = threadIdx.x; i < 2 * kTile * NS; i += kThreads)
+    if (i % NS >= N) (&sb[0][0][0])[i] = (&sc[0][0][0])[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * kTile * CH; i += kThreads)
+    if (i % CH >= nch) (&sd[0][0][0])[i] = (&sx[0][0][0])[i] = 0.f;
+  // 16-byte copies of dt and xc where every row of the block is aligned
+  const bool vec = di % 4 == 0 &&
+                   ((reinterpret_cast<unsigned long long>(dt) |
+                     reinterpret_cast<unsigned long long>(xc)) & 15) == 0;
+  auto stage = [&](int s0) {                 // kTile timesteps of everything
+    const int buf = (s0 / kTile) & 1, ts = min(kTile, S - s0);
+    const float* bb = Bc + (row0 + s0) * N;
+    const float* cb = Cc + (row0 + s0) * N;
+    for (int i = threadIdx.x; i < ts * NS; i += kThreads) {
+      const int t = i / NS, n = i % NS;
+      if (n < N) {
+        cp_async4(&sb[buf][t][n], bb + t * N + n);
+        cp_async4(&sc[buf][t][n], cb + t * N + n);
+      }
+    }
+    const float* db = dt + (row0 + s0) * di + d0;
+    const float* xb = xc + (row0 + s0) * di + d0;
+    if (vec) {
+      for (int i = threadIdx.x; i < ts * (CH / 4); i += kThreads) {
+        const int t = i / (CH / 4), q = 4 * (i % (CH / 4));
+        if (q < nch) {
+          cp_async16(&sd[buf][t][q], db + (long long)t * di + q);
+          cp_async16(&sx[buf][t][q], xb + (long long)t * di + q);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < ts * CH; i += kThreads) {
+        const int t = i / CH, q = i % CH;
+        if (q < nch) {
+          cp_async4(&sd[buf][t][q], db + (long long)t * di + q);
+          cp_async4(&sx[buf][t][q], xb + (long long)t * di + q);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  stage(0);
+
+  float* py = y + row0 * di + d;             // this channel's y, next step
   const bool store = active && lane == 0;
 
   for (int s0 = 0; s0 < S; s0 += kTile) {
-    const int ts = min(kTile, S - s0);
-    __syncthreads();                           // the last tile is consumed
-    for (int i = threadIdx.x; i < ts * NS; i += kThreads) {
-      const int t = i / NS, n = i - t * NS;
-      const long long src = (long long)(s0 + t) * N + n;
-      sb[t][n] = n < N ? bb[src] : 0.f;
-      sc[t][n] = n < N ? cb[src] : 0.f;
-    }
-    __syncthreads();
-    for (int t0 = 0; t0 < ts; t0 += kUnroll) {
-      float dv[kUnroll], xv[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const bool ok = active && t0 + u < ts;
-        dv[u] = ok ? *pdt : 0.f;
-        xv[u] = ok ? *pxc : 0.f;
-        pdt += di;
-        pxc += di;
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();                           // stage in, the other consumed
+    if (s0 + kTile < S) stage(s0 + kTile);
+    const int buf = (s0 / kTile) & 1, ts = min(kTile, S - s0);
+    const float* bt = &sb[buf][0][n0];
+    const float* ct = &sc[buf][0][n0];
+    const float* dp = &sd[buf][0][c];
+    const float* xp = &sx[buf][0][c];
+    if (ts == kTile) {
+      // the hot loop: one stage, unrolled by 8 timesteps
+#pragma unroll 8
+      for (int t = 0; t < kTile; ++t) {
+        const float v = step<LANES, NPL>(h, a2, dp[t * CH], xp[t * CH],
+                                         bt + t * NS, ct + t * NS);
+        if (store) *py = v;
+        py += di;
       }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int t = t0 + u;
-        if (t < ts) {                          // uniform across the block
-          const float dtx = dv[u] * xv[u];
-          const float4* b4 = reinterpret_cast<const float4*>(&sb[t][n0]);
-          const float4* c4 = reinterpret_cast<const float4*>(&sc[t][n0]);
-          float acc = 0.f;
-#pragma unroll
-          for (int q = 0; q < NPL / 4; ++q) {
-            const float4 bq = b4[q], cq = c4[q];
-            const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-            const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int j = 4 * q + k;
-              h[j] = expf(dv[u] * a[j]) * h[j] + dtx * bv[k];
-              acc += h[j] * cv[k];
-            }
-          }
-#pragma unroll
-          for (int o = LANES / 2; o > 0; o /= 2)
-            acc += __shfl_xor_sync(0xffffffffu, acc, o);
-          if (store) *py = acc;
-          py += di;
-        }
+    } else {                                   // the ragged last stage
+      for (int t = 0; t < ts; ++t) {
+        const float v = step<LANES, NPL>(h, a2, dp[t * CH], xp[t * CH],
+                                         bt + t * NS, ct + t * NS);
+        if (store) *py = v;
+        py += di;
       }
     }
   }
@@ -148,6 +240,14 @@ int launch(const float* dt, const float* xc, const float* Bc,
   mamba_scan_rows<LANES, NPL><<<grid, kThreads, 0, stream>>>(
       dt, xc, Bc, Cc, A, y, S, di, N);
   return (int)cudaGetLastError();
+}
+
+__global__ void exp2_apply(const float* __restrict__ x, float* __restrict__ r,
+                           long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    r[i] = ex2(x[i]);
 }
 
 }  // namespace
@@ -172,7 +272,21 @@ extern "C" int mamba_scan_launch(const void* dt, const void* xc,
   // (lanes per channel, states per lane)
   if (N <= 4) return launch<1, 4>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
   if (N <= 8) return launch<1, 8>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  if (N <= 16) return launch<2, 8>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  if (N <= 32) return launch<4, 8>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
+  if (N <= 16) return launch<1, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
+  if (N <= 32) return launch<2, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
   return launch<4, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
+}
+
+// r[i] = the scan's exponential of x[i] (ex2.approx.ftz.f32), for i < n:
+// lets a test measure its error over every float32 argument.  Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int mamba_exp2_launch(const void* x, void* r, long long n,
+                                 void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  exp2_apply<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(r), n);
+  return (int)cudaGetLastError();
 }

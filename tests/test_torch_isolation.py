@@ -310,3 +310,44 @@ def test_chip_smoke_lm_phases_rehearse_on_cpu(monkeypatch):
             cfg.vocab_size) == (full.d_model, full.n_heads, full.n_kv_heads,
                                 full.d_ff, full.vocab_size)
     assert cfg.ssm.inner(cfg.d_model) == 16384 and cfg.ssm.d_state == 16
+
+
+def test_chip_smoke_exp2_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's check of B6's exponential, on the CPU over a
+    stride of the float32 arguments <= 0, with ``torch.exp2`` flushed
+    below 2^-126 standing in for ``ex2.approx.ftz``: it checks the
+    phase's ulp, relative and absolute measures and its gates."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("EXP2_CHUNK", 1 << 14),
+                        ("EXP2_STRIDE", 65537)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    chip_smoke.phase_b6_exp2()
+
+
+def test_chip_smoke_finds_the_hot_loop_in_sass(monkeypatch):
+    """The build phase's count of instructions per state update: the
+    innermost backward branch with the most MUFU.EX2, per instance."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    sass = """
+        Function : _ZN12_GLOBAL__N_115mamba_scan_rowsILi1ELi16EEEvPKfS2_
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   MUFU.EX2 R2, R2 ;
+        /*0020*/                   FMUL R3, R2, R4 ;
+        /*0030*/                   MUFU.EX2 R5, R3 ;
+        /*0040*/                   FFMA R6, R5, R6, R7 ;
+        /*0050*/                   LDS.128 R8, [R9] ;
+        /*0060*/               @P0 BRA 0x30 ;
+        /*0070*/                   MUFU.EX2 R2, R2 ;
+        /*0080*/              @!P1 BRA 0x70 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   BRA 0xa0;
+        Function : _ZN12_GLOBAL__N_110exp2_applyEPKfPfx
+        /*0000*/                   MUFU.EX2 R2, R2 ;
+        /*0010*/                   BRA 0x0 ;
+    """
+    n, mufu, hist = chip_smoke.hot_loops(sass)["<1,16>"]
+    assert (n, mufu) == (4, 1)
+    assert hist == {"MUFU": 1, "FFMA": 1, "LDS": 1, "BRA": 1}
+    assert list(chip_smoke.hot_loops(sass)) == ["<1,16>"]

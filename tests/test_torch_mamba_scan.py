@@ -23,13 +23,16 @@ def need_card():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
 
 
-def inputs(B, S, di, N, seed=0, device="cpu", dt_scale=0.1):
+def inputs(B, S, di, N, seed=0, device="cpu", dt_scale=0.1, dt_max=None):
     """dt >= 0 from 0 to large (a tenth of the entries 0, a tenth large
-    enough that exp(dt A) underflows), A <= 0 (a column of zeros)."""
+    enough that exp(dt A) underflows: 200, or log-uniform in [1, dt_max]),
+    A <= 0 (a column of zeros)."""
     rng = np.random.default_rng(seed)
     dt = np.abs(rng.standard_normal((B, S, di))) * dt_scale
     dt[rng.random((B, S, di)) < 0.1] = 0.0
-    dt[rng.random((B, S, di)) < 0.1] = 200.0
+    big = (200.0 if dt_max is None
+           else np.exp(rng.random((B, S, di)) * np.log(dt_max)))
+    dt = np.where(rng.random((B, S, di)) < 0.1, big, dt)
     xc = rng.standard_normal((B, S, di))
     Bc = rng.standard_normal((B, S, N))
     Cc = rng.standard_normal((B, S, N))
@@ -75,11 +78,87 @@ def test_error_bound_holds_for_the_plain_float32_version():
     assert 1e-3 < ratio <= 1.0, ratio
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("B,S,di,N", [
+#: the shapes of the card tests
+CARD_SHAPES = [
     (1, 1, 1, 1), (1, 7, 8, 4), (3, 64, 100, 16), (2, 257, 130, 16),
     (1, 300, 64, 33), (2, 70, 40, ms.MAX_N), (1, 16, 8, 2), (2, 64, 32, 4),
-    (1, 128, 64, 8), (3, 32, 16, 16)])
+    (1, 128, 64, 8), (3, 32, 16, 16)]
+#: (B, S, di, N, dt_max): the card tests' shapes, the plain-version test's,
+#: and a long run with dt log-uniform up to 300 (deep underflow)
+CPU_CASES = ([(*shape, None) for shape in CARD_SHAPES]
+             + [(2, 300, 6, 4, None), (1, 257, 16, 16, 300.0)])
+
+
+def _cpu_inputs(B, S, di, N, dt_max):
+    return inputs(B, S, di, N, seed=B * S + di + N, dt_max=dt_max)
+
+
+def scan_at_stated_worst(dt, xc, Bc, Cc, A, sign):
+    """The plain scan in float32 with each exponential as the kernel takes
+    it, at the worst ``error_bound`` allows: ``2^fl(dt fl(A fl(log2 e)))``
+    moved by the stated relative error ``EXP_REL`` away from the exact
+    value (up for ``sign = 1``, down for ``-1``), kept within it when
+    rounded to float32, and flushed to 0 below ``2^-126`` (``.ftz``)."""
+    rel = ms.EXP_REL
+    a2 = A * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    B, S, di = dt.shape
+    h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32)
+    y = torch.empty((B, S, di), dtype=torch.float32)
+    toward_exact = torch.tensor(-sign * float("inf"))
+    for s in range(S):
+        exact = torch.exp2((dt[:, s, :, None] * a2).double())
+        e = (exact * (1.0 + sign * rel)).float()
+        over = (e.double() - exact).abs() > rel * exact
+        e = torch.where(over, torch.nextafter(e, toward_exact.float()), e)
+        e = torch.where(e < ms.EXP_FLUSH, 0.0, e)
+        h = e * h + (dt[:, s] * xc[:, s])[..., None] * Bc[:, s, None, :]
+        y[:, s] = (h * Cc[:, s, None, :]).sum(-1)
+    return y
+
+
+def expf_bound(dt, xc, Bc, Cc, A):
+    """The bound of the earlier kernel, whose ``expf`` (2 ulp) took the
+    rounded ``fl(dt A)``: the yardstick ``error_bound`` may not fall
+    below."""
+    u, tiny = 2.0 ** -24, 2.0 ** -148
+    dt, xc, Bc, Cc, A = (t.double() for t in (dt, xc, Bc, Cc, A))
+    B, S, di = dt.shape
+    N = A.shape[1]
+    H = torch.zeros((B, di, N), dtype=torch.float64)
+    E = torch.zeros_like(H)
+    out = torch.empty((B, S, di), dtype=torch.float64)
+    for s in range(S):
+        z = dt[:, s, :, None] * A
+        a = torch.exp(z)
+        b = ((dt[:, s] * xc[:, s])[..., None] * Bc[:, s, None, :]).abs()
+        E = (a * E + ((6.0 + z.abs()) * u * a + tiny) * H + 3.0 * u * b
+             + tiny)
+        H = a * H + b
+        c = Cc[:, s].abs()[:, None, :]
+        out[:, s] = 2.0 * ((c * E).sum(-1) + N * u * (c * H).sum(-1))
+    return out
+
+
+@pytest.mark.parametrize("sign", [1, -1], ids=["up", "down"])
+@pytest.mark.parametrize("B,S,di,N,dt_max", CPU_CASES)
+def test_error_bound_holds_for_the_exponential_at_its_stated_worst(
+        B, S, di, N, dt_max, sign):
+    """The kernel's arithmetic, emulated with every exponential off by the
+    most its stated error allows, stays within ``error_bound``."""
+    args = _cpu_inputs(B, S, di, N, dt_max)
+    got = scan_at_stated_worst(*args, sign).double()
+    want = mamba_scan_ref(*(a.double() for a in args))
+    assert torch.all((got - want).abs() <= ms.error_bound(*args))
+
+
+@pytest.mark.parametrize("B,S,di,N,dt_max", CPU_CASES)
+def test_error_bound_is_never_below_the_expf_bound(B, S, di, N, dt_max):
+    args = _cpu_inputs(B, S, di, N, dt_max)
+    assert torch.all(ms.error_bound(*args) >= expf_bound(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,N", CARD_SHAPES)
 def test_kernel_matches_plain_on_card(B, S, di, N):
     need_card()
     args = inputs(B, S, di, N, seed=B * S + di + N, device="cuda")
