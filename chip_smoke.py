@@ -58,6 +58,17 @@ the card, holding every kernel against its plain PyTorch version:
     block CG at full width: equal states, ms per iteration in turns,
     synchronising calls per iteration, and a profiler split of the
     iterations by kind of kernel with the time the card sat idle;
+15c. slice 6's main path at full width: the continuous-batching
+    ``SolverService`` over a ``MatrixRegistry`` holding laplace3d(160) and
+    anisotropic_laplace2d(2048) (prebuilt): 32 mixed CG/MINRES requests
+    against one solve per request (requests/s, p50/p99 latency), 4
+    stragglers and 24 easy requests under FIFO and bucketed admission
+    (p50/p99 per class), block requests in two waves (one warm restart,
+    B2/B3), block-Jacobi requests on anisotropic_laplace2d(1024) (B4),
+    the true residual of every converged request, the card against the
+    CPU under a virtual clock, and a drain's time by part (chunk, refill
+    upload/init/merge, retire finalize/download) with the service's
+    per-iteration estimate beside the measured one;
 16. B6 (the selective scan) against its plain version computed in
     float64, over batch, sequence length, d_inner and state size, with dt
     from 0 to large and A <= 0, each output held to a stated error bound
@@ -134,6 +145,8 @@ from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E40
                                  make_preconditioner, minres,
                                  minres_finalize, minres_init, minres_step)
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.runtime import (TERMINAL_STATES, MatrixRegistry,  # noqa: E402
+                                 SolverService)
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
@@ -1697,6 +1710,432 @@ def phase_stepper(fw, bcg, pcg, card) -> None:
               f"({100 * split['idle_share']:.1f}% of the window)  [{card}]")
 
 
+# ---------------------------------------------------------------- phase 15c
+#: slice 6: the serving phase.  Mixed traffic on laplace3d(NX) (the tols
+#: cycle, every fourth request MINRES), the SLO traffic (stragglers on
+#: anisotropic_laplace2d(PRECOND_NX) first, then easy requests), block
+#: requests in two waves, block-Jacobi requests on
+#: anisotropic_laplace2d(SERVE_PRECOND_NX), and the card-against-CPU
+#: scenario on laplace3d(SERVE_VC_NX) under a virtual clock
+SERVE_REQUESTS, SERVE_WIDTH, SERVE_CHUNK = 32, 8, 16
+SERVE_TOLS, SERVE_MAXITER = (1e-5, 1e-6, 1e-7), 3000
+SLO_HARD, SLO_HARD_TOL, SLO_HARD_MAXITER = 4, 1e-12, 600
+SLO_EASY, SLO_EASY_TOL, SLO_EASY_MAXITER = 24, 1e-4, 300
+SERVE_BLOCK, SERVE_BLOCK_TOL = 8, 1e-6
+SERVE_PRECOND_NX, SERVE_PRECOND, SERVE_PRECOND_TOL = 1024, 8, 1e-8
+SERVE_VC_NX = 12
+#: est_iter_s (the service's EWMA) against the measured seconds per
+#: iteration of the same chunks
+SERVE_EST_SLACK = 0.25
+
+
+class VirtualClock:
+    """A monotonic clock that moves only when told to."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def _pct(vals, q) -> float:
+    return float(np.percentile(np.asarray(vals, np.float64), q))
+
+
+def _serve_residuals(reg, tickets, label) -> float:
+    """True relative residual ``||b - A x|| / ||b||`` of every converged
+    ticket, on the card in original space through the plain SpMV, each at
+    most 10 tol; returns the largest ratio to its tol."""
+    worst = 0.0
+    conv = [t for t in tickets if t.result is not None and t.result.converged]
+    for name in sorted({t.matrix for t in conv}):
+        A = reg.entry(name).matrix
+        mine = [t for t in conv if t.matrix == name]
+        for i in range(0, len(mine), SERVE_WIDTH):
+            group = mine[i:i + SERVE_WIDTH]
+            X = torch.from_numpy(np.stack([t.result.x for t in group], 1))
+            B = torch.from_numpy(np.stack([t.b for t in group], 1))
+            B = B.to(device=DEVICE, dtype=A.dtype)
+            Ax, _, _ = sellcs_spmv_ref(A, A.permute(X.to(DEVICE)))
+            rel = (B - A.unpermute(Ax)).norm(dim=0) / B.norm(dim=0)
+            for t, r in zip(group, rel.tolist()):
+                require(r <= 10 * t.tol, f"{label}: ticket #{t.id} true "
+                        f"residual {r:.3e} > 10 tol = {10 * t.tol:.0e}")
+                worst = max(worst, r / t.tol)
+    return worst
+
+
+def _serve_gates(svc, reg, tickets, label, kernels=("sellcs_spmv",)):
+    """The gates of every serving leg: one terminal transition a ticket,
+    the stats partition, the true residual of every converged request
+    and a launch of each named kernel.  Returns the launch counts."""
+    launches = execution.launch_counts()
+    require(svc.pending == 0, f"{label}: {svc.pending} requests pending")
+    for t in tickets:
+        require(t._terminal_transitions == 1 and t.status in TERMINAL_STATES,
+                f"{label}: {t!r} took {t._terminal_transitions} terminal "
+                f"transitions")
+    s = svc.stats
+    require(s["submitted"] == s["retired"] + s["cancelled"] + s["expired"]
+            + s["rejected"], f"{label}: stats do not partition: {s}")
+    worst = _serve_residuals(reg, tickets, label)
+    got = {k: launches.get(k, 0) for k in kernels}
+    for k in kernels:
+        require(got[k] > 0 or DEVICE == "cpu", f"{label}: {k} not launched")
+    conv = sum(t.result is not None and t.result.converged for t in tickets)
+    print(f"[serve] {label}: {conv} of {len(tickets)} converged, largest "
+          f"true residual {worst:.2f} tol; launches {got}; stats {s}")
+    return got
+
+
+def _serve_mixed_requests(n):
+    rng = np.random.default_rng(7)
+    return [("minres" if i % 4 == 3 else "cg", rng.standard_normal(n),
+             SERVE_TOLS[i % len(SERVE_TOLS)])
+            for i in range(SERVE_REQUESTS)]
+
+
+def _serve_baseline(op, reqs):
+    """One monolithic ``cg``/``minres`` call per request, arriving at
+    t = 0 and answered in turn; returns latencies and solutions."""
+    solvers = {"cg": cg, "minres": minres}
+    lat, xs = [], []
+    sync()
+    t0 = time.perf_counter()
+    for solver, b, tol in reqs:
+        res = solvers[solver](op, op.to_op_space(torch.from_numpy(b)),
+                              tol=tol, maxiter=SERVE_MAXITER)
+        xs.append(op.from_op_space(res.x).cpu().numpy())
+        lat.append(time.perf_counter() - t0)
+        require(bool(res.converged), f"baseline {solver} tol {tol}: not "
+                f"converged")
+    return lat, xs
+
+
+def _serve_drain(svc, matrix, reqs, **kw):
+    """Submit every request at t = 0 and drain; returns tickets, wall."""
+    sync()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(matrix, b, solver=solver, tol=tol,
+                          maxiter=SERVE_MAXITER, **kw)
+               for solver, b, tol in reqs]
+    svc.drain()
+    sync()
+    return tickets, time.perf_counter() - t0
+
+
+def _latency_line(lat) -> str:
+    return (f"p50 {1e3 * _pct(lat, 50):.1f} ms, p99 {1e3 * _pct(lat, 99):.1f}"
+            f" ms")
+
+
+class DrainSplit:
+    """Exclusive seconds of a drain by part.  Each wrapped call
+    synchronises the card before and after it, and the time of the calls
+    nested in it is theirs, not its own.  The ``done`` flags a chunk reads
+    count to the chunk."""
+
+    PARTS = ("chunk", "refill", "upload", "init", "merge", "retire",
+             "finalize", "download")
+
+    def __init__(self, svc):
+        self.secs = dict.fromkeys(self.PARTS, 0.0)
+        self.stack = []
+        self.chunks = {}          # batch key -> [secs, iterations, est]
+        for part, name in (("chunk", "_run_chunk"), ("refill", "_refill"),
+                           ("refill", "_refill_block"),
+                           ("retire", "_retire_and_refill"),
+                           ("upload", "_upload"),
+                           ("download", "_download")):
+            setattr(svc, name, self.wrap(part, getattr(svc, name)))
+        refill = svc._refill
+        svc._refill = lambda batch: refill(self.batch(batch))
+
+    def batch(self, batch):
+        """Wrap a batch's init, merge and finalize once."""
+        if not getattr(batch, "split_wrapped", False):
+            batch.init = self.wrap("init", batch.init)
+            batch.merge = self.wrap("merge", batch.merge)
+            batch.finalize = self.wrap("finalize", batch.finalize)
+            batch.split_wrapped = True
+        return batch
+
+    def wrap(self, part, fn):
+        def timed_call(*args):
+            sync()
+            t0 = time.perf_counter()
+            own = "chunk" if part == "download" and self.stack and \
+                self.stack[-1][0] == "chunk" else part
+            self.stack.append([own, 0.0])
+            it0 = (args[0].state.it if part == "chunk"
+                   and args[0].state is not None else None)
+            out = fn(*args)
+            sync()
+            dt = time.perf_counter() - t0
+            _, child = self.stack.pop()
+            self.secs[own] += dt - child
+            if self.stack:
+                self.stack[-1][1] += dt
+            if it0 is not None:
+                batch = args[0]
+                rec = self.chunks.setdefault(batch.key, [0.0, 0, None, 0])
+                rec[0] += dt - child
+                rec[1] += batch.state.it - it0
+                rec[2] = batch.est_iter_s
+                rec[3] += 1
+            return out
+        return timed_call
+
+
+def _serve_vc_scenario(device):
+    """The virtual-clock scenario of the card-against-CPU check: mixed
+    tolerances and solvers, a deadline that expires while running, a
+    cancel while running, and block requests that warm-restart."""
+    r, c, v, n = laplace3d(SERVE_VC_NX)
+    reg = MatrixRegistry()
+    reg.register("m", rows=r, cols=c, vals=v, shape=(n, n), C=32, sigma=64,
+                 dtype=np.float64, device=device)
+    clock = VirtualClock()
+    svc = SolverService(reg, block_width=4, chunk_iters=8, clock=clock)
+    rng = np.random.default_rng(3)
+    tols = (1e-6, 1e-8, 1e-10)
+    ts = [svc.submit("m", rng.standard_normal(n), tol=tols[i % 3],
+                     solver="minres" if i % 3 == 2 else "cg")
+          for i in range(7)]
+    ts.append(svc.submit("m", rng.standard_normal(n), tol=1e-30,
+                         maxiter=10 ** 6, deadline=3.0))
+    ts += [svc.submit("m", rng.standard_normal(n), tol=1e-8, block=True)
+           for _ in range(2)]
+    svc.step()
+    clock.now += 1.0
+    ts += [svc.submit("m", rng.standard_normal(n), tol=1e-8, block=True)
+           for _ in range(2)]
+    svc.cancel(ts[1])
+    while svc.pending:
+        svc.step()
+        clock.now += 1.0
+    return ts, svc.stats
+
+
+def phase_serving(fw, pcg, card) -> None:
+    """Slice 6's main path: the continuous-batching SolverService over the
+    registry at full width, against one solve per request; the SLO
+    traffic under FIFO and bucketed admission; block and block-Jacobi
+    requests; the card against the CPU under a virtual clock; and where a
+    drain's time goes."""
+    A = fw["A64"]
+    n = A.nrows
+    reg = MatrixRegistry()
+    reg.register("lap", A)
+    reg.register("ani", pcg["A"])
+    op = reg.operator("lap")
+    print(f"[serve] registered laplace3d n={n} and anisotropic_laplace2d "
+          f"n={pcg['A'].nrows} (prebuilt, f64); keys carry "
+          f"{reg.entry('lap').store_dtype!r}")
+
+    # (1) mixed traffic against one solve per request
+    reqs = _serve_mixed_requests(n)
+    base_lat, base_x = _serve_baseline(op, reqs)
+    base_wall = base_lat[-1]
+    svc = SolverService(reg, block_width=SERVE_WIDTH,
+                        chunk_iters=SERVE_CHUNK, admission="fifo")
+    execution.reset_launch_counts()
+    tickets, wall = _serve_drain(svc, "lap", reqs)
+    _serve_gates(svc, reg, tickets, "mixed traffic")
+    require(all(t.status == "done" and t.result.converged for t in tickets),
+            "mixed traffic: a request did not converge")
+    lat = [t.latency for t in tickets]
+    print(f"[serve] mixed traffic, {len(reqs)} requests (f64, width "
+          f"{SERVE_WIDTH}, chunk {SERVE_CHUNK}, fifo): baseline "
+          f"{len(reqs) / base_wall:.3f} requests/s ({base_wall:.3f} s; "
+          f"{_latency_line(base_lat)}); service {len(reqs) / wall:.3f} "
+          f"requests/s ({wall:.3f} s; {_latency_line(lat)}; "
+          f"{svc.stats['chunks']} chunks, {svc.stats['refills']} refills); "
+          f"service {base_wall / wall:.2f}x the baseline  [{card}]")
+    # one service request against the standalone cg of the same rhs: the
+    # two runs reduce at different widths, so 100 tol (the JAX package's
+    # own margin: atol 1e-5 at tol 1e-7)
+    i = next(i for i, (s, _, tol) in enumerate(reqs)
+             if s == "cg" and tol == min(SERVE_TOLS))
+    xb = base_x[i]
+    agree = np.abs(tickets[i].result.x - xb).max() / np.abs(xb).max()
+    print(f"[serve] request #{i} (cg, tol {reqs[i][2]}) against its "
+          f"standalone cg: max difference {agree:.2e} of max|x|")
+    require(agree <= 100 * reqs[i][2],
+            f"service request differs from cg by {agree:.2e}")
+
+    # (2) SLO traffic: stragglers first, FIFO against bucketed admission
+    rng = np.random.default_rng(11)
+    hard = [rng.standard_normal(pcg["A"].nrows) for _ in range(SLO_HARD)]
+    easy = [rng.standard_normal(n) for _ in range(SLO_EASY)]
+    for name in ("lap", "ani"):
+        reg.predicted_iters(name)          # the Lanczos run, before timing
+    slo = {}
+    for admission in ("fifo", "bucketed"):
+        svc = SolverService(reg, block_width=SERVE_WIDTH,
+                            chunk_iters=SERVE_CHUNK, admission=admission,
+                            adaptive_width=False)
+        execution.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        ts = [("hard", svc.submit("ani", b, tol=SLO_HARD_TOL,
+                                  maxiter=SLO_HARD_MAXITER)) for b in hard]
+        ts += [("easy", svc.submit("lap", b, tol=SLO_EASY_TOL,
+                                   maxiter=SLO_EASY_MAXITER)) for b in easy]
+        svc.drain()
+        sync()
+        wall = time.perf_counter() - t0
+        _serve_gates(svc, reg, [t for _, t in ts], f"SLO {admission}")
+        require(all(t.status == "done" for _, t in ts),
+                f"SLO {admission}: a request was lost")
+        lat = {c: [t.latency for k, t in ts if k == c]
+               for c in ("easy", "hard")}
+        slo[admission] = (lat, wall)
+        keys = sorted({t.key[6] or "-" for _, t in ts})
+        print(f"[serve] SLO {admission}: {SLO_HARD} stragglers (tol "
+              f"{SLO_HARD_TOL}, maxiter {SLO_HARD_MAXITER}) then {SLO_EASY} "
+              f"easy (tol {SLO_EASY_TOL}, maxiter {SLO_EASY_MAXITER}), "
+              f"buckets {keys}: drain {wall:.3f} s; easy "
+              f"{_latency_line(lat['easy'])}; stragglers "
+              f"{_latency_line(lat['hard'])}  [{card}]")
+    (f_lat, f_wall), (b_lat, b_wall) = slo["fifo"], slo["bucketed"]
+    print(f"[serve] SLO: easy p99 {_pct(f_lat['easy'], 99) / _pct(b_lat['easy'], 99):.2f}x "
+          f"better under bucketed admission; drain time bucketed / fifo "
+          f"{b_wall / f_wall:.3f}  [{card}]")
+
+    # (3) block requests in two waves (one warm restart), then
+    # block-Jacobi requests
+    svc = SolverService(reg, block_width=SERVE_WIDTH, chunk_iters=SERVE_CHUNK)
+    execution.reset_launch_counts()
+    rng = np.random.default_rng(13)
+    ts = [svc.submit("lap", rng.standard_normal(n), tol=SERVE_BLOCK_TOL,
+                     maxiter=SERVE_MAXITER, block=True)
+          for _ in range(SERVE_BLOCK // 2)]
+    sync()
+    t0 = time.perf_counter()
+    svc.step()
+    ts += [svc.submit("lap", rng.standard_normal(n), tol=SERVE_BLOCK_TOL,
+                      maxiter=SERVE_MAXITER, block=True)
+           for _ in range(SERVE_BLOCK - SERVE_BLOCK // 2)]
+    svc.drain()
+    sync()
+    wall = time.perf_counter() - t0
+    _serve_gates(svc, reg, ts, "block requests", BLOCK_KERNELS)
+    require(svc.stats["refills"] >= 2, "block requests: no warm restart")
+    require(all(t.result.converged for t in ts),
+            "block requests: not converged")
+    print(f"[serve] {SERVE_BLOCK} block CG requests in two waves: {wall:.3f}"
+          f" s, {svc.stats['refills'] - 1} warm restart(s), iterations "
+          f"{sorted(t.result.iters for t in ts)}  [{card}]")
+
+    Ap = _aniso(SERVE_PRECOND_NX)
+    reg.register("ani_pc", Ap)
+    t0 = time.perf_counter()
+    reg.preconditioner("ani_pc", "block_jacobi:32")
+    sync()
+    setup = time.perf_counter() - t0
+    svc = SolverService(reg, block_width=SERVE_WIDTH, chunk_iters=SERVE_CHUNK)
+    execution.reset_launch_counts()
+    rng = np.random.default_rng(17)
+    sync()
+    t0 = time.perf_counter()
+    ts = [svc.submit("ani_pc", rng.standard_normal(Ap.nrows),
+                     tol=SERVE_PRECOND_TOL, maxiter=8 * Ap.nrows,
+                     precond="block_jacobi:32")
+          for _ in range(SERVE_PRECOND)]
+    svc.drain()
+    sync()
+    wall = time.perf_counter() - t0
+    _serve_gates(svc, reg, ts, "block-Jacobi requests", PRECOND_KERNELS)
+    require(all(t.result.converged for t in ts),
+            "block-Jacobi requests: not converged")
+    print(f"[serve] {SERVE_PRECOND} block_jacobi:32 CG requests on "
+          f"anisotropic_laplace2d({SERVE_PRECOND_NX}): registry set-up "
+          f"{setup:.2f} s (host), drain {wall:.3f} s, iterations "
+          f"{sorted(t.result.iters for t in ts)}  [{card}]")
+
+    # (4) the card against the CPU under a virtual clock
+    got, got_stats = _serve_vc_scenario(DEVICE)
+    want, want_stats = _serve_vc_scenario("cpu")
+    require(got_stats == want_stats,
+            f"virtual clock: stats {got_stats} != CPU {want_stats}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        same = (g.status, g.latency, g.queue_wait, g.key) == \
+            (w.status, w.latency, w.queue_wait, w.key)
+        require(same and (g.result is None) == (w.result is None),
+                f"virtual clock: {g!r} != CPU {w!r}")
+        if w.result is None:
+            continue
+        require((g.result.iters, g.result.converged)
+                == (w.result.iters, w.result.converged),
+                f"virtual clock: {g!r} iterations {g.result.iters} != CPU "
+                f"{w.result.iters}")
+        err = np.abs(g.result.x - w.result.x).max() / np.abs(w.result.x).max()
+        worst = max(worst, err)
+    require(worst <= 1e-9, f"virtual clock: x differs from the CPU's by "
+            f"{worst:.2e}")
+    print(f"[serve] laplace3d({SERVE_VC_NX}) under a virtual clock, card "
+          f"against CPU: statuses {sorted(t.status for t in got)}, equal "
+          f"iterations, latencies and stats ({got_stats}); x within "
+          f"{worst:.2e} of max|x|")
+
+    # (5) where a drain's time goes: the mixed traffic again, each part
+    # synchronised
+    svc = SolverService(reg, block_width=SERVE_WIDTH,
+                        chunk_iters=SERVE_CHUNK, admission="fifo")
+    split = DrainSplit(svc)
+    tickets, wall = _serve_drain(svc, "lap", reqs)
+    require(all(t.result.converged for t in tickets),
+            "drain split: a request did not converge")
+    parts = ", ".join(f"{p} {s:.3f} s ({100 * s / wall:.1f}%)"
+                      for p, s in split.secs.items())
+    other = wall - sum(split.secs.values())
+    print(f"[serve split] mixed traffic drain {wall:.3f} s: {parts}, other "
+          f"{other:.3f} s ({100 * other / wall:.1f}%)  [{card}]")
+    for key, (secs, iters, est, nchunks) in split.chunks.items():
+        ms = 1e3 * secs / max(iters, 1)
+        est_ms = 1e3 * (est or 0.0)
+        print(f"[serve split] batch {key[1]}: {nchunks} chunks, {iters} "
+              f"iterations, measured {ms:.4f} ms/iter, the service's EWMA "
+              f"est_iter_s {est_ms:.4f} ms/iter ({est_ms / ms:.3f}x)")
+        require(DEVICE == "cpu" or abs(est_ms - ms) <= SERVE_EST_SLACK * ms,
+                f"est_iter_s {est_ms:.4f} ms is not within "
+                f"{SERVE_EST_SLACK:.0%} of the measured {ms:.4f} ms/iter")
+    # a refill's upload as the JAX package makes it (the whole (n, w) host
+    # block, one copy) against the service's (the admitted columns, one
+    # contiguous copy each): best of 3, equal blocks
+    for m in (1, 3, SERVE_WIDTH):
+        cols = [(j, reqs[j][1]) for j in range(m)]
+        best, outs = {}, {}
+        for name, fn in (("jax", _reference_upload), ("svc", svc._upload)):
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                outs[name] = fn(op, n, SERVE_WIDTH, cols)
+                sync()
+                best[name] = min(best.get(name, np.inf),
+                                 time.perf_counter() - t0)
+        require(torch.equal(outs["jax"], outs["svc"]),
+                "the service's upload differs from the full block's")
+        print(f"[serve split] refill upload of {m} column(s) into a "
+              f"({n}, {SERVE_WIDTH}) f64 block: the JAX package's full "
+              f"host block {1e3 * best['jax']:.1f} ms, the service's "
+              f"admitted columns {1e3 * best['svc']:.1f} ms (equal "
+              f"blocks)  [{card}]")
+
+
+def _reference_upload(op, n, w, cols):
+    """A refill's upload as the JAX package makes it: the whole ``(n, w)``
+    block on the host, each admitted column copied in, one upload and
+    one permute."""
+    Bg = np.zeros((n, w))
+    for j, b in cols:
+        Bg[:, j] = b
+    return op.to_op_space(torch.from_numpy(Bg).to(DEVICE))
+
+
 # ----------------------------------------------------------------- phase 16
 def _b6_inputs(B, S, di, N, seed):
     """dt >= 0 from 0 to large (a tenth of the entries 0, a tenth
@@ -2292,6 +2731,7 @@ def main() -> int:
     pre = timed("precond timing", phase_precond_timing, pcg, card)
     timed("pcg split", phase_pcg_split, pcg, card)
     timed("stepper", phase_stepper, fw, bcg, pcg, card)
+    timed("serving", phase_serving, fw, pcg, card)
     for r in rows:
         if r["b"] == 4:
             n = fw["launches"] if r["label"] == "f64" else fw["launches16"]

@@ -39,6 +39,12 @@ def test_no_jax_or_reference_imports(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+def test_runtime_is_scanned():
+    """The serving runtime is among the files scanned for JAX imports."""
+    runtime = {p.name for p in PORT_FILES if p.parent.name == "runtime"}
+    assert runtime == {"__init__.py", "service.py"}
+
+
 def test_port_has_its_modules():
     want = {"core/sellcs.py", "core/spmv.py", "core/execution.py",
             "core/blockvec.py",
@@ -57,7 +63,7 @@ def test_port_has_its_modules():
             "solvers/operator.py", "solvers/stepper.py", "solvers/cg.py",
             "solvers/block.py", "solvers/minres.py", "solvers/lanczos.py",
             "solvers/chebfd.py", "solvers/kpm.py", "solvers/precond.py",
-            "interop.py"}
+            "runtime/__init__.py", "runtime/service.py", "interop.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
     assert want <= have
@@ -72,7 +78,8 @@ NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
           "core/spmv.py",
           "core/execution.py", "core/blockvec.py", "solvers/block.py",
           "solvers/cg.py", "solvers/minres.py", "solvers/lanczos.py",
-          "solvers/chebfd.py", "solvers/kpm.py", "../../chip_smoke.py"]
+          "solvers/chebfd.py", "solvers/kpm.py", "runtime/service.py",
+          "../../chip_smoke.py"]
 
 
 @pytest.mark.parametrize("rel", NO_TRY)
@@ -351,3 +358,27 @@ def test_chip_smoke_finds_the_hot_loop_in_sass(monkeypatch):
     assert (n, mufu) == (4, 1)
     assert hist == {"MUFU": 1, "FFMA": 1, "LDS": 1, "BRA": 1}
     assert list(chip_smoke.hot_loops(sass)) == ["<1,16>"]
+
+
+def test_chip_smoke_serving_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's serving phase (slice 6: mixed traffic against one
+    solve per request, FIFO against bucketed SLO traffic, block and
+    block-Jacobi requests, card against CPU under a virtual clock, the
+    drain split), run on the CPU at a small size: the kernels' plain
+    versions stand in (the launch counts are then 0, and the est_iter_s
+    gate, a statement about the card's clock, is only printed), so this
+    checks the phase's requests, gates and control flow, not the
+    kernels."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("PRECOND_NX", 32),
+                        ("SERVE_REQUESTS", 10), ("SLO_HARD", 2),
+                        ("SLO_EASY", 6), ("SERVE_BLOCK", 4),
+                        ("SERVE_PRECOND_NX", 32), ("SERVE_PRECOND", 3),
+                        ("SERVE_VC_NX", 6)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    r, c, v, n = chip_smoke.laplace3d(10)
+    fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu")}
+    pcg = {"A": chip_smoke._aniso(32)}
+    chip_smoke.phase_serving(fw, pcg, "cpu rehearsal")
