@@ -69,6 +69,27 @@ the card, holding every kernel against its plain PyTorch version:
     CPU under a virtual clock, and a drain's time by part (chunk, refill
     upload/init/merge, retire finalize/download) with the service's
     per-iteration estimate beside the measured one;
+15d. the device pool's bandwidths (``runtime/devicepool.py``'s table): a
+    2 GiB float64 copy on the card and on the host, pinned copies between
+    them, beside the card's name and power limit and the host CPU model;
+15e. slice 7's paper workload, ``mlgeer_like`` (``configs/ghost_spmv.py``:
+    n = 1,504,002, band 40, density 0.9, b = 4, f64): the
+    ``HeterogeneousEngine``'s distributed SpMV on 1 and 4 card shards and
+    on the host plus the card (modeled weights), each against the
+    one-device plain SpMV (as is the one-device B1, also timed at the JAX
+    package's chunk-width rounding w_align 8), overlap against no overlap
+    and the double-buffered chain bit for bit, B1's launches, ms per
+    matvec, halo words, build seconds, B1 on a remote (rectangular) part
+    against the bytes it needs, and the host + card split by shard and
+    copy;
+15f. column CG through ``DistOperator`` on laplace3d(160) (phase 6's
+    system) on 4 card shards and on the host plus the card: iterations,
+    ms/iter beside phase 6, the true residual per column, B1's launches;
+15g. the rebalance loop on the host + card engine: three steps on
+    measured per-shard times (CUDA events on the card, the host clock on
+    the host), each generation held against the one-device SpMV;
+15h. engine-backed serving: the 4-shard engine in a ``MatrixRegistry``,
+    CG requests with and without ``chebyshev:3``, true residuals;
 16. B6 (the selective scan) against its plain version computed in
     float64, over batch, sequence length, d_inner and state size, with dt
     from 0 to large and A <= 0, each output held to a stated error bound
@@ -107,7 +128,10 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
+import platform
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -123,6 +147,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import SpmvOpts, execution, from_coo  # noqa: E402
+from repro_torch.core.spmv import x_rows  # noqa: E402
+from repro_torch.core.distributed import (Staging, fused_epilogue,  # noqa: E402
+                                          halo_pack, halo_unpack,
+                                          local_stage, remote_stage)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_update  # noqa: E402
 from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
@@ -145,8 +173,11 @@ from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E40
                                  make_preconditioner, minres,
                                  minres_finalize, minres_init, minres_step)
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.runtime import (TERMINAL_STATES, MatrixRegistry,  # noqa: E402
-                                 SolverService)
+from repro_torch.runtime import (TERMINAL_STATES,  # noqa: E402
+                                 DevicePool, HeterogeneousEngine,
+                                 MatrixRegistry, SolverService)
+from repro_torch.configs.ghost_spmv import WORKLOADS  # noqa: E402
+from repro_torch.matrices import banded_random  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
@@ -568,6 +599,7 @@ def phase_full_width(card):
     b64 = A64.permute(torch.from_numpy(b_host))
     res64, launches, secs = _solve(A64, b64, 1e-8, "(a) column CG f64 b=4", card)
     out["launches"], out["solve_s"] = launches, {"f64": secs}
+    out["iters64"], out["b_host"] = int(res64.iters), b_host
 
     # the same solve in cg_step chunks of 64 must equal it bit for bit
     op = make_operator(A64)
@@ -650,15 +682,15 @@ def phase_timing(fw, card):
                     print(f"[timing] f64 b={b}: the library's csr @ x "
                           f"({lib_ms:.4f} ms) is faster than the kernel "
                           f"({ms:.4f} ms)")
-            nbytes = _nbytes(A.vals, A.cols, A.chunk_off, A.chunk_len, x, yk,
-                             dk)
+            nbytes = _spmv_bytes(A, x, yk, dk)
             bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
             gbs = nbytes / (ms * 1e-3) / 1e9
             print(f"[timing] {label} b={b} {'<p, Ap>' if dot else 'no dots'}"
                   f": kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library(csr@x) "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB needed; the "
+                  f"matrix stores {_stored_bytes(A) / 1e6:.1f} MB), "
                   f"{gbs:.1f} GB/s = {100 * bound_ms / ms:.1f}% of bound, "
                   f"y max abs err {err:.3e}, dots rel err {dots_err:.3e}  "
                   f"[{card}]")
@@ -990,6 +1022,23 @@ PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _spmv_bytes(A, x, y, *extra) -> int:
+    """Bytes an SpMV with ``A`` must move: each nonzero's value and column
+    index once (not the padding slots), the ``ncols`` rows of ``x`` (every
+    column of these matrices holds a nonzero; a remote part's compressed
+    halo holds only such columns), the ``nrows`` rows of ``y`` and each
+    tensor of ``extra`` (``y_in``, the dots) once."""
+    b = x.shape[1] if x.ndim == 2 else 1
+    nz = A.nnz * (A.vals.element_size() + A.cols.element_size())
+    return (nz + A.ncols * b * x.element_size()
+            + A.nrows * b * y.element_size() + _nbytes(*extra))
+
+
+def _stored_bytes(A) -> int:
+    """The bytes of ``A``'s SELL-C-sigma arrays, padding slots included."""
+    return _nbytes(A.vals, A.cols, A.chunk_off, A.chunk_len)
 
 
 def phase_tsm_timing(fw, card):
@@ -2136,6 +2185,487 @@ def _reference_upload(op, n, w, cols):
     return op.to_op_space(torch.from_numpy(Bg).to(DEVICE))
 
 
+# ---------------------------------------------------------- phases 15d-15h
+#: slice 7: the heterogeneous engine.  Card shards run on DEVICE (a CPU
+#: rehearsal puts every shard on the host); the paper's workload comes
+#: from ``configs/ghost_spmv.py``; CG, the rebalance loop and serving run
+#: on laplace3d(NX), phase 6's matrix
+MLGEER, ENGINE_SHARDS, ENGINE_TOL = "mlgeer_like", 4, 1e-8
+REBALANCE_STEPS, REBALANCE_CALLS = 3, 10
+ENGINE_SERVE_REQUESTS, ENGINE_SERVE_PRECOND = 6, "chebyshev:3"
+#: the copies that measure the pool's bandwidths: bytes of the source
+BW_BYTES, PIN_BYTES = 2 << 30, 1 << 30
+#: a distributed matvec against the one-device B1 SpMV: max |dy| / max |y|
+DIST_TOL = 1e-12
+
+
+def wall_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """Host clock around ``iters`` calls that end in a synchronise: the
+    time of work shared between the card and the host."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``), with
+    the machine type and the cores the process may use."""
+    text = Path("/proc/cpuinfo").read_text()
+    if shutil.which("lscpu"):
+        text += subprocess.run(["lscpu"], capture_output=True, text=True,
+                               check=False).stdout
+    names = [line.split(":", 1)[1].strip() for line in text.splitlines()
+             if line.lower().startswith(("model name", "vendor_id",
+                                         "vendor id"))]
+    named = [m for m in names if m.lower() not in ("", "-", "unknown")]
+    name = " / ".join(dict.fromkeys(named)) or "model not named"
+    return f"{name} ({platform.machine()}, {len(os.sched_getaffinity(0))} cores)"
+
+
+def _card_launches(A) -> int:
+    """B1 launches of one distributed matvec: every card shard's local
+    part, and its remote part where that holds nonzeros."""
+    if DEVICE == "cpu":
+        return 0
+    return sum(1 + (s.remote.nnz > 0) for s in A.shards
+               if s.device.type == "cuda")
+
+
+def _split_line(A) -> str:
+    return ", ".join(f"{s.device.type}:{e - b} rows/{nnz} nnz/halo {s.nhalo}"
+                     for s, (b, e), nnz in zip(A.shards, A.row_ranges,
+                                               A.shard_nnz))
+
+
+# ---------------------------------------------------------------- phase 15d
+def phase_bandwidths(card):
+    """The memory rates of the device pool's table (``KNOWN_DEVICE_SPECS``
+    in ``runtime/devicepool.py``): a float64 copy on the card and one on
+    the host, each counted as read + write bytes, and pinned copies from
+    the host to the card and back (one-way bytes)."""
+    cpu = host_cpu()
+    n = BW_BYTES // 8
+    src = torch.ones(n, dtype=torch.float64, device="cuda")
+    dst = torch.empty_like(src)
+    dev_bw = 2 * BW_BYTES / (time_ms(lambda: dst.copy_(src), 3, 10) * 1e-3)
+    del src, dst
+    src = torch.ones(n, dtype=torch.float64)
+    dst = torch.empty_like(src)
+    best = np.inf
+    for _ in range(6):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        best = min(best, time.perf_counter() - t0)
+    host_bw = 2 * BW_BYTES / best
+    del src, dst
+    pinned = torch.ones(PIN_BYTES // 8, dtype=torch.float64,
+                        pin_memory=True)
+    dev = torch.empty(PIN_BYTES // 8, dtype=torch.float64, device="cuda")
+    h2d = PIN_BYTES / (time_ms(lambda: dev.copy_(pinned, non_blocking=True),
+                               2, 10) * 1e-3)
+    d2h = PIN_BYTES / (time_ms(lambda: pinned.copy_(dev, non_blocking=True),
+                               2, 10) * 1e-3)
+    del pinned, dev
+    print(f"[bandwidth] card copy {dev_bw / 1e9:.1f} GB/s ({2 * BW_BYTES >> 30}"
+          f" GiB read + written); host copy {host_bw / 1e9:.1f} GB/s "
+          f"({torch.get_num_threads()} threads, best of 6); pinned host->card"
+          f" {h2d / 1e9:.1f} GB/s, card->host {d2h / 1e9:.1f} GB/s "
+          f"({PIN_BYTES >> 30} GiB)  [{card}; host {cpu}]")
+    return dict(card=dev_bw, host=host_bw, h2d=h2d, d2h=d2h, cpu=cpu)
+
+
+# ---------------------------------------------------------------- phase 15e
+def phase_mlgeer(card):
+    """The paper's workload (ML_Geer-like, f64, b = 4): the distributed
+    SpMV on one card shard, on ENGINE_SHARDS card shards and on the host
+    plus the card (the pool's modeled weights), each against the
+    one-device plain SpMV (as is the one-device B1), with overlap and
+    without, the double-buffered chain, B1's launches and where the time
+    goes."""
+    wl = WORKLOADS[MLGEER]
+    t0 = time.perf_counter()
+    r, c, v, n = banded_random(wl.n, bw=wl.bw, density=wl.density, seed=0)
+    print(f"[mlgeer] {MLGEER}: n={n} nnz={len(v)} (band {wl.bw}, density "
+          f"{wl.density}), b={wl.nvecs}, f64, C={wl.C} sigma={wl.sigma} "
+          f"w_align={wl.w_align}: generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (n, wl.nvecs)))
+    kw = dict(C=wl.C, sigma=wl.sigma, w_align=wl.w_align, dtype=np.float64)
+    splits = (("1 card shard", [DEVICE]),
+              (f"{ENGINE_SHARDS} card shards", [DEVICE] * ENGINE_SHARDS),
+              ("cpu + card", [DEVICE, "cpu"]))
+    out = {"launches": 0, "ms": {}}
+    y_ref = None
+    for label, devs in splits:
+        t0 = time.perf_counter()
+        eng = HeterogeneousEngine(r, c, v, n, devices=devs, **kw)
+        sync()
+        build_s = time.perf_counter() - t0
+        A = eng.A
+        if y_ref is None:
+            # one shard's local part is the one-device matrix: from_coo
+            # over every row with the same C, sigma and w_align.  The
+            # reference is its plain SpMV; the one-device B1 is held
+            # against it as every split is
+            A1 = A.shards[0].local
+            xp = A1.permute(x.to(DEVICE))
+            y_ref = A1.unpermute(sellcs_spmv_ref(A1, xp)[0])
+            err1 = rel_err(A1.unpermute(sellcs_spmv(A1, xp)[0]), y_ref)
+            require(err1 <= DIST_TOL, f"mlgeer: one-device B1 {err1:.3e} of "
+                    f"max|y| off its plain version")
+            one_ms = wall_ms(lambda: sellcs_spmv(A1, xp))
+            out["one_ms"] = one_ms
+            print(f"[mlgeer] one-device B1 SpMV: {one_ms:.4f} ms "
+                  f"(cap {A1.cap}, beta {A1.beta:.4f}); max|dy| {err1:.2e} "
+                  f"of max|y| against the plain SpMV  [{card}]")
+            out["w_align"] = _w_align_timing(r, c, v, n, x, A1, xp, y_ref,
+                                             wl, card)
+        execution.reset_launch_counts()
+        y_ov, _ = eng.spmv(x, overlap=True)
+        sync()
+        got = execution.launch_counts().get(KERNEL, 0)
+        require(got == _card_launches(A), f"mlgeer {label}: {got} B1 "
+                f"launches, expected {_card_launches(A)}")
+        out["launches"] += got
+        y_no, _ = eng.spmv(x, overlap=False)
+        err = rel_err(y_ov, y_ref)
+        require(err <= DIST_TOL, f"mlgeer {label}: {err:.3e} of max|y| off "
+                f"the plain one-device SpMV")
+        same = torch.equal(y_ov, y_no)
+        require(same or "cpu" in devs, f"mlgeer {label}: overlap changed bits")
+        xs = A.distribute_vec(x)
+        run_db = eng.make_matvec(nvecs=wl.nvecs, double_buffer=True)
+        run_nb = eng.make_matvec(nvecs=wl.nvecs)
+        w, stg = xs, None
+        for _ in range(3):
+            w, _, stg = run_db(w, staging=stg)
+        w2 = xs
+        for _ in range(3):
+            w2, _, _ = run_nb(w2)
+        same_db = all(torch.equal(a, b) for a, b in zip(w, w2))
+        require(same_db, f"mlgeer {label}: double-buffered chain differs")
+        ms = {ov: wall_ms(lambda: eng.make_matvec(nvecs=wl.nvecs,
+                                                  overlap=ov)(xs))
+              for ov in (True, False)}
+        out["ms"][label] = ms
+        print(f"[mlgeer] {label}: build {build_s:.1f} s; {_split_line(A)}; "
+              f"halo words comm_volume {A.comm_volume} (max_msg "
+              f"{A.max_msg}, h_max {A.h_max}); max|dy| {err:.2e} of max|y|;"
+              f" overlap == no overlap bit for bit: {same}; double-buffered"
+              f" chain == unbuffered: {same_db}; B1 launches {got}; "
+              f"{ms[True]:.4f} ms/matvec with overlap, {ms[False]:.4f} "
+              f"without ({ms[True] / one_ms:.2f}x the one-device SpMV)  "
+              f"[{card}]")
+        if len(devs) == ENGINE_SHARDS and DEVICE == "cuda":
+            out["remote"] = _remote_timing(A, wl.nvecs, card)
+            out["stages"] = _stage_split(A, xs, card)
+            out["profile"] = _matvec_profile(eng, xs, wl.nvecs, card)
+        if "cpu" in devs:
+            out["host_split"] = _host_split(eng, x, wl.nvecs, card)
+        del eng, A, xs, w, w2, stg
+    return out
+
+
+def _w_align_timing(r, c, v, n, x, A1, xp, y_ref, wl, card):
+    """The one-device B1 SpMV at the JAX package's chunk-width rounding
+    (w_align 8, for its kernel's width tiling) beside the workload's,
+    timed in turns, and held against the plain reference."""
+    A8 = from_coo(r, c, v, (n, n), C=wl.C, sigma=wl.sigma, w_align=8,
+                  dtype=np.float64, device=DEVICE)
+    x8 = A8.permute(x.to(DEVICE))
+    err = rel_err(A8.unpermute(sellcs_spmv(A8, x8)[0]), y_ref)
+    require(err <= DIST_TOL, f"mlgeer w_align 8: B1 {err:.3e} of max|y| off")
+    ms = {"own": [], "8": []}
+    for _ in range(2):
+        ms["own"].append(wall_ms(lambda: sellcs_spmv(A1, xp)))
+        ms["8"].append(wall_ms(lambda: sellcs_spmv(A8, x8)))
+    print(f"[mlgeer] one-device B1 SpMV by chunk-width rounding, in turns: "
+          f"w_align {wl.w_align} {ms['own'][0]:.4f} / {ms['own'][1]:.4f} ms "
+          f"(cap {A1.cap}), w_align 8 {ms['8'][0]:.4f} / {ms['8'][1]:.4f} ms"
+          f" (cap {A8.cap}, max|dy| {err:.2e} of max|y|)  [{card}]")
+    return ms
+
+
+def _remote_timing(A, b, card):
+    """B1 on an interior shard's remote part (rectangular: x is the halo,
+    y_in the local result) against its plain version and its bytes
+    bound."""
+    p = min(1, A.nshards - 1)
+    R = A.shards[p].remote
+    g = torch.Generator(device="cuda").manual_seed(4)
+    halo = torch.randn(x_rows(R), b, dtype=R.dtype, device="cuda",
+                       generator=g)
+    y_in = torch.randn(R.nrows_pad, b, dtype=R.dtype, device="cuda",
+                       generator=g)
+    opts = SpmvOpts(beta=1.0)
+    yk, _, _ = sellcs_spmv(R, halo, y_in, opts=opts)
+    yr, _, _ = sellcs_spmv_ref(R, halo, y_in, opts=opts)
+    err = rel_err(yk, yr)
+    require(err <= TOL[torch.float64]["vec"], f"remote part: kernel vs "
+            f"plain {err:.3e}")
+    ms = time_ms(lambda: sellcs_spmv(R, halo, y_in, opts=opts))
+    plain_ms = time_ms(lambda: sellcs_spmv_ref(R, halo, y_in, opts=opts),
+                       3, 20)
+    # back-to-back calls as small as this one may be bound by the host's
+    # launch of each call: the profiler's device time of the kernel alone
+    dev = _device_split(lambda: [sellcs_spmv(R, halo, y_in, opts=opts)
+                                 for _ in range(100)], 100)
+    dev_ms = None if dev is None else dev["kinds"].get("B1 sellcs_spmv")
+    nbytes, stored = _spmv_bytes(R, halo, yk, y_in), _stored_bytes(R)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[mlgeer] shard {p}'s remote part ({R.nrows} x {R.ncols}, nnz "
+          f"{R.nnz}, cap {R.cap}): B1 {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+          f" bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB needed: the "
+          f"nonzeros, the halo, y_in and y; {100 * bound_ms / ms:.1f}%); "
+          f"the part stores {stored / 1e6:.1f} MB; kernel vs plain "
+          f"{err:.2e}; the kernel's device time "
+          + ("not measured (the profiler saw no kernel)" if dev_ms is None
+             else f"{dev_ms:.4f} ms a call ({100 * bound_ms / dev_ms:.1f}% "
+                  f"of bound; profiler, 100 calls of {dev['wall']:.4f} ms "
+                  f"wall each)") + f"  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, dev_ms=dev_ms)
+
+
+def _stage_split(A, xs, card):
+    """Where a card-only matvec's time goes: each stage of every shard
+    timed alone with CUDA events (pack, unpack and the epilogue with CG's
+    <x, y> dot are PyTorch; local and remote are B1), summed over the
+    shards."""
+    staging = Staging(A, xs[0].shape[1], A.dtype)
+    stack = staging.stacks[0][A.home]
+    opts = SpmvOpts(dot_xy=True)
+    ms = dict.fromkeys(("pack", "unpack", "local B1", "remote B1",
+                        "epilogue"), 0.0)
+    for p in range(A.nshards):
+        halo = halo_unpack(A, p, stack)
+        y_loc = local_stage(A, p, xs[p])
+        ms["pack"] += time_ms(lambda: halo_pack(A, p, xs[p], stack))
+        ms["unpack"] += time_ms(lambda: halo_unpack(A, p, stack))
+        ms["local B1"] += time_ms(lambda: local_stage(A, p, xs[p]))
+        ms["remote B1"] += time_ms(lambda: remote_stage(A, p, halo, y_loc))
+        ms["epilogue"] += time_ms(lambda: fused_epilogue(y_loc, xs[p], opts))
+    print(f"[mlgeer] {A.nshards} card shards, stages timed alone and summed "
+          f"over the shards: " + ", ".join(f"{k} {v:.4f} ms"
+                                           for k, v in ms.items())
+          + f"  [{card}]")
+    return ms
+
+
+def _matvec_profile(eng, xs, b, card):
+    """A card-only distributed matvec under ``torch.profiler``: per
+    matvec, the wall time, the device time by kind of kernel and the time
+    the card sat idle inside the window (the host's launches)."""
+    run = eng.make_matvec(nvecs=b)
+    run(xs)
+    dev = _device_split(lambda: [run(xs) for _ in range(20)], 20)
+    if dev is None:
+        print(f"[mlgeer] {eng.A.nshards} card shards under the profiler: "
+              f"not measured (the profiler saw no kernel)  [{card}]")
+        return None
+    print(f"[mlgeer] {eng.A.nshards} card shards under the profiler, per "
+          f"matvec: wall {dev['wall']:.4f} ms; device "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(
+              dev["kinds"].items())) + f"; the card idle {dev['idle']:.4f} "
+          f"ms ({100 * dev['idle_share']:.1f}% of the window)  [{card}]")
+    return dev
+
+
+def _host_split(eng, x, b, card):
+    """Where a host + card matvec's time goes: each shard's stages (CUDA
+    events on the card, the host clock on the host), the copies between
+    them, and a solver's staging of the host rows (down and back)."""
+    A = eng.A
+    xs = A.distribute_vec(x)
+    run = eng.make_matvec(nvecs=b)
+    run(xs)
+    acc, tr = np.zeros(A.nshards), 0.0
+    for _ in range(REBALANCE_CALLS):
+        t = {}
+        run(xs, times=t)
+        acc += np.asarray(t["shards"])
+        tr += t["transfer"]
+    shard_ms = 1e3 * acc / REBALANCE_CALLS
+    h = next(i for i, s in enumerate(A.shards) if s.device.type == "cpu")
+    op = eng.operator()
+    v = op.to_op_space(x.to(A.home))
+    s = A.shards[h]
+    part = v[s.offset:s.offset + s.nrows_pad]
+    down = wall_ms(lambda: part.to("cpu"))
+    back = part.to("cpu")
+    up = wall_ms(lambda: back.to(A.home))
+    parts = ", ".join(f"{sh.device.type} shard {ms:.4f} ms"
+                      for sh, ms in zip(A.shards, shard_ms))
+    print(f"[host split] {parts}; card<->host halo copies "
+          f"{1e3 * tr / REBALANCE_CALLS:.4f} ms; host rows staged down "
+          f"{down:.4f} ms and back {up:.4f} ms ({s.nrows_pad} x {b})  "
+          f"[{card}]")
+    return dict(shard_ms=shard_ms.tolist(),
+                transfer_ms=1e3 * tr / REBALANCE_CALLS, down_ms=down,
+                up_ms=up)
+
+
+# ---------------------------------------------------------------- phase 15f
+def _relres_cols(A64, b, x) -> torch.Tensor:
+    """Per-column true relative residual of an original-space solution,
+    through the one-device matrix' plain SpMV."""
+    Ax, _, _ = sellcs_spmv_ref(A64, A64.permute(x))
+    return (b - A64.unpermute(Ax)).norm(dim=0) / b.norm(dim=0)
+
+
+def phase_engine_cg(fw, card):
+    """Column CG (four right-hand sides, tol 1e-8) through DistOperator on
+    laplace3d(NX): on ENGINE_SHARDS card shards and on the host plus the
+    card, beside phase 6's one-device solve of the same system."""
+    r, c, v, n = fw["coo"]
+    A64 = fw["A64"]
+    b = torch.from_numpy(fw["b_host"]).to(DEVICE)
+    one_ms = 1e3 * fw["solve_s"]["f64"] / max(fw["iters64"], 1)
+    one = make_operator(A64)
+    b1 = A64.permute(b)
+    out = {"launches": 0}
+    for label, devs in ((f"{ENGINE_SHARDS} card shards",
+                         [DEVICE] * ENGINE_SHARDS),
+                        ("cpu + card", [DEVICE, "cpu"])):
+        t0 = time.perf_counter()
+        eng = HeterogeneousEngine(r, c, v, n, devices=devs, C=32, sigma=1024,
+                                  dtype=np.float64)
+        sync()
+        build_s = time.perf_counter() - t0
+        op = eng.operator()
+        bop = op.to_op_space(b)
+        execution.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        res = cg(op, bop, tol=ENGINE_TOL, maxiter=3000)
+        sync()
+        secs = time.perf_counter() - t0
+        got = execution.launch_counts().get(KERNEL, 0)
+        d = dropped("cg")
+        want = (res.iters + d + 1) * _card_launches(eng.A)
+        require(got == want, f"engine CG {label}: {got} B1 launches != "
+                f"(iters + discarded + 1) x per-matvec = {want}")
+        out["launches"] += got
+        rel = _relres_cols(A64, b, op.from_op_space(res.x))
+        require(bool(res.converged.all()), f"engine CG {label}: not converged")
+        require(bool((rel <= 10 * ENGINE_TOL).all()),
+                f"engine CG {label}: true residuals {rel.tolist()}")
+        ms = 1e3 * secs / max(res.iters, 1)
+        opts = SpmvOpts(dot_xy=True)         # CG's matvec
+        mv_ms = wall_ms(lambda: op.mv_fused(bop, opts=opts))
+        one_mv = wall_ms(lambda: one.mv_fused(b1, opts=opts))
+        print(f"[engine cg] {label}: one matvec with <p, Ap> through "
+              f"DistOperator {mv_ms:.4f} ms, through the one-device "
+              f"operator {one_mv:.4f} ms  [{card}]")
+        print(f"[engine cg] {label}: build {build_s:.1f} s; {_split_line(eng.A)};"
+              f" {res.iters} iterations in {secs:.3f} s ({ms:.3f} ms/iter; "
+              f"phase 6's one-device solve {fw['iters64']} iterations at "
+              f"{one_ms:.3f} ms/iter), true rel residuals "
+              f"{', '.join(f'{e:.2e}' for e in rel.tolist())} (tol "
+              f"{ENGINE_TOL}), B1 launches {got}  [{card}]")
+        out[label] = dict(iters=int(res.iters), ms=ms, eng=eng, mv_ms=mv_ms,
+                          one_mv_ms=one_mv)
+    return out
+
+
+# ---------------------------------------------------------------- phase 15g
+def phase_rebalance(eng, fw, card):
+    """The rebalance loop on the host + card engine over laplace3d(NX):
+    from the modeled weights, REBALANCE_STEPS steps on measured per-shard
+    times, each generation's matvec held against the one-device SpMV."""
+    A64 = fw["A64"]
+    x = torch.from_numpy(fw["b_host"]).to(DEVICE)
+    xp = A64.permute(x)
+    y_ref = A64.unpermute(sellcs_spmv(A64, xp)[0])
+    card_ms = wall_ms(lambda: sellcs_spmv(A64, xp))
+    gens = []
+    for gen in range(REBALANCE_STEPS + 1):
+        A = eng.A
+        y, _ = eng.spmv(x)
+        err = rel_err(y, y_ref)
+        require(err <= DIST_TOL, f"rebalance generation {gen}: {err:.3e} of "
+                f"max|y| off the one-device SpMV")
+        xs = A.distribute_vec(x)
+        run = eng.make_matvec(nvecs=x.shape[1])
+        run(xs)
+        acc = np.zeros(A.nshards)
+        for _ in range(REBALANCE_CALLS):
+            t = {}
+            run(xs, times=t)
+            acc += np.asarray(t["shards"])
+        times = acc / REBALANCE_CALLS
+        op = eng.operator()
+        v = op.to_op_space(x)
+        mv_ms = wall_ms(lambda: op.mv(v))
+        imb = eng.plan.imbalance(times)
+        print(f"[rebalance] generation {gen}: weights "
+              f"{'/'.join(f'{w:.4f}' for w in eng.plan.weights)}, rows "
+              f"{'/'.join(str(int(s)) for s in eng.plan.sizes)}, shard ms "
+              f"{'/'.join(f'{1e3 * t:.4f}' for t in times)} (max/mean "
+              f"{imb:.3f}); matvec {mv_ms:.4f} ms against the card alone "
+              f"{card_ms:.4f} ms; max|dy| {err:.2e} of max|y|  [{card}]")
+        gens.append(dict(weights=list(eng.plan.weights),
+                         rows=eng.plan.sizes.tolist(),
+                         shard_ms=(1e3 * times).tolist(), imbalance=imb,
+                         mv_ms=mv_ms))
+        if gen < REBALANCE_STEPS:
+            t0 = time.perf_counter()
+            eng.rebalance(times)
+            sync()
+            print(f"[rebalance] step {gen + 1}: redistributed in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    return dict(gens=gens, card_ms=card_ms)
+
+
+# ---------------------------------------------------------------- phase 15h
+def phase_engine_serving(eng, fw, card) -> int:
+    """Engine-backed serving: the ENGINE_SHARDS-shard engine over
+    laplace3d(NX) registered in a MatrixRegistry, CG requests drained
+    through its DistOperator, every other one Chebyshev-preconditioned.
+    Returns B1's launches."""
+    A64 = fw["A64"]
+    n = A64.nrows
+    reg = MatrixRegistry()
+    reg.register("lap_engine", eng)
+    svc = SolverService(reg, block_width=PRECOND_WIDTH,
+                        chunk_iters=SERVE_CHUNK)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.standard_normal(n), None if i % 2 == 0 else
+             ENGINE_SERVE_PRECOND) for i in range(ENGINE_SERVE_REQUESTS)]
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    tickets = [svc.submit("lap_engine", b, solver="cg", tol=ENGINE_TOL,
+                          maxiter=3000, precond=pc) for b, pc in reqs]
+    svc.drain()
+    sync()
+    wall = time.perf_counter() - t0
+    got = execution.launch_counts().get(KERNEL, 0)
+    require(got > 0 or DEVICE == "cpu", "engine serving: B1 not launched")
+    require(all(t.status == "done" and t.result.converged for t in tickets),
+            "engine serving: a request did not converge")
+    X = torch.from_numpy(np.stack([t.result.x for t in tickets], 1))
+    B = torch.from_numpy(np.stack([t.b for t in tickets], 1)).to(DEVICE)
+    rel = _relres_cols(A64, B, X.to(DEVICE))
+    require(bool((rel <= 10 * ENGINE_TOL).all()),
+            f"engine serving: true residuals {rel.tolist()}")
+    iters = {pc or "none": max(t.result.iters for t, (_, p) in
+                               zip(tickets, reqs) if p == pc)
+             for _, pc in reqs}
+    print(f"[engine serve] {len(tickets)} CG requests on the "
+          f"{eng.nshards}-shard engine ({ENGINE_SERVE_PRECOND} on every "
+          f"other): all converged, largest true residual "
+          f"{(rel / ENGINE_TOL).max().item():.2f} tol, iterations by "
+          f"preconditioner {iters}, drained in {wall:.3f} s, B1 launches "
+          f"{got}  [{card}]")
+    return got
+
+
 # ----------------------------------------------------------------- phase 16
 def _b6_inputs(B, S, di, N, seed):
     """dt >= 0 from 0 to large (a tenth of the entries 0, a tenth
@@ -2732,6 +3262,19 @@ def main() -> int:
     timed("pcg split", phase_pcg_split, pcg, card)
     timed("stepper", phase_stepper, fw, bcg, pcg, card)
     timed("serving", phase_serving, fw, pcg, card)
+    timed("pool bandwidths", phase_bandwidths, card)
+    mlg = timed("mlgeer distributed spmv", phase_mlgeer, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecg = timed("engine CG", phase_engine_cg, fw, card)
+    timed("rebalance loop", phase_rebalance, ecg["cpu + card"]["eng"], fw,
+          card)
+    served = timed("engine serving", phase_engine_serving,
+                   ecg[f"{ENGINE_SHARDS} card shards"]["eng"], fw, card)
+    # B1's main paths: column CG, the paper's workload, engine CG, serving
+    b1_launches = (fw["launches"] + mlg["launches"] + ecg["launches"]
+                   + served)
+    del ecg
     for r in rows:
         if r["b"] == 4:
             n = fw["launches"] if r["label"] == "f64" else fw["launches16"]
@@ -2743,7 +3286,7 @@ def main() -> int:
     main_row = next(r for r in rows if r["label"] == "f64" and r["b"] == 4)
     f64 = torch.float64
     entries = [
-        _kernel_entry(KERNEL, fw["launches"], main_row),
+        _kernel_entry(KERNEL, b1_launches, main_row),
         _kernel_entry("tsmttsm", bcg["launches"]["tsmttsm"],
                       tsm[("tsmttsm", "kahan", f64)]),
         _kernel_entry("tsmm", bcg["launches"]["tsmm"],

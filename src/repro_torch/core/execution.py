@@ -20,8 +20,9 @@ from typing import Dict, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "count_launch", "launch_counts",
-           "reset_launch_counts", "count_discarded", "discarded_counts"]
+__all__ = ["resolve_device", "canonical_device", "count_launch",
+           "launch_counts", "reset_launch_counts", "count_discarded",
+           "discarded_counts"]
 
 _launches: Dict[str, int] = {}
 _discarded: Dict[str, int] = {}
@@ -35,6 +36,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "no CUDA device is available; the port runs on the GPU unless "
             "the caller asks for the CPU explicitly (device='cpu')")
+    return dev
+
+
+def canonical_device(device: Optional[Union[str, torch.device]] = None
+                     ) -> torch.device:
+    """:func:`resolve_device` with the card's index filled in (``"cuda"``
+    becomes the current card), so devices compare equal by value."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

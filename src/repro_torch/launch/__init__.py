@@ -1,1 +1,3 @@
-"""Entry points of the port's LM scaffold (``serve``)."""
+"""Entry points of the port's LM scaffold (``serve``), and the SpMV cost
+terms (``costmodel``) and weight-update rule (``hillclimb``) that the
+heterogeneous engine splits its work by."""

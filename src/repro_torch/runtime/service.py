@@ -69,10 +69,10 @@ kernel on the card, the plain version on the CPU; ``"ref"`` names the
 plain version) and ``device=``, and has no ``interpret=`` or
 ``autotune_tiles=`` (``_Entry.tuned`` is always empty); init, finalize
 and merge are plain calls, not compiled ones; dtype names in batch keys
-are numpy-style (``"float64"``).  The heterogeneous engine
-(``HeterogeneousEngine``, ``DevicePool``, ``SplitPlan``) is not ported
-yet, so engine-backed registration waits for it; the ``iter_time_hint``
-seed and the ``modeled_iter_seconds`` hook stay.
+are numpy-style (``"float64"``).  An engine-backed matrix
+(:class:`~repro_torch.runtime.engine.HeterogeneousEngine`) registers as
+in the JAX package and runs through its ``DistOperator`` on its shards'
+devices.
 """
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ def _dtype_name(dtype) -> str:
 @dataclasses.dataclass
 class _Entry:
     name: str
-    matrix: object                    # SellCS | operator
+    matrix: object                    # SellCS | HeterogeneousEngine | op
     op: object                        # solver-facing operator
     nglobal: int                      # original-space rhs length
     build_seconds: float
@@ -204,9 +204,12 @@ class MatrixRegistry:
                  device=None) -> str:
         """Register a matrix under ``name`` (idempotent — reuse is a hit).
 
-        ``matrix`` may be a prebuilt :class:`SellCS` or an operator
-        implementing the full solver protocol (``mv``, ``mv_fused``,
-        ``n``, ``dtype``, ``to_op_space``, ``from_op_space`` — e.g.
+        ``matrix`` may be a prebuilt :class:`SellCS`, a
+        :class:`~repro_torch.runtime.engine.HeterogeneousEngine` (sharded
+        matrices run through ``DistOperator`` unchanged, on the engine's
+        devices), or an operator implementing the full solver protocol
+        (``mv``, ``mv_fused``, ``n``, ``dtype``, ``to_op_space``,
+        ``from_op_space`` — e.g.
         :class:`~repro_torch.solvers.operator.MatrixFreeOperator`).
         Alternatively pass COO triplets (``rows``/``cols``/``vals``/
         ``shape``) and the SELL-C-sigma build happens here, once, on
@@ -368,8 +371,9 @@ class MatrixRegistry:
         ``spec`` is ``"block_jacobi[:<block_size>]"`` (needs a SELL-C-σ
         matrix — the blocks come straight out of its storage; on the card
         its apply is kernel B4) or ``"chebyshev[:<degree>]"`` (any
-        registered operator, over the cached spectral bounds).  Same spec
-        twice is a cache hit.
+        registered operator, including engine-backed ``DistOperator``
+        matrices, over the cached spectral bounds).  Same spec twice is a
+        cache hit.
         """
         kind, param = parse_precond_spec(spec)         # normalize + validate
         norm = kind if param is None else f"{kind}:{param}"
@@ -385,8 +389,8 @@ class MatrixRegistry:
                 raise ValueError(
                     f"matrix {name!r} is not SELL-C-σ backed "
                     f"({type(e.matrix).__name__}); block_jacobi needs the "
-                    f"stored blocks — use chebyshev for matrix-free "
-                    f"operators")
+                    f"stored blocks — use chebyshev for engine-backed or "
+                    f"matrix-free operators")
             M = make_preconditioner(norm, matrix=A)
         else:
             M = make_preconditioner(norm, op=e.op,
@@ -897,10 +901,10 @@ class SolverService:
                         width: int) -> Optional[float]:
         """Seconds-per-iteration estimate before any chunk was measured.
 
-        An explicit ``iter_time_hint`` wins; a matrix with a
-        ``modeled_iter_seconds`` model (the heterogeneous engine, once
-        ported) falls back to it; otherwise None until the first measured
-        chunk feeds the EWMA.
+        An explicit ``iter_time_hint`` wins; engine-backed matrices fall
+        back to the engine's roofline critical path
+        (:meth:`HeterogeneousEngine.modeled_iter_seconds`); otherwise
+        None until the first measured chunk feeds the EWMA.
         """
         if self._iter_time_hint is not None:
             return float(self._iter_time_hint(key))

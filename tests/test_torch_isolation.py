@@ -40,9 +40,11 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_runtime_is_scanned():
-    """The serving runtime is among the files scanned for JAX imports."""
+    """The serving runtime and the heterogeneous engine are among the
+    files scanned for JAX imports."""
     runtime = {p.name for p in PORT_FILES if p.parent.name == "runtime"}
-    assert runtime == {"__init__.py", "service.py"}
+    assert runtime == {"__init__.py", "service.py", "devicepool.py",
+                       "split.py", "pipeline.py", "engine.py"}
 
 
 def test_port_has_its_modules():
@@ -63,7 +65,11 @@ def test_port_has_its_modules():
             "solvers/operator.py", "solvers/stepper.py", "solvers/cg.py",
             "solvers/block.py", "solvers/minres.py", "solvers/lanczos.py",
             "solvers/chebfd.py", "solvers/kpm.py", "solvers/precond.py",
-            "runtime/__init__.py", "runtime/service.py", "interop.py"}
+            "runtime/__init__.py", "runtime/service.py", "interop.py",
+            "core/partition.py", "core/distributed.py",
+            "configs/ghost_spmv.py", "launch/costmodel.py",
+            "launch/hillclimb.py", "runtime/devicepool.py",
+            "runtime/split.py", "runtime/pipeline.py", "runtime/engine.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
     assert want <= have
@@ -79,7 +85,9 @@ NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
           "core/execution.py", "core/blockvec.py", "solvers/block.py",
           "solvers/cg.py", "solvers/minres.py", "solvers/lanczos.py",
           "solvers/chebfd.py", "solvers/kpm.py", "runtime/service.py",
-          "../../chip_smoke.py"]
+          "core/partition.py", "core/distributed.py", "solvers/operator.py",
+          "runtime/devicepool.py", "runtime/split.py", "runtime/pipeline.py",
+          "runtime/engine.py", "../../chip_smoke.py"]
 
 
 @pytest.mark.parametrize("rel", NO_TRY)
@@ -382,3 +390,32 @@ def test_chip_smoke_serving_phase_rehearses_on_cpu(monkeypatch):
                           dtype=np.float64, device="cpu")}
     pcg = {"A": chip_smoke._aniso(32)}
     chip_smoke.phase_serving(fw, pcg, "cpu rehearsal")
+
+
+def test_chip_smoke_engine_phases_rehearse_on_cpu(monkeypatch):
+    """chip_smoke.py's slice-7 phases (the paper's workload on 1 and 4
+    shards and on two, CG through DistOperator, the rebalance loop and
+    engine-backed serving), run on the CPU with every shard on the host
+    and the ``smoke`` workload: the plain version stands in for B1 (the
+    launch counts are then 0), so this checks the phases' gates and
+    control flow, not the kernel.  (The bandwidth phase needs the card.)"""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("MLGEER", "smoke"),
+                        ("REBALANCE_CALLS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    mlg = chip_smoke.phase_mlgeer("cpu rehearsal")
+    assert mlg["launches"] == 0 and set(mlg["ms"]) == {
+        "1 card shard", "4 card shards", "cpu + card"}
+    r, c, v, n = chip_smoke.laplace3d(10)
+    fw = {"coo": (r, c, v, n), "solve_s": {"f64": 1.0}, "iters64": 1,
+          "A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu"),
+          "b_host": np.random.default_rng(0).standard_normal((n, 4))}
+    ecg = chip_smoke.phase_engine_cg(fw, "cpu rehearsal")
+    assert ecg["4 card shards"]["iters"] == ecg["cpu + card"]["iters"] > 0
+    reb = chip_smoke.phase_rebalance(ecg["cpu + card"]["eng"], fw,
+                                     "cpu rehearsal")
+    assert len(reb["gens"]) == chip_smoke.REBALANCE_STEPS + 1
+    assert chip_smoke.phase_engine_serving(ecg["4 card shards"]["eng"], fw,
+                                           "cpu rehearsal") == 0

@@ -6,9 +6,10 @@ on the card, ``register(device=None)`` is the card, keys carry
 numpy-style dtype names, a chunk's clock is read after its ``done``
 flags reach the host, and a refill uploads only the admitted columns.
 
-The reference's three engine-backed tests wait for the port's
-heterogeneous engine; the registry's block-Jacobi refusal is checked on
-a matrix-free operator instead.
+The reference's three engine-backed tests have their counterparts in
+``tests/test_torch_service_engine.py``; the engine half of the registry's
+block-Jacobi refusal is here, beside the same refusal on a matrix-free
+operator.
 """
 import gc
 import weakref
@@ -18,13 +19,16 @@ import pytest
 import torch
 
 from repro_torch.core import execution, from_coo
-from repro_torch.matrices import anisotropic_laplace2d, laplace3d
-from repro_torch.runtime import (SOLVERS, TERMINAL_STATES, MatrixRegistry,
+from repro_torch.matrices import anisotropic_laplace2d, laplace3d, matpde
+from repro_torch.runtime import (SOLVERS, TERMINAL_STATES,
+                                 HeterogeneousEngine, MatrixRegistry,
                                  ServiceResult, SolverService, SolveTicket)
 from repro_torch.solvers import MatrixFreeOperator, cg, kpm_dos_moments
 from torch_service_harness import ServiceHarness, VirtualClock
 
 CPU = dict(device="cpu")
+#: an engine with one shard on the host (the reference's single-device mesh)
+ONE_HOST = dict(devices=["cpu"])
 
 
 def need_card():
@@ -288,11 +292,20 @@ class TestSolverService:
         with pytest.raises(NotImplementedError, match="pipelined_cg"):
             svc.submit("lap", np.zeros(n, np.float32),
                        solver="pipelined_cg", precond="block_jacobi")
+        # engine-backed matrices reject block_jacobi with a clear error
+        r2, c2, v2, n2 = matpde(12)
+        Ad2 = np.zeros((n2, n2)); Ad2[r2, c2] += v2
+        spd = (Ad2 @ Ad2.T + n2 * np.eye(n2)).astype(np.float32)
+        rs, cs = np.nonzero(spd)
+        eng = HeterogeneousEngine(rs, cs, spd[rs, cs], n2, C=8, sigma=1,
+                                  w_align=4, dtype=np.float32, **ONE_HOST)
+        reg.register("eng", eng)
+        with pytest.raises(ValueError, match="block_jacobi"):
+            reg.preconditioner("eng", "block_jacobi")
 
     def test_block_jacobi_refused_without_sellcs(self, lap):
-        """The reference's engine half of the test above, on the operator
-        the port has until the engine exists: a matrix-free operator has
-        no stored blocks."""
+        """The same refusal on a matrix-free operator: it has no stored
+        blocks either."""
         (r, c, v, n), Ad = lap
         A = torch.from_numpy(Ad)
         mf = MatrixFreeOperator(lambda x: A @ x, n, torch.float32, **CPU)
