@@ -114,7 +114,24 @@ the card, holding every kernel against its plain PyTorch version:
     bound, on the grid's inputs and on the model's own, and B6 back to
     back under the prefill split's protocol and this phase's, on an idle
     card and right after bf16 products, with the SM clock and throttle
-    reasons sampled during each window (why B6 is slower in the split).
+    reasons sampled during each window (why B6 is slower in the split);
+22. slice 8b's main paths, one architecture after the other (each freed
+    before the next): llama3.2-3b, qwen2.5-3b, minitron-8b,
+    mistral-nemo-12b and qwen2-vl-7b whole, grok-1 (one of 64 layers, all
+    8 experts) and llama4-maverick (one period of 2 of 48 layers, all 128
+    experts), whisper-medium (24 + 24 layers, 1500 encoder frames) and
+    xlstm-1.3b (48 layers; the chunkwise mLSTM timed beside the recurrent
+    one, and whether the recurrence is bound by its state traffic or its
+    launches), at their published widths in bf16 with weights from a
+    seed: tokens/s of one prefill (B 4, S 4096; whisper 187 decoder
+    tokens; xLSTM 1024) timed with CUDA events after a warm-up,
+    ``generate`` (16-token prompt, 32 greedy tokens, B 4) in ms a decode
+    step, parameters (all and active), peak memory, finite logits and
+    tokens in the vocabulary; each in float32 at one period, B 1: decode
+    against forward within 2e-3 of max |logit| (xLSTM 5e-3; MoE models
+    with no token dropped and routers x 20); each at its SMOKE size on the card against
+    the port's CPU run of the same weights within 1e-4.  No kernel of the
+    port is on these paths.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -145,7 +162,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (get_config, get_smoke_config,  # noqa: E402
+                                 list_archs)
 from repro_torch.core import SpmvOpts, execution, from_coo  # noqa: E402
 from repro_torch.core.spmv import x_rows  # noqa: E402
 from repro_torch.core.distributed import (Staging, fused_epilogue,  # noqa: E402
@@ -180,6 +198,7 @@ from repro_torch.configs.ghost_spmv import WORKLOADS  # noqa: E402
 from repro_torch.matrices import banded_random  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models import xlstm as XL  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
 from repro_torch.solvers import run_chunk  # noqa: E402
@@ -257,6 +276,24 @@ LM_ARCH, LM_WIDTHS, LM_SEED = "jamba_1_5_large_398b", "full", 0
 LM_BATCH, LM_SEQ = 4, 4096
 SERVE_PROMPT, SERVE_GEN = 16, 32
 DECODE_SEQ, DECODE_TOL, MOE_TOL = 64, 2e-3, 1e-4
+#: slice 8b: every other architecture of the registry (in its order) at
+#: its published widths (``LM_WIDTHS``), one after the other.
+#: ``ARCH_PERIODS`` cuts a model to that many periods of its pattern:
+#: grok-1 and llama4-maverick with all their experts at published width
+#: fit one card as one period (about 13 and 37 GB of bf16 weights); the
+#: rest run every layer.
+#: Whisper's encoder takes WHISPER_FRAMES frames (its 30 s window) and its
+#: decoder WHISPER_FRAMES // dec_len_ratio tokens; xLSTM prefills
+#: XLSTM_SEQ tokens; the MoE checks multiply the routers by ROUTER_SCALE.
+ARCHS_8B = tuple(a for a in list_archs() if a != LM_ARCH)
+ARCH_PERIODS = {"grok_1_314b": 1, "llama4_maverick_400b": 1}
+WHISPER_FRAMES, XLSTM_SEQ, ROUTER_SCALE = 1500, 1024, 20.0
+#: xLSTM's float32 decode-vs-forward tolerance (DECODE_TOL for the rest):
+#: its exponentially gated recurrences amplify float32 round-off along the
+#: sequence, so the float32 forward and decode each sit some 1e-4 to 1e-3
+#: of max |logit| from a forward of the same weights with float64
+#: projections, which the phase also computes and holds both to.
+XLSTM_DECODE_TOL = 5e-3
 
 
 def sync() -> None:
@@ -3217,6 +3254,332 @@ def phase_b6_timing(card, model_args):
                 err=err)
 
 
+# ----------------------------------------------------------------- phase 22
+def arch_config(arch, dtype, periods=None):
+    """``arch`` at its published widths (``LM_WIDTHS = "full"``; the
+    registered SMOKE widths in a CPU rehearsal) in ``dtype``, cut to
+    ``periods`` periods of its pattern (an encoder-decoder model's encoder
+    too) where given, else to ``ARCH_PERIODS[arch]``, else whole."""
+    base = (get_smoke_config(arch) if LM_WIDTHS == "smoke"
+            else get_config(arch))
+    cfg = dataclasses.replace(base, dtype=dtype)
+    periods = ARCH_PERIODS.get(arch) if periods is None else periods
+    if periods is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=periods * cfg.period,
+            n_enc_layers=periods * cfg.period if cfg.enc_dec else 0)
+    return cfg
+
+
+def _no_drop(cfg):
+    """An MoE model whose forward over ``DECODE_SEQ`` tokens and whose
+    decode steps drop no token: capacity factor max(8, experts / top_k),
+    so the capacity is at least T * top_k (8 alone gives llama4-maverick's
+    128 experts a capacity of 4 for 64 tokens)."""
+    if cfg.moe is None:
+        return cfg
+    cf = max(8.0, cfg.moe.n_experts / cfg.moe.top_k)
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def _sharpen_routers(model) -> None:
+    """Router weights x ROUTER_SCALE, so near-tie expert choices cannot
+    flip between two summation orders (as the CPU parity tests do)."""
+    for name, w in model.named_parameters():
+        if name.endswith("router"):
+            w.mul_(ROUTER_SCALE)
+
+
+def _is_xlstm(cfg) -> bool:
+    return any(mix in ("mlstm", "slstm") for mix, _ in cfg.pattern)
+
+
+def _frames(cfg, B, seed, device=None):
+    """Stand-in frontend output for an encoder-decoder model: a seeded
+    normal (B, WHISPER_FRAMES, d) in float32, as the JAX package's
+    ``input_specs`` gives it."""
+    dev = DEVICE if device is None else device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=g,
+                       device=dev)
+
+
+def _prefill_batch(cfg, B, seed):
+    """The prefill's inputs: whisper's WHISPER_FRAMES frames and
+    WHISPER_FRAMES // dec_len_ratio decoder tokens, xLSTM's XLSTM_SEQ
+    tokens, LM_SEQ tokens for the rest."""
+    if cfg.enc_dec:
+        S = WHISPER_FRAMES // cfg.dec_len_ratio
+        return {"tokens": _tokens(cfg, B, S, seed),
+                "enc_embeds": _frames(cfg, B, seed + 1)}
+    return {"tokens": _tokens(cfg, B, XLSTM_SEQ if _is_xlstm(cfg)
+                              else LM_SEQ, seed)}
+
+
+def _elapsed(fn) -> float:
+    """Seconds of one call of ``fn``: CUDA events on the card, the host
+    clock in a CPU rehearsal.  The result is dropped."""
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return 1e-3 * start.elapsed_time(end)
+
+
+def _reset_peak() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if DEVICE == "cuda" else 0.0
+
+
+def _mlstm_step_split(cfg, model, batch, card):
+    """Whether the recurrent mLSTM is bound by its state traffic or by its
+    launches: the first mLSTM layer's recurrence timed at B = LM_BATCH and
+    B = 1, beside the bytes of the (B, H, dh, dh) float32 state that each
+    step moves (five passes: read and write for the decay, read and
+    write for the update, one read for q @ C) over 3.35 TB/s."""
+    p = model.decoder[0]["l0_mix"]
+    x = L.apply_norm(cfg.norm, p["norm"], L.embed_apply(model.embed,
+                                                         batch["tokens"]))
+    _, _, q, k, v, logi, logf = XL._mlstm_heads(p["mlstm"], x, cfg.xlstm,
+                                                cfg.d_model)
+    S, H, dh = q.shape[1], q.shape[2], q.shape[3]
+    chunk = min(cfg.xlstm.chunk, S)
+    out = {}
+    for b in (q.shape[0], 1):
+        secs = _elapsed(lambda: XL._mlstm_recurrent(
+            q[:b], k[:b], v[:b], logi[:b], logf[:b], chunk))
+        bound = 1e3 * 5 * b * H * dh * dh * 4 / HBM_BYTES_PER_S
+        out[b] = 1e3 * secs / S
+        print(f"[xlstm] one mLSTM layer's recurrence, B={b} S={S}: "
+              f"{1e3 * secs:.1f} ms, {out[b]:.4f} ms a step; its state "
+              f"traffic bounds a step at {bound:.4f} ms  [{card}]")
+    big, one = out[q.shape[0]], out[1]
+    verdict = "state traffic" if big > 2.0 * one else "launches"
+    print(f"[xlstm] recurrent mLSTM: a step at B={q.shape[0]} takes "
+          f"{big / one:.2f}x the time of one at B=1, so {verdict} dominate "
+          f"(state traffic would scale with B)  [{card}]")
+    return verdict
+
+
+def _arch_decode_vs_forward(arch, card) -> float:
+    """``arch`` in float32 at full width, one period (whisper: one encoder
+    and one decoder period), B = 1: the logits of ``forward`` against
+    those of ``DECODE_SEQ`` ``decode_step`` calls, within DECODE_TOL of
+    max |logit| (as phase 19).  MoE models drop nothing (``_no_drop``)
+    and route sharply (``_sharpen_routers``).  xLSTM is held to
+    XLSTM_DECODE_TOL, and so are its chunkwise mLSTM's forward against the
+    recurrent one, and the float32 forward and decode against a forward of
+    the same weights with float64 projections."""
+    cfg = _no_drop(arch_config(arch, torch.float32, periods=1))
+    model = T.init_params(cfg, LM_SEED, DEVICE)
+    _sharpen_routers(model)
+    tokens = _tokens(cfg, 1, DECODE_SEQ, seed=3)
+    batch, enc = {"tokens": tokens}, None
+    if cfg.enc_dec:
+        batch["enc_embeds"] = _frames(cfg, 1, seed=5)
+        enc, _ = T.encode(cfg, model, batch["enc_embeds"])
+    ref, _ = T.forward(cfg, model, batch)
+    cache = T.init_cache(cfg, 1, DECODE_SEQ, DEVICE)
+    outs = []
+    for t in range(DECODE_SEQ):
+        logits, cache = T.decode_step(cfg, model, cache, tokens[:, t:t + 1],
+                                      t, enc)
+        outs.append(logits[:, 0])
+    err = rel_err(torch.stack(outs, dim=1), ref)
+    tol, note = DECODE_TOL, ""
+    if _is_xlstm(cfg):
+        tol = XLSTM_DECODE_TOL
+        cw = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+            cfg.xlstm, chunkwise=True))
+        cw_err = rel_err(T.forward(cw, model, batch)[0], ref)
+        # the same seed draws the same weights; the gates and states stay
+        # float32, as the model defines them
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        exact, _ = T.forward(c64, T.init_params(c64, LM_SEED, DEVICE), batch)
+        f64 = (rel_err(ref, exact), rel_err(torch.stack(outs, dim=1), exact))
+        note = (f"; chunkwise forward against recurrent {cw_err:.3e}; "
+                f"against a forward with float64 projections: forward "
+                f"{f64[0]:.3e}, decode {f64[1]:.3e}")
+        require(max(cw_err, *f64) <= tol,
+                f"{arch}: chunkwise or float64 check {max(cw_err, *f64):.3e}"
+                f" > {tol}")
+    cap = ""
+    if cfg.moe is not None:
+        cap = (f", capacity factor {cfg.moe.capacity_factor:g}, routers x"
+               f"{ROUTER_SCALE:g}")
+    print(f"[{arch}] f32, {cfg.n_layers} layers"
+          f"{f' + {cfg.n_enc_layers} encoder' if cfg.enc_dec else ''}, B=1, "
+          f"S={DECODE_SEQ}{cap}: max |decode - forward| {err:.3e} of max "
+          f"|logit| (tol {tol}){note}  [{card}]")
+    require(bool(torch.isfinite(ref).all()), f"{arch} f32: non-finite logits")
+    require(err <= tol, f"{arch}: decode vs forward {err:.3e} > {tol}")
+    return err
+
+
+def _arch_card_vs_cpu(arch, card) -> float:
+    """``arch``'s registered SMOKE config with weights from a seed:
+    ``forward`` and 4 decode steps on the card against the port's CPU run
+    of the same weights, within MOE_TOL of max |logit| (as phase 20;
+    MoE models with capacity factor 8 and sharpened routers)."""
+    base = get_smoke_config(arch)
+    cfg = base if base.moe is None else dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, capacity_factor=8.0))
+    host = T.init_params(cfg, LM_SEED, "cpu")
+    _sharpen_routers(host)
+    card_model = copy.deepcopy(host).to(DEVICE)
+    tok = torch.randint(0, cfg.vocab_size, (2, 12),
+                        generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": tok}
+    if cfg.enc_dec:
+        batch["enc_embeds"] = torch.randn(
+            (2, 16, cfg.d_model), generator=torch.Generator().manual_seed(6))
+    on_card = {k: v.to(DEVICE) for k, v in batch.items()}
+    got, _ = T.forward(cfg, card_model, on_card)
+    want, _ = T.forward(cfg, host, batch)
+    err = rel_err(got.cpu(), want)
+    enc_c = enc_h = None
+    if cfg.enc_dec:
+        enc_c = T.encode(cfg, card_model, on_card["enc_embeds"])[0]
+        enc_h = T.encode(cfg, host, batch["enc_embeds"])[0]
+    cd, hd = (T.init_cache(cfg, 2, 4, dev) for dev in (DEVICE, "cpu"))
+    derr = 0.0
+    for t in range(4):
+        a, cd = T.decode_step(cfg, card_model, cd,
+                              tok[:, t:t + 1].to(DEVICE), t, enc_c)
+        b, hd = T.decode_step(cfg, host, hd, tok[:, t:t + 1], t, enc_h)
+        derr = max(derr, rel_err(a.cpu(), b))
+    print(f"[{arch}] SMOKE {cfg.name}: card against CPU, forward {err:.3e}, "
+          f"4 decode steps {derr:.3e} of max |logit| (tol {MOE_TOL})  "
+          f"[{card}]")
+    require(err <= MOE_TOL and derr <= MOE_TOL,
+            f"{arch}: card differs from CPU by {max(err, derr):.3e}")
+    return max(err, derr)
+
+
+def _free() -> None:
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_arch(arch, card):
+    """Slice 8b's main path for one architecture: bfloat16 weights from a
+    seed at its published widths (cut in depth by ``ARCH_PERIODS``), one
+    prefill ``forward`` timed with CUDA events after a warm-up, then
+    ``launch.serve.generate`` (SERVE_PROMPT prompt tokens, SERVE_GEN
+    greedy ones, B = LM_BATCH; whisper with its encoder's states); then
+    the float32 decode-vs-forward check and the card-vs-CPU check.  No
+    kernel of the port is on these paths: the launch counts stay 0."""
+    _free()
+    cfg = arch_config(arch, torch.bfloat16)
+    full = get_smoke_config(arch) if LM_WIDTHS == "smoke" else get_config(arch)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, LM_SEED, DEVICE)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_par, n_act = T.param_count(model), T.active_param_count(cfg, model)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    depth = (f"{cfg.n_layers} of {full.n_layers} layers" if
+             cfg.n_layers != full.n_layers else f"all {cfg.n_layers} layers")
+    if cfg.enc_dec:
+        depth += f" + {cfg.n_enc_layers} encoder layers"
+    experts = (f" experts={cfg.moe.n_experts} top_k={cfg.moe.top_k}"
+               if cfg.moe else "")
+    print(f"[{arch}] d={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+          f"head_dim={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"pattern={[f'{m}+{f}' for m, f in cfg.pattern]}{experts}"
+          f", {depth}: {n_par / 1e9:.3f} G parameters ({n_act / 1e9:.3f} G "
+          f"active), {nbytes / 1e9:.2f} GB, made from seed {LM_SEED} in "
+          f"{init_s:.1f} s")
+
+    batch = _prefill_batch(cfg, LM_BATCH, seed=1)
+    B, S = batch["tokens"].shape
+    execution.reset_launch_counts()
+    _reset_peak()
+    logits, _ = T.forward(cfg, model, batch)
+    peak = _peak_gb()           # before the check, whose temporaries are
+    finite = bool(torch.isfinite(logits).all())     # larger than the logits
+    shape = tuple(logits.shape)
+    del logits
+    secs = _elapsed(lambda: T.forward(cfg, model, batch))
+    launches = execution.launch_counts()
+    frames = ""
+    if cfg.enc_dec:
+        frames = (f" + {WHISPER_FRAMES} frames a row "
+                  f"({B * WHISPER_FRAMES / secs:.0f} frames/s)")
+    print(f"[{arch}] prefill B={B} S={S}{frames}: {1e3 * secs:.1f} ms "
+          f"({B * S / secs:.0f} tokens/s), logits {shape} finite={finite}, "
+          f"kernel launches {dict(launches) or 'none'}  [{card}]")
+    require(finite, f"{arch} prefill: non-finite logits")
+    require(shape == (B, S, cfg.padded_vocab), f"{arch} prefill: {shape}")
+    require(not any(launches.values()), f"{arch}: a kernel ran: {launches}")
+    row = dict(arch=arch, depth=depth, params=n_par, active=n_act,
+               gb=nbytes / 1e9, B=B, S=S, tokens_per_s=B * S / secs)
+    if _is_xlstm(cfg):
+        cw = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+            cfg.xlstm, chunkwise=True))
+        _elapsed(lambda: T.forward(cw, model, batch))
+        cw_s = _elapsed(lambda: T.forward(cw, model, batch))
+        print(f"[{arch}] chunkwise mLSTM (chunk {cfg.xlstm.chunk}) prefill "
+              f"B={B} S={S}: {1e3 * cw_s:.1f} ms ({B * S / cw_s:.0f} "
+              f"tokens/s) against the recurrent form's {1e3 * secs:.1f} ms  "
+              f"[{card}]")
+        row["mlstm_bound_by"] = _mlstm_step_split(cfg, model, batch, card)
+
+    enc = None
+    if cfg.enc_dec:
+        enc, _ = T.encode(cfg, model, batch["enc_embeds"])
+    del batch
+    prompts = _tokens(cfg, LM_BATCH, SERVE_PROMPT, seed=2)
+    _reset_peak()
+    out = generate(cfg, model, prompts, SERVE_GEN, enc)
+    toks = out.tokens
+    in_vocab = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    ms_step = 1e3 * out.decode_s / (SERVE_GEN - 1)
+    peak = max(peak, _peak_gb())
+    with_enc = " (the encoder's states)" if enc is not None else ""
+    print(f"[{arch}] generate B={LM_BATCH} prompt={SERVE_PROMPT} "
+          f"gen={SERVE_GEN}{with_enc}: {ms_step:.2f} ms a decode step "
+          f"({LM_BATCH * (SERVE_GEN - 1) / out.decode_s:.1f} tokens/s), "
+          f"prompt {1e3 * out.prefill_s / SERVE_PROMPT:.2f} ms a step, "
+          f"tokens in the vocabulary: {in_vocab}, first "
+          f"{toks[0, :8].tolist()}; peak memory {peak:.2f} GB  [{card}]")
+    require(tuple(toks.shape) == (LM_BATCH, SERVE_GEN),
+            f"{arch} serve: tokens {tuple(toks.shape)}")
+    require(in_vocab, f"{arch} serve: a token outside the vocabulary")
+    require(bool(torch.isfinite(out.logits).all()),
+            f"{arch} serve: non-finite logits")
+    row.update(ms_step=ms_step, peak_gb=peak)
+    del model, out, enc, prompts, toks
+    _free()
+    row["f32_err"] = _arch_decode_vs_forward(arch, card)
+    _free()
+    row["card_cpu_err"] = _arch_card_vs_cpu(arch, card)
+    return row
+
+
+def print_arch_table(rows, card) -> None:
+    print(f"[archs] slice 8b, bf16, weights from seed {LM_SEED}  [{card}]")
+    for r in rows:
+        print(f"[archs] {r['arch']:22s} {r['depth']:38s} "
+              f"{r['params'] / 1e9:8.3f} G ({r['active'] / 1e9:7.3f} G "
+              f"active) {r['gb']:6.2f} GB | prefill B={r['B']} S={r['S']} "
+              f"{r['tokens_per_s']:9.0f} tokens/s | decode "
+              f"{r['ms_step']:7.2f} ms/step | peak {r['peak_gb']:6.2f} GB | "
+              f"f32 {r['f32_err']:.2e} | card/CPU {r['card_cpu_err']:.2e}")
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3322,6 +3685,10 @@ def main() -> int:
     timed("moe card vs cpu", phase_moe, card)
     b6 = timed("b6 timing", phase_b6_timing, card, scan_args)
     entries.append(_kernel_entry("mamba_scan", launches, b6))
+    del scan_args
+    rows = [timed(f"{arch} at full width", phase_arch, arch, card)
+            for arch in ARCHS_8B]
+    print_arch_table(rows, card)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Config registry of the port: the architectures ported so far."""
+"""Config registry of the port: the JAX package's ten architectures."""
 from repro_torch.configs.base import (SHAPES, ShapeSpec, get_config,
                                       get_smoke_config, list_archs, register,
                                       shape_applicable)

@@ -2,9 +2,8 @@
 
 The port of ``repro/configs/base.py``.  Every architecture registers its
 full :class:`ModelConfig` (the published widths) plus a reduced smoke
-variant (same family and pattern, tiny widths) for CPU tests.  Only the
-architectures the port can run are registered: ``ARCH_IDS`` grows as the
-mixers they need are ported.
+variant (same family and pattern, tiny widths) for CPU tests.  The ten
+architectures are the JAX package's, in its order.
 
 Shape cells (LM shapes are seq_len x global_batch):
     train_4k     4,096 x 256   train_step
@@ -40,8 +39,11 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
 
-#: the architectures ported so far (the JAX package registers ten)
-ARCH_IDS = ["jamba_1_5_large_398b"]
+ARCH_IDS = [
+    "whisper_medium", "minitron_8b", "qwen2_5_3b", "mistral_nemo_12b",
+    "llama3_2_3b", "qwen2_vl_7b", "grok_1_314b", "llama4_maverick_400b",
+    "jamba_1_5_large_398b", "xlstm_1_3b",
+]
 
 ARCHS: Dict[str, "ArchEntry"] = {}
 

@@ -17,7 +17,8 @@ import torch
 from repro_torch.core.execution import resolve_device
 from repro_torch.core.sellcs import SellCS
 from repro_torch.models.layers import params
-from repro_torch.models.transformer import Model, ModelConfig
+from repro_torch.models.transformer import (Model, ModelConfig,
+                                            n_enc_periods)
 from repro_torch.solvers.block import BlockCGState, BlockMinresState
 from repro_torch.solvers.cg import CGState, PrecondCGState
 from repro_torch.solvers.minres import MinresState, PrecondMinresState
@@ -110,24 +111,47 @@ def _module(tree: Mapping[str, Any], dev, period=None):
                                 for k, v in tree.items()})
 
 
+def _leaves(tree: Mapping[str, Any]):
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def model_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
                       device=None) -> Model:
     """A port :class:`Model` from the JAX package's parameter pytree
     (``jax.tree.map(np.asarray, params)``).  The decoder's arrays are
     stacked over the pattern's periods under ``decoder/l{i}_mix`` and
     ``decoder/l{i}_ffn``; each period becomes one entry of
-    ``Model.decoder``.  ``device=None`` means the card."""
+    ``Model.decoder``.  An encoder-decoder model's ``encoder`` is stacked
+    the same way over its own periods, beside ``enc_norm``.  Each leaf
+    keeps its dtype (xLSTM's gate weights are float32 beside bfloat16
+    projections).  ``device=None`` means the card."""
     dev = resolve_device(device)
-    dec = tree["decoder"]
     want = {f"l{i}_{part}" for i in range(cfg.period)
             for part in ("mix", "ffn")}
-    if set(dec) != want:
-        raise ValueError(f"model_from_arrays: decoder entries {sorted(dec)} "
-                         f"do not match the pattern's {sorted(want)}")
+
+    def stack(name, n_periods):
+        got = tree[name]
+        if set(got) != want:
+            raise ValueError(f"model_from_arrays: {name} entries "
+                             f"{sorted(got)} do not match the pattern's "
+                             f"{sorted(want)}")
+        have = {np.shape(leaf)[0] for leaf in _leaves(got)}
+        if have != {n_periods}:
+            raise ValueError(f"model_from_arrays: {sorted(have)} periods of "
+                             f"{name} weights for {n_periods} in the config")
+        return [{k: _module(v, dev, period) for k, v in got.items()}
+                for period in range(n_periods)]
+
     out = {"embed": _module(tree["embed"], dev),
            "final_norm": _module(tree["final_norm"], dev),
-           "decoder": [{k: _module(v, dev, period) for k, v in dec.items()}
-                       for period in range(cfg.n_periods)]}
+           "decoder": stack("decoder", cfg.n_periods)}
+    if cfg.enc_dec:
+        out["encoder"] = stack("encoder", n_enc_periods(cfg))
+        out["enc_norm"] = _module(tree["enc_norm"], dev)
     if "lm_head" in tree:
         out["lm_head"] = _module(tree["lm_head"], dev)
     return Model(cfg, out)

@@ -1,12 +1,17 @@
 """Batched serving: prefill + greedy decode loop over a KV cache.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_1_5_large_398b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \
         --smoke --batch 4 --prompt-len 16 --gen 16 --device cpu
+
+``--arch`` takes any of ``configs.list_archs()``.
 
 The port of ``repro/launch/serve.py``: the prompt goes into the cache
 token by token through ``decode_step``, then ``--gen`` tokens are decoded
 greedily.  It runs on the card unless ``--device`` names another device.
-``generate`` is the loop, callable on its own.
+``generate`` is the loop, callable on its own.  An encoder-decoder model
+(whisper) gets the JAX package's encoder stub: a seeded normal
+(B, 2 * prompt_len, d) in the model's dtype stands for the encoder's
+states, passed to every decode step without running the encoder.
 """
 from __future__ import annotations
 
@@ -38,10 +43,12 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg: T.ModelConfig, model: T.Model, prompts: torch.Tensor,
-             gen: int) -> Generation:
+             gen: int, enc_out=None) -> Generation:
     """Prefill ``prompts`` (B, P) token by token, then decode greedily
     until ``gen`` tokens are out (the first comes from the prompt's last
-    logits).  Tokens are taken among the first ``cfg.vocab_size`` logits."""
+    logits).  Tokens are taken among the first ``cfg.vocab_size`` logits.
+    ``enc_out`` (B, S_enc, d): an encoder-decoder model's encoder states,
+    handed to every ``decode_step``."""
     if gen < 1:
         raise ValueError(f"generate: gen={gen} must be at least 1")
     B, P = prompts.shape
@@ -52,7 +59,7 @@ def generate(cfg: T.ModelConfig, model: T.Model, prompts: torch.Tensor,
     t0 = time.perf_counter()
     for t in range(P):
         logits, cache = T.decode_step(cfg, model, cache, prompts[:, t:t + 1],
-                                      t)
+                                      t, enc_out)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -60,7 +67,7 @@ def generate(cfg: T.ModelConfig, model: T.Model, prompts: torch.Tensor,
     toks, outs = [tok], [logits]
     t0 = time.perf_counter()
     for t in range(P, max_len - 1):
-        logits, cache = T.decode_step(cfg, model, cache, tok, t)
+        logits, cache = T.decode_step(cfg, model, cache, tok, t, enc_out)
         tok = torch.argmax(logits[:, :, :cfg.vocab_size], dim=-1)
         toks.append(tok)
         outs.append(logits)
@@ -87,7 +94,11 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
-    out = generate(cfg, model, prompts, args.gen)
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = torch.randn((args.batch, 2 * args.prompt_len, cfg.d_model),
+                              generator=gen, dtype=cfg.dtype, device=device)
+    out = generate(cfg, model, prompts, args.gen, enc_out)
 
     n_dec = max(args.gen - 1, 1)
     print(f"arch={cfg.name} B={args.batch} prompt={args.prompt_len} "

@@ -145,8 +145,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     return _rotate(x, pos * freqs)
 
 
-def sinusoidal_positions(S: int, d: int, device=None) -> torch.Tensor:
-    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_positions(S: int, d: int, device=None,
+                         start: int = 0) -> torch.Tensor:
+    """Rows ``start .. start + S - 1`` of the (positions, d) table."""
+    pos = torch.arange(start, start + S, dtype=torch.float32,
+                       device=device)[:, None]
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / (10000.0 ** (dim / d))
     out = torch.zeros((S, d), dtype=torch.float32, device=device)

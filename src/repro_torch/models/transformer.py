@@ -1,16 +1,20 @@
 """Composable LM-family model definition, in PyTorch.
 
 The port of ``repro/models/transformer.py`` for the serving path: a
-*block pattern*, a periodic sequence of mixer kinds ("attn", "mamba"),
-each optionally followed by a dense MLP or an MoE FFN.  The JAX package
-stacks each weight over the pattern's periods and scans; here
-``Model.decoder`` is a list with one entry per period, and a Python loop
-runs them.
+*block pattern*, a periodic sequence of mixer kinds ("attn", "mamba",
+"mlstm", "slstm"), each optionally followed by a dense MLP or an MoE FFN.
+The JAX package stacks each weight over the pattern's periods and scans;
+here ``Model.decoder`` (and an encoder-decoder model's ``Model.encoder``)
+is a list with one entry per period, and a Python loop runs them.
 
-What waits for later slices: the "mlstm"/"slstm" mixers (the port has no
-``models/xlstm.py`` yet) and encoder-decoder models raise
-``NotImplementedError``; ``loss_fn``, ``remat`` and the sharding
-constraints belong to training and to the distribution slice.
+Encoder-decoder (whisper) runs a bidirectional encoder stack over the
+stub frontend's frame embeddings (``enc_embeds``) and a decoder stack
+whose attention layers also attend to the encoder's states; their K/V
+are projected from those states on every call, prefill and decode, as in
+the JAX package.
+
+What waits for later slices: ``loss_fn`` and ``remat`` belong to
+training, the sharding constraints to the distribution slice.
 """
 from __future__ import annotations
 
@@ -24,14 +28,10 @@ from repro_torch.core.execution import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 __all__ = ["ModelConfig", "Model", "init_params", "forward", "init_cache",
-           "decode_step", "param_count"]
-
-_XLSTM = ("the mlstm/slstm mixers wait for the port of models/xlstm.py "
-          "(ROADMAP, slice 8)")
-_ENC_DEC = ("encoder-decoder models wait for the rest of the LM scaffold "
-            "(ROADMAP, slice 8)")
+           "decode_step", "param_count", "active_param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +57,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     moe: Optional[MOE.MoEConfig] = None
     ssm: SSM.SSMConfig = SSM.SSMConfig()
+    xlstm: XL.XLSTMConfig = XL.XLSTMConfig()
     enc_dec: bool = False
     n_enc_layers: int = 0            # encoder stack depth (enc_dec only)
     dec_len_ratio: int = 8           # S_dec = S / ratio for enc-dec cells
@@ -93,30 +94,42 @@ class ModelConfig:
         return "attn" not in mixers or mixers & {"mamba", "mlstm", "slstm"}
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec:
-        raise NotImplementedError(_ENC_DEC)
-    if any(m in ("mlstm", "slstm") for m, _ in cfg.pattern):
-        raise NotImplementedError(_XLSTM)
+def n_enc_periods(cfg: ModelConfig) -> int:
+    """The encoder stack's periods (encoder-decoder models)."""
+    if cfg.n_enc_layers % cfg.period != 0:
+        raise ValueError(
+            f"n_enc_layers={cfg.n_enc_layers} not a multiple of the "
+            f"layer pattern period {cfg.period}")
+    return cfg.n_enc_layers // cfg.period
+
+
+def _stack(periods, want: int, name: str) -> nn.ModuleList:
+    stack = nn.ModuleList(nn.ModuleDict(period) for period in periods)
+    if len(stack) != want:
+        raise ValueError(f"{len(stack)} periods of {name} weights for "
+                         f"{want} in the config")
+    return stack
 
 
 class Model(nn.Module):
     """The weights of one model, under the JAX package's names:
     ``embed``, ``final_norm``, optional ``lm_head``, and ``decoder``, a list
-    over periods of ``{"l{i}_mix": {...}, "l{i}_ffn": {...}}``."""
+    over periods of ``{"l{i}_mix": {...}, "l{i}_ffn": {...}}``; an
+    encoder-decoder model also has ``encoder`` (a list like ``decoder``,
+    over ``n_enc_layers // period`` periods) and ``enc_norm``."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, Any]):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = tree["embed"]
         self.final_norm = tree["final_norm"]
-        self.decoder = nn.ModuleList(nn.ModuleDict(period)
-                                     for period in tree["decoder"])
+        self.decoder = _stack(tree["decoder"], cfg.n_periods, "decoder")
         self.lm_head = tree.get("lm_head")
-        if len(self.decoder) != cfg.n_periods:
-            raise ValueError(f"{len(self.decoder)} periods of weights for "
-                             f"{cfg.n_periods} in the config")
+        self.encoder = self.enc_norm = None
+        if cfg.enc_dec:
+            self.encoder = _stack(tree["encoder"], n_enc_periods(cfg),
+                                  "encoder")
+            self.enc_norm = tree["enc_norm"]
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         return forward(self.cfg, self, batch)
@@ -126,16 +139,33 @@ class Model(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 
-def _mixer_init(gen, cfg: ModelConfig, kind: str) -> nn.ModuleDict:
+def _attention_init(gen, cfg: ModelConfig):
+    return L.attention_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.hd, qkv_bias=cfg.qkv_bias, dtype=cfg.dtype)
+
+
+def _mixer_init(gen, cfg: ModelConfig, kind: str,
+                cross: bool = False) -> nn.ModuleDict:
+    """One mixer's weights; ``cross``: an attention layer of an
+    encoder-decoder model's decoder, which also carries ``xnorm`` and
+    ``xattn`` (its cross-attention)."""
     dev = gen.device
     norm = L.norm_init(cfg.norm, cfg.d_model, device=dev)
     if kind == "attn":
-        return nn.ModuleDict({"norm": norm, "attn": L.attention_init(
-            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-            qkv_bias=cfg.qkv_bias, dtype=cfg.dtype)})
+        p = {"norm": norm, "attn": _attention_init(gen, cfg)}
+        if cross:
+            p["xnorm"] = L.norm_init(cfg.norm, cfg.d_model, device=dev)
+            p["xattn"] = _attention_init(gen, cfg)
+        return nn.ModuleDict(p)
     if kind == "mamba":
         return nn.ModuleDict({"norm": norm, "mamba": SSM.mamba_init(
             gen, cfg.d_model, cfg.ssm, cfg.dtype)})
+    if kind == "mlstm":
+        return nn.ModuleDict({"norm": norm, "mlstm": XL.mlstm_init(
+            gen, cfg.d_model, cfg.xlstm, cfg.dtype)})
+    if kind == "slstm":
+        return nn.ModuleDict({"norm": norm, "slstm": XL.slstm_init(
+            gen, cfg.d_model, cfg.xlstm, cfg.dtype)})
     raise ValueError(kind)
 
 
@@ -160,19 +190,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     ``device`` (default: the card).  The draws differ from the JAX
     package's ``jax.random`` ones; ``interop.model_from_arrays`` carries
     its weights across instead."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def stack(n_periods, cross):
+        return [{**{f"l{i}_mix": _mixer_init(gen, cfg, mix, cross)
+                    for i, (mix, _) in enumerate(cfg.pattern)},
+                 **{f"l{i}_ffn": _ffn_init(gen, cfg, ffn)
+                    for i, (_, ffn) in enumerate(cfg.pattern)}}
+                for _ in range(n_periods)]
+
     tree: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, cfg.dtype),
         "final_norm": L.norm_init(cfg.norm, cfg.d_model, device=dev),
-        "decoder": [
-            {**{f"l{i}_mix": _mixer_init(gen, cfg, mix)
-                for i, (mix, _) in enumerate(cfg.pattern)},
-             **{f"l{i}_ffn": _ffn_init(gen, cfg, ffn)
-                for i, (_, ffn) in enumerate(cfg.pattern)}}
-            for _ in range(cfg.n_periods)],
+        "decoder": stack(cfg.n_periods, cross=cfg.enc_dec),
     }
+    if cfg.enc_dec:
+        tree["encoder"] = stack(n_enc_periods(cfg), cross=False)
+        tree["enc_norm"] = L.norm_init(cfg.norm, cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         tree["lm_head"] = L.params(w=L.dense_init(
             gen, cfg.d_model, (cfg.d_model, cfg.padded_vocab), cfg.dtype))
@@ -183,12 +218,24 @@ def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def active_param_count(cfg: ModelConfig, model: nn.Module) -> int:
+    """Parameters touched per token: an MoE FFN's expert weights (``wi``,
+    ``wg``, ``wo`` under ``moe``) count top_k / n_experts of their size."""
+    total = param_count(model)
+    if cfg.moe is None:
+        return total
+    moe = sum(p.numel() for name, p in model.named_parameters()
+              if "moe" in name.split(".")[:-1]
+              and name.rsplit(".", 1)[-1] in ("wi", "wg", "wo"))
+    return total - moe + moe * cfg.moe.top_k // cfg.moe.n_experts
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
 def _apply_mixer(cfg: ModelConfig, p, x, kind, *, positions, positions3,
-                 kv_cache=None, cache_len=None):
+                 causal=True, kv_cache=None, cache_len=None):
     h = L.apply_norm(cfg.norm, p["norm"], x)
     new_cache = None
     if kind == "attn":
@@ -196,7 +243,7 @@ def _apply_mixer(cfg: ModelConfig, p, x, kind, *, positions, positions3,
             p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             head_dim=cfg.hd, positions=positions, positions3=positions3,
             rope=cfg.rope, rope_theta=cfg.rope_theta,
-            mrope_sections=cfg.mrope_sections, causal=True,
+            mrope_sections=cfg.mrope_sections, causal=causal,
             kv_cache=None if kv_cache is None else kv_cache["self"],
             cache_len=cache_len)
         x = x + out
@@ -210,10 +257,32 @@ def _apply_mixer(cfg: ModelConfig, p, x, kind, *, positions, positions3,
             x = x + out
             new_cache = {"ssm": st}
     elif kind in ("mlstm", "slstm"):
-        raise NotImplementedError(_XLSTM)
+        apply, step = ((XL.mlstm_apply, XL.mlstm_decode_step)
+                       if kind == "mlstm" else
+                       (XL.slstm_apply, XL.slstm_decode_step))
+        if kv_cache is None:
+            x = x + apply(p[kind], h, cfg.xlstm)
+        else:
+            out, st = step(p[kind], h, kv_cache[kind], cfg.xlstm)
+            x = x + out
+            new_cache = {kind: st}
     else:
         raise ValueError(kind)
     return x, new_cache
+
+
+def _cross_attend(cfg: ModelConfig, p, x, enc):
+    """``x`` plus its cross-attention (``p["xattn"]``) to the encoder's
+    states ``enc`` (B, S_enc, d), whose K/V are projected here."""
+    B, Se = enc.shape[:2]
+    shape = (B, Se, cfg.n_kv_heads, cfg.hd)
+    k = (enc @ p["xattn"]["wk"]).reshape(shape)
+    v = (enc @ p["xattn"]["wv"]).reshape(shape)
+    hx = L.apply_norm(cfg.norm, p["xnorm"], x)
+    out, _ = L.attention_apply(
+        p["xattn"], hx, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope="none", causal=False, cross_kv=(k, v))
+    return x + out
 
 
 def _apply_ffn(cfg: ModelConfig, p, x, kind):
@@ -240,42 +309,77 @@ def _embed(cfg: ModelConfig, model: Model, tokens, first_pos: int):
     if cfg.rope == "mrope":
         positions3 = positions[..., None].expand(B, S, 3)
     if cfg.rope == "sinusoidal":
-        pe = L.sinusoidal_positions(first_pos + S, cfg.d_model,
-                                    tokens.device)[first_pos:]
+        # only the rows of these positions (the JAX decode builds the
+        # table's max_position rows on every step)
+        pe = L.sinusoidal_positions(S, cfg.d_model, tokens.device,
+                                    start=first_pos)
         x = x + pe[None].to(x.dtype)
     return x, positions, positions3
+
+
+def _run_stack(cfg: ModelConfig, stack, x, *, causal, positions,
+               positions3, enc=None):
+    """The periods of ``stack`` over ``x``; with ``enc``, each attention
+    layer that has a cross-attention attends to those encoder states.
+    Returns ``(x, summed load-balancing loss)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in stack:
+        for i, (mix, ffn) in enumerate(cfg.pattern):
+            pm = p[f"l{i}_mix"]
+            x, _ = _apply_mixer(cfg, pm, x, mix, positions=positions,
+                                positions3=positions3, causal=causal)
+            if enc is not None and "xattn" in pm:
+                x = _cross_attend(cfg, pm, x, enc)
+            x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
+            if "load_balance" in a:
+                aux = aux + a["load_balance"]
+    return x, aux
+
+
+def encode(cfg: ModelConfig, model: Model, enc_embeds: torch.Tensor):
+    """The encoder of an encoder-decoder model: sinusoidal positions
+    added to the frontend's frame embeddings (B, S_enc, d), the
+    bidirectional stack, ``enc_norm``.  Returns ``(states, aux_loss)``."""
+    e = enc_embeds.to(cfg.dtype)
+    e = e + L.sinusoidal_positions(e.shape[1], cfg.d_model,
+                                   e.device)[None].to(e.dtype)
+    e, aux = _run_stack(cfg, model.encoder, e, causal=False,
+                        positions=None, positions3=None)
+    return L.apply_norm(cfg.norm, model.enc_norm, e), aux
 
 
 def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
     """Returns ``(logits, aux_loss)``: float32 logits (B, S, padded_vocab).
 
-    ``batch["tokens"]`` (B, S) integers; for an mrope model optionally
-    ``positions3`` (B, S, 3).
+    ``batch["tokens"]`` (B, S) integers, the decoder's tokens; for an
+    encoder-decoder model also ``enc_embeds`` (B, S_enc, d), the stub
+    frontend's output; for an mrope model optionally ``positions3``
+    (B, S, 3).
     """
-    _check_ported(cfg)
     x, positions, positions3 = _embed(cfg, model, batch["tokens"], 0)
     if batch.get("positions3") is not None:
         positions3 = batch["positions3"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in model.decoder:
-        for i, (mix, ffn) in enumerate(cfg.pattern):
-            x, _ = _apply_mixer(cfg, p[f"l{i}_mix"], x, mix,
-                                positions=positions, positions3=positions3)
-            x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
-            if "load_balance" in a:
-                aux = aux + a["load_balance"]
+    enc, aux = None, 0.0
+    if cfg.enc_dec:
+        enc, aux = encode(cfg, model, batch["enc_embeds"])
+    x, aux_d = _run_stack(cfg, model.decoder, x, causal=True,
+                          positions=positions, positions3=positions3,
+                          enc=enc)
     x = L.apply_norm(cfg.norm, model.final_norm, x)
-    return L.lm_head_apply(model.embed, x, model.lm_head), aux
+    return L.lm_head_apply(model.embed, x, model.lm_head), aux_d + aux
 
 
 # ---------------------------------------------------------------------------
 # decode (serve)
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None,
+               enc_len: int = 0):
     """Decode cache: a list over periods of ``{"l{i}": ...}`` like the
-    decoder's weights (zeros; KV buffers of ``max_len`` positions)."""
-    _check_ported(cfg)
+    decoder's weights (zeros; KV buffers of ``max_len`` positions, the
+    recurrent mixers' states).  ``enc_len`` is taken and unused, as in the
+    JAX package: no cross-attention K/V are cached (``decode_step``
+    projects them from ``enc_out``)."""
     dev = resolve_device(device)
 
     def one_period():
@@ -289,26 +393,37 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
             elif mix == "mamba":
                 sub[f"l{i}"] = {"ssm": SSM.mamba_decode_init(
                     B, cfg.d_model, cfg.ssm, cfg.dtype, dev)}
+            elif mix == "mlstm":
+                sub[f"l{i}"] = {"mlstm": XL.mlstm_decode_init(
+                    B, cfg.d_model, cfg.xlstm, dev)}
+            elif mix == "slstm":
+                sub[f"l{i}"] = {"slstm": XL.slstm_decode_init(
+                    B, cfg.d_model, cfg.xlstm, dev)}
         return sub
 
     return [one_period() for _ in range(cfg.n_periods)]
 
 
-def decode_step(cfg: ModelConfig, model: Model, cache, tokens, cur_len: int):
+def decode_step(cfg: ModelConfig, model: Model, cache, tokens, cur_len: int,
+                enc_out=None):
     """One decode step.  ``tokens`` (B, 1) -> ``(logits (B, 1, V),
     new_cache)``; ``cur_len`` is the number of positions already in the
-    cache.  The KV buffers are written in place; the SSM states are
-    replaced."""
-    _check_ported(cfg)
+    cache.  For an encoder-decoder model pass the encoder's states
+    ``enc_out`` (B, S_enc, d); without them its cross-attention is
+    skipped, as in the JAX package.  The KV buffers are written in place;
+    the recurrent states are replaced."""
     x, positions, positions3 = _embed(cfg, model, tokens, cur_len)
     new_cache = []
     for p, kv in zip(model.decoder, cache):
         new_kv = {}
         for i, (mix, ffn) in enumerate(cfg.pattern):
+            pm = p[f"l{i}_mix"]
             x, new_kv[f"l{i}"] = _apply_mixer(
-                cfg, p[f"l{i}_mix"], x, mix, positions=positions,
+                cfg, pm, x, mix, positions=positions,
                 positions3=positions3, kv_cache=kv[f"l{i}"],
                 cache_len=cur_len)
+            if enc_out is not None and "xattn" in pm:
+                x = _cross_attend(cfg, pm, x, enc_out)
             x, _ = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
         new_cache.append(new_kv)
     x = L.apply_norm(cfg.norm, model.final_norm, x)

@@ -3,6 +3,7 @@
 or the kernel, and entry points that run on the card unless told
 otherwise."""
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -325,6 +326,62 @@ def test_chip_smoke_lm_phases_rehearse_on_cpu(monkeypatch):
             cfg.vocab_size) == (full.d_model, full.n_heads, full.n_kv_heads,
                                 full.d_ff, full.vocab_size)
     assert cfg.ssm.inner(cfg.d_model) == 16384 and cfg.ssm.d_state == 16
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "qwen2_5_3b", "minitron_8b",
+                                  "mistral_nemo_12b", "qwen2_vl_7b",
+                                  "grok_1_314b", "llama4_maverick_400b",
+                                  "whisper_medium", "xlstm_1_3b"])
+def test_chip_smoke_arch_phases_rehearse_on_cpu(monkeypatch, arch):
+    """chip_smoke.py's slice-8b phase for one architecture (prefill,
+    serve, float32 decode against forward, the SMOKE model on the "card"
+    against the CPU), run on the CPU at the registered SMOKE widths and
+    small shapes: it checks the phase's shapes, gates and control flow.
+    The widths the phase takes on the card are the JAX package's FULL
+    config's, and only the stated cuts in depth differ."""
+    from repro.configs import get_config as jax_get_config
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    assert arch in chip_smoke.ARCHS_8B
+    frames = chip_smoke.WHISPER_FRAMES
+    for name, value in (("DEVICE", "cpu"), ("LM_WIDTHS", "smoke"),
+                        ("LM_BATCH", 2), ("LM_SEQ", 12), ("SERVE_PROMPT", 3),
+                        ("SERVE_GEN", 4), ("DECODE_SEQ", 6),
+                        ("WHISPER_FRAMES", 24), ("XLSTM_SEQ", 12)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    row = chip_smoke.phase_arch(arch, "cpu rehearsal")
+    assert row["f32_err"] <= chip_smoke.DECODE_TOL
+    assert row["card_cpu_err"] == 0.0         # the CPU against itself
+    assert (row["B"], row["S"]) == (2, 6 if arch == "whisper_medium" else 12)
+    if arch == "xlstm_1_3b":
+        assert row["mlstm_bound_by"] in ("state traffic", "launches")
+
+    monkeypatch.setattr(chip_smoke, "LM_WIDTHS", "full")
+    cfg = chip_smoke.arch_config(arch, torch.bfloat16)
+    ref = jax_get_config(arch)
+    for field in ("d_model", "n_heads", "n_kv_heads", "hd", "d_ff",
+                  "vocab_size", "pattern", "rope", "rope_theta", "qkv_bias",
+                  "norm", "act", "tie_embeddings", "enc_dec",
+                  "dec_len_ratio"):
+        assert getattr(cfg, field) == getattr(ref, field), field
+    for sub in ("moe", "xlstm"):
+        assert (getattr(cfg, sub) is None) == (getattr(ref, sub) is None)
+        if getattr(ref, sub) is not None:
+            assert dataclasses.asdict(getattr(cfg, sub)) == \
+                dataclasses.asdict(getattr(ref, sub)), sub
+    periods = {"grok_1_314b": 1, "llama4_maverick_400b": 1}.get(arch)
+    assert cfg.n_layers == (ref.n_layers if periods is None
+                            else periods * ref.period)
+    assert cfg.n_enc_layers == ref.n_enc_layers
+    one = chip_smoke.arch_config(arch, torch.float32, periods=1)
+    assert one.n_layers == ref.period and one.d_model == ref.d_model
+    assert one.n_enc_layers == (ref.period if ref.enc_dec else 0)
+    if arch == "whisper_medium":
+        assert (frames, frames // cfg.dec_len_ratio) == (1500, 187)
+    if arch == "llama4_maverick_400b":
+        moe = chip_smoke._no_drop(one).moe
+        assert int(max(1, 64 * moe.top_k * moe.capacity_factor
+                       / moe.n_experts)) == 64
 
 
 def test_chip_smoke_exp2_phase_rehearses_on_cpu(monkeypatch):

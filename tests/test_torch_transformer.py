@@ -1,6 +1,6 @@
 """Parity of the port's LM (``repro_torch.models.transformer``), its
-configs and its serve loop with the JAX package's, on the registered
-jamba-1.5-large SMOKE config (float32, 8 layers: 7 Mamba, attention at
+config registry and its serve loop with the JAX package's, on the
+registered jamba-1.5-large SMOKE config (float32, 8 layers: 7 Mamba, attention at
 index 4, MoE on the odd layers).
 
 The JAX package's weights (``init_params`` from a PRNG key) cross over
@@ -26,6 +26,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
+from repro.configs import list_archs as jax_list_archs  # noqa: E402
+from repro.configs.base import SHAPES as JAX_SHAPES  # noqa: E402
+from repro.configs.base import (  # noqa: E402
+    shape_applicable as jax_shape_applicable)
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import execution  # noqa: E402
@@ -83,21 +87,31 @@ def _tokens(B, S, seed=2):
 
 
 def test_configs_match_the_jax_package():
-    assert configs.list_archs() == [ARCH]
-    for ours, theirs in ((configs.get_config(ARCH), jax_get_config(ARCH)),
-                         (configs.get_smoke_config(ARCH),
-                          jax_get_smoke(ARCH))):
-        mine = dataclasses.asdict(ours)
-        ref = dataclasses.asdict(theirs)
-        for field in mine:
-            if field == "dtype":
-                assert str(mine[field]).split(".")[-1] == \
-                    jnp.dtype(ref[field]).name
-            else:
-                assert mine[field] == ref[field], field
-        assert set(ref) - set(mine) == {"xlstm"}
-        assert ours.padded_vocab == theirs.padded_vocab
-        assert ours.n_periods == theirs.n_periods
+    """The ten architectures, in the JAX package's order, each FULL and
+    SMOKE config equal to the JAX package's field for field (the nested
+    MoE, SSM and xLSTM configs too), and the same long_500k rule."""
+    assert configs.list_archs() == jax_list_archs()
+    assert len(configs.list_archs()) == 10
+    for arch in configs.list_archs():
+        for ours, theirs in ((configs.get_config(arch), jax_get_config(arch)),
+                             (configs.get_smoke_config(arch),
+                              jax_get_smoke(arch))):
+            mine = dataclasses.asdict(ours)
+            ref = dataclasses.asdict(theirs)
+            assert set(mine) == set(ref)
+            for field in mine:
+                if field == "dtype":
+                    assert str(mine[field]).split(".")[-1] == \
+                        jnp.dtype(ref[field]).name
+                else:
+                    assert mine[field] == ref[field], (arch, field)
+            assert ours.padded_vocab == theirs.padded_vocab
+            assert ours.n_periods == theirs.n_periods
+            assert ours.sub_quadratic == theirs.sub_quadratic
+        for name, spec in configs.SHAPES.items():
+            assert configs.shape_applicable(configs.get_config(arch), spec) \
+                == jax_shape_applicable(jax_get_config(arch),
+                                        JAX_SHAPES[name]), (arch, name)
     for name, spec in configs.SHAPES.items():
         ok, _ = configs.shape_applicable(configs.get_config(ARCH), spec)
         assert ok, name
@@ -206,15 +220,37 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert "serve OK" in out and "device=cpu" in out
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(pair):
+    """What the port refuses: a depth that is not whole periods (decoder
+    or encoder), an unknown mixer, an MoE slot without an MoE config,
+    weights whose entries or periods do not match the config, an unknown
+    scan and an empty generation.  Every mixer and the encoder-decoder
+    stack are ported, so nothing raises ``NotImplementedError`` any
+    more."""
     cfg = configs.get_smoke_config(ARCH)
-    xl = dataclasses.replace(cfg, pattern=(("mlstm", "none"),), n_layers=1)
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        T.init_params(xl, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        T.init_params(dataclasses.replace(cfg, enc_dec=True), 0, "cpu")
     with pytest.raises(ValueError, match="multiple"):
         T.init_params(dataclasses.replace(cfg, n_layers=5), 0, "cpu")
+    with pytest.raises(ValueError, match="n_enc_layers=5 not a multiple"):
+        T.init_params(dataclasses.replace(cfg, enc_dec=True, n_enc_layers=5),
+                      0, "cpu")
+    with pytest.raises(ValueError, match="conv"):
+        T.init_params(dataclasses.replace(cfg, pattern=(("conv", "mlp"),),
+                                          n_layers=1), 0, "cpu")
+    with pytest.raises(ValueError, match="needs cfg.moe"):
+        T.init_params(dataclasses.replace(cfg, moe=None), 0, "cpu")
+    jcfg, params, _, _ = pair
+    tree = jax.tree.map(np.asarray, params)
+    with pytest.raises(ValueError, match="do not match"):
+        model_from_arrays(dataclasses.replace(
+            cfg, pattern=cfg.pattern[:4], n_layers=4), tree, "cpu")
+    with pytest.raises(ValueError, match=r"\[1\] periods of decoder weights"):
+        model_from_arrays(dataclasses.replace(cfg, n_layers=16), tree, "cpu")
+    with pytest.raises(ValueError, match="scan_impl"):
+        T.forward(_with(cfg, "pallas"), T.init_params(cfg, 0, "cpu"),
+                  {"tokens": torch.zeros((1, 2), dtype=torch.long)})
+    with pytest.raises(ValueError, match="at least 1"):
+        serve.generate(cfg, T.init_params(cfg, 0, "cpu"),
+                       torch.zeros((1, 2), dtype=torch.long), 0)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
