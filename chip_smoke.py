@@ -131,7 +131,21 @@ the card, holding every kernel against its plain PyTorch version:
     against forward within 2e-3 of max |logit| (xLSTM 5e-3; MoE models
     with no token dropped and routers x 20); each at its SMOKE size on the card against
     the port's CPU run of the same weights within 1e-4.  No kernel of the
-    port is on these paths.
+    port is on these paths;
+23. slice 11's main path: training.  llama3.2-3b at its published widths
+    (all 28 layers, 3.213 G parameters) in bf16 with float32 AdamW state
+    and per-period remat, B 2 x S 2048 from ``SyntheticLM(seed=0)``: 2
+    untimed and 8 timed ``Trainer.train_step`` calls (CUDA events: ms a
+    step, tokens/s, forward+backward against clip+update), peak memory,
+    loss and gnorm at the first and last step, finite, gnorm > 0, the
+    weights moved; its gradients in float32 at 2 layers, B 1 x S 2048, on
+    the card against the CPU; every architecture's SMOKE config, one train step on
+    the card against the CPU with the same weights and batch (loss and
+    every gradient leaf); kill and restart on the card (SMOKE llama3.2-3b,
+    float32): a run of 6 steps saving at step 3, a fresh trainer
+    resuming there, its state equal to the checkpoint bit for bit, its
+    first loss equal to the first run's bit for bit and the next two
+    within 1e-4.  No kernel of the port is on the training path.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -144,6 +158,7 @@ import copy
 import dataclasses
 import gc
 import importlib
+import inspect
 import json
 import os
 import platform
@@ -199,6 +214,11 @@ from repro_torch.matrices import banded_random  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models import xlstm as XL  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, to_device  # noqa: E402
+from repro_torch.interop import to_numpy  # noqa: E402
+from repro_torch.train.checkpoint import (flatten,  # noqa: E402
+                                          restore_checkpoint)
+from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
 from repro_torch.solvers import run_chunk  # noqa: E402
@@ -294,6 +314,25 @@ WHISPER_FRAMES, XLSTM_SEQ, ROUTER_SCALE = 1500, 1024, 20.0
 #: of max |logit| from a forward of the same weights with float64
 #: projections, which the phase also computes and holds both to.
 XLSTM_DECODE_TOL = 5e-3
+#: slice 11 (phase 23): the full-width train step's architecture, batch,
+#: length, untimed and timed steps and peak learning rate (reached by a
+#: linear warmup over the whole run: after a 2-step warmup, 1e-4 spikes
+#: the full-width gnorm 20-fold, as Adam's first sign-like steps move every
+#: weight of a random 28-layer model at once); the card-against-CPU
+#: gradient tolerances, each leaf against its largest CPU entry: the
+#: full-width float32 check (2 layers) and the SMOKE train steps, as phase
+#: 22's card-against-CPU forward; TRAIN_GRAD_TOLS overrides the latter for
+#: two architectures: jamba (a gradient leaf sums over tokens products
+#: that partly cancel, through Mamba and MoE layers and the card's
+#: atomics; 1.129e-4 on a norm scale's gradient, the same in two runs on
+#: the card) and xLSTM (its gated recurrences amplify round-off through
+#: depth: its CPU parity with the JAX package is held to 2e-3 for the
+#: same reason); the resumed run's tolerance
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "llama3_2_3b", 2, 2048
+TRAIN_WARM, TRAIN_STEPS, TRAIN_LR = 2, 8, 1e-4
+FULL_GRAD_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-4
+TRAIN_GRAD_TOLS = {"jamba_1_5_large_398b": 2.5e-4, "xlstm_1_3b": 2e-3}
+RESUME_TOL = 1e-4
 
 
 def sync() -> None:
@@ -1683,11 +1722,12 @@ def _read_every_iteration(op, st, k, body, *args):
     return st
 
 
-def _device_split(run, iters):
+def _device_split(run, iters, kinds_of=KERNEL_KINDS):
     """``run()`` under ``torch.profiler`` (device activity only): per
-    iteration, the device time of each kind of kernel, the time the card
-    had no kernel running between the window's first and last kernel, and
-    the wall time.  Returns None if the profiler saw no kernel."""
+    iteration, the device time of each kind of kernel (``kinds_of``) and
+    of each kernel name, the time the card had no kernel running between
+    the window's first and last kernel, and the wall time.  Returns None
+    if the profiler saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1700,12 +1740,12 @@ def _device_split(run, iters):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         return None
-    kinds = {}
+    kinds, names = {}, {}
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
-        kind = next((k for frag, k in KERNEL_KINDS if frag in name),
-                    "other")
+        kind = next((k for frag, k in kinds_of if frag in name), "other")
         kinds[kind] = kinds.get(kind, 0.0) + (end - start)
+        names[name] = names.get(name, 0.0) + (end - start)
         if start > cur_e:
             busy += cur_e - cur_s
             cur_s, cur_e = start, end
@@ -1714,7 +1754,9 @@ def _device_split(run, iters):
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
     ms = {k: v * 1e-3 / iters for k, v in kinds.items()}
-    return dict(kinds=ms, idle=(window - busy) * 1e-3 / iters,
+    return dict(kinds=ms, names={k: v * 1e-3 / iters
+                                 for k, v in names.items()},
+                busy=busy * 1e-3 / iters, idle=(window - busy) * 1e-3 / iters,
                 idle_share=(window - busy) / window,
                 wall=1e3 * wall / iters)
 
@@ -3580,6 +3622,338 @@ def print_arch_table(rows, card) -> None:
               f"f32 {r['f32_err']:.2e} | card/CPU {r['card_cpu_err']:.2e}")
 
 
+# ----------------------------------------------------------------- phase 23
+def _train_reckoning(cfg, tr) -> str:
+    """The memory the full-width step should need, from its shapes:
+    weights, gradients, float32 m and v, the float32 logits and their
+    gradient, each period's saved input, one float32 temporary of the
+    largest leaf."""
+    n = sum(p.numel() for p in tr.params)
+    wbytes = sum(p.numel() * p.element_size() for p in tr.params)
+    logits = TRAIN_BATCH * TRAIN_SEQ * cfg.padded_vocab * 4
+    saved = cfg.n_periods * TRAIN_BATCH * TRAIN_SEQ * cfg.d_model * 2
+    temp = max(p.numel() for p in tr.params) * 4
+    gb = [wbytes / 1e9, wbytes / 1e9, 8 * n / 1e9, 2 * logits / 1e9,
+          saved / 1e9, temp / 1e9]
+    return (f"weights {gb[0]:.2f} GB, gradients {gb[1]:.2f}, m and v "
+            f"{gb[2]:.2f}, f32 logits and their gradient {gb[3]:.2f}, "
+            f"saved period inputs {gb[4]:.2f}, one f32 temporary of the "
+            f"largest leaf {gb[5]:.2f}: {sum(gb):.1f} GB before the "
+            f"attention and optimizer temporaries")
+
+
+#: the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12
+#: kernel name fragments -> the kind a train step's kernel is counted
+#: under (the first that matches)
+TRAIN_KERNEL_KINDS = (("gemm", "GEMMs"), ("nvjet", "GEMMs"),
+                      ("xmma", "GEMMs"), ("cutlass", "GEMMs"),
+                      ("reduce", "reductions"), ("Memcpy", "copies"),
+                      ("Memset", "copies"), ("Copy", "copies"),
+                      ("index", "index, gather, scatter"),
+                      ("gather", "index, gather, scatter"),
+                      ("scatter", "index, gather, scatter"),
+                      ("elementwise", "elementwise"))
+
+
+def _train_step_bound(cfg, tr):
+    """The least time the card could take for one full-width step, the
+    larger of two times: its products at the card's peak rates (bf16 on
+    the tensor cores; the attention's float32 products outside them, as
+    ``main`` turns TF32 off) and the bytes the update must move (bf16
+    weights and gradients read, float32 m and v read and written, the
+    weights written).  Products: each decoder weight's with every token
+    four times (forward, remat's second forward, two in the backward),
+    the tied LM head's three times, the attention's score and value
+    products on the (query, KV) tiles that ``layers._online_attn``'s
+    causal loop computes, four times.  Returns ``(ms, bound_by, text)``."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dec = sum(p.numel() for k, p in zip(tr.keys, tr.params)
+              if k.startswith("decoder/") and p.ndim >= 3)
+    bf16 = 2 * tokens * (4 * dec + 3 * cfg.d_model * cfg.padded_vocab)
+    S = TRAIN_SEQ
+    qb = min(S, inspect.signature(
+        L._online_attn).parameters["q_block"].default)
+    kvb = min(S, inspect.signature(
+        L.attention_apply).parameters["kv_block"].default)
+    tiles = sum(min(-(-S // kvb), (q0 + qb - 1) // kvb + 1)
+                for q0 in range(0, S, qb))
+    n_attn = cfg.n_periods * sum(m == "attn" for m, _ in cfg.pattern)
+    f32 = (4 * n_attn * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * qb * kvb
+           * tiles)
+    ops_ms = 1e3 * (bf16 / BF16_PEAK_FLOPS
+                    + f32 / PEAK_FLOPS[torch.float32])
+    nbytes = sum(p.numel() * (3 * p.element_size() + 16) for p in tr.params)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    text = (f"bf16 products {bf16 / 1e12:.2f} TFLOP at "
+            f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s plus float32 attention "
+            f"products {f32 / 1e12:.2f} TFLOP ({tiles} of "
+            f"{(S // qb) * (-(-S // kvb))} tiles) at "
+            f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s: {ops_ms:.1f} "
+            f"ms; the update's {nbytes / 1e9:.1f} GB at 3.35 TB/s: "
+            f"{bytes_ms:.1f} ms")
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", text
+    return bytes_ms, "bytes", text
+
+
+def _train_profile(tr, batch, step, card):
+    """One more train step under ``torch.profiler``: the card's busy and
+    idle time in its window, device time by kind of kernel and the
+    kernels that took the most (the card only)."""
+    if DEVICE != "cuda":
+        return None
+    split = _device_split(lambda: tr.train_step(batch, step), 1,
+                          TRAIN_KERNEL_KINDS)
+    if split is None:
+        print(f"[train] profiler split: not measured (the profiler saw no "
+              f"kernel)  [{card}]")
+        return None
+    kinds = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+        split["kinds"].items(), key=lambda kv: -kv[1]))
+    top = ", ".join(f"{k[:60]} {v:.1f}" for k, v in sorted(
+        split["names"].items(), key=lambda kv: -kv[1])[:8])
+    print(f"[train] profiler split of one step: {split['wall']:.1f} ms wall, "
+          f"the card busy {split['busy']:.1f} ms and idle {split['idle']:.1f}"
+          f" ms ({100 * split['idle_share']:.1f}% of its window); device ms "
+          f"by kind: {kinds}; the most device time: {top}  [{card}]")
+    return split
+
+
+def _sample(t: torch.Tensor) -> torch.Tensor:
+    """Up to 65,536 evenly strided entries of ``t``, copied."""
+    flat = t.detach().reshape(-1)
+    return flat[::max(1, flat.numel() // 65536)].clone()
+
+
+def _train_full_width(card):
+    """The full-width train step: ``Trainer.train_step`` on llama3.2-3b in
+    bf16, B TRAIN_BATCH x S TRAIN_SEQ, TRAIN_WARM untimed and TRAIN_STEPS
+    timed steps, the two halves of each timed with CUDA events."""
+    cfg = arch_config(TRAIN_ARCH, torch.bfloat16)
+    n = TRAIN_WARM + TRAIN_STEPS
+    tc = TrainConfig(lr=TRAIN_LR, warmup=n, total_steps=n, seed=LM_SEED)
+    tr = Trainer(cfg, tc, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                 device=DEVICE)
+    t0 = time.perf_counter()
+    tr.init_state()
+    sync()
+    print(f"[train] {TRAIN_ARCH} d={cfg.d_model} layers={cfg.n_layers} "
+          f"vocab={cfg.vocab_size}: {T.param_count(tr.model) / 1e9:.3f} G "
+          f"parameters, bf16 with float32 AdamW state, per-period remat, "
+          f"state made in {time.perf_counter() - t0:.1f} s; reckoning: "
+          f"{_train_reckoning(cfg, tr)}  [{card}]")
+    before = [_sample(p) for p in tr.params]
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=LM_SEED)
+    batches = [to_device(data.batch(i), DEVICE) for i in range(n)]
+    execution.reset_launch_counts()
+    _reset_peak()
+    rows = []
+    for step, batch in enumerate(batches):
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              if DEVICE == "cuda" else None)
+        t0 = time.perf_counter()
+        if ev:
+            ev[0].record()
+        loss, metrics, grads = tr.compute_grads(batch)
+        if ev:
+            ev[1].record()
+        t1 = time.perf_counter()
+        gnorm, lr = tr.apply_grads(grads, step)
+        del grads
+        if ev:
+            ev[2].record()
+            ev[2].synchronize()
+            fb, up = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        else:
+            fb = 1e3 * (t1 - t0)
+            up = 1e3 * (time.perf_counter() - t1)
+        rows.append(dict(loss=float(loss), gnorm=float(gnorm), lr=lr,
+                         fb=fb, up=up))
+    peak = _peak_gb()
+    launches = execution.launch_counts()
+    split = _train_profile(tr, batches[-1], n, card)
+    moved = [not torch.equal(b, _sample(p))
+             for b, p in zip(before, tr.params)]
+    timed_rows = rows[TRAIN_WARM:]
+    ms = [r["fb"] + r["up"] for r in timed_rows]
+    fb = sum(r["fb"] for r in timed_rows) / len(timed_rows)
+    up = sum(r["up"] for r in timed_rows) / len(timed_rows)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mean_ms = sum(ms) / len(ms)
+    bound_ms, bound_by, bound_text = _train_step_bound(cfg, tr)
+    print(f"[train] step bound: {bound_text}: {bound_ms:.1f} ms, by "
+          f"{bound_by}; the timed steps' mean at "
+          f"{100 * bound_ms / mean_ms:.1f}% of it  [{card}]")
+    first, last = rows[0], rows[-1]
+    print(f"[train] {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"({tokens} tokens a step), {len(timed_rows)} timed steps after "
+          f"{TRAIN_WARM}: {mean_ms:.1f} ms a step (min {min(ms):.1f}, max "
+          f"{max(ms):.1f}), {1e3 * tokens / mean_ms:.0f} tokens/s; forward+"
+          f"backward {fb:.1f} ms, clip+update {up:.1f} ms; peak memory "
+          f"{peak:.2f} GB; loss {first['loss']:.4f} -> {last['loss']:.4f}, "
+          f"gnorm {first['gnorm']:.4f} -> {last['gnorm']:.4f}, lr "
+          f"{first['lr']:.3g} -> {last['lr']:.3g}; leaves moved "
+          f"{sum(moved)}/{len(moved)}; kernel launches "
+          f"{dict(launches) or 'none'}  [{card}]")
+    require(all(np.isfinite([r["loss"], r["gnorm"]]).all() for r in rows),
+            "train: a non-finite loss or gnorm")
+    require(all(r["gnorm"] > 0 for r in rows), "train: gnorm 0")
+    require(all(moved), f"train: {len(moved) - sum(moved)} leaves did not "
+            f"move")
+    require(not any(launches.values()), f"train: a kernel ran: {launches}")
+    out = dict(ms=mean_ms, tokens_per_s=1e3 * tokens / mean_ms, fb_ms=fb,
+               update_ms=up, peak_gb=peak, first=first, last=last,
+               bound_ms=bound_ms, split=split)
+    del tr, batches, before
+    _free()
+    return out
+
+
+def _grads_card_vs_cpu(cfg, batch):
+    """One ``compute_grads`` of the same weights and batch on the card and
+    on the CPU: ``(loss error, worst leaf error, worst leaf, trainers)``,
+    each gradient leaf against its largest CPU entry.  The weights come
+    from ``init_params`` on the CPU (MoE routers sharpened) and a copy of
+    them on the card; each trainer stacks its own model."""
+    host = T.init_params(cfg, LM_SEED, "cpu")
+    _sharpen_routers(host)
+    models = {"cpu": host, DEVICE: copy.deepcopy(host).to(DEVICE)}
+    res, trainers = {}, {}
+    for dev, model in models.items():
+        tr = Trainer(cfg, TrainConfig(lr=TRAIN_LR, warmup=0), seq_len=16,
+                     global_batch=2, device=dev,
+                     init_model=lambda model=model: model)
+        tr.init_state()
+        loss, _, grads = tr.compute_grads(
+            {k: v.to(dev) for k, v in batch.items()})
+        # copies: ``apply_grads`` clips the gradients in place, and on the
+        # CPU ``.to("cpu")`` alone would return the very same tensors
+        res[dev] = (loss.to("cpu", copy=True),
+                    [g.to("cpu", copy=True) for g in grads])
+        trainers[dev] = (tr, grads)
+    lerr = rel_err(res[DEVICE][0], res["cpu"][0])
+    gerr, worst = max((rel_err(a, b), k) for a, b, k in zip(
+        res[DEVICE][1], res["cpu"][1], tr.keys))
+    return lerr, gerr, worst, trainers
+
+
+def _train_full_width_f32(card) -> float:
+    """llama3.2-3b at its published widths cut to 2 layers, in float32, B
+    1 x S TRAIN_SEQ: the gradients on the card against the CPU's, within
+    FULL_GRAD_TOL (several attention blocks, the 128,256-row embedding's
+    backward)."""
+    cfg = arch_config(TRAIN_ARCH, torch.float32, periods=2)
+    batch = to_device(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, 1,
+                                  seed=LM_SEED).batch(0), "cpu")
+    t0 = time.perf_counter()
+    lerr, gerr, worst, _ = _grads_card_vs_cpu(cfg, batch)
+    print(f"[train] {TRAIN_ARCH} at published widths, {cfg.n_layers} "
+          f"layers, f32, B=1 S={TRAIN_SEQ}: gradients on the card against "
+          f"the CPU, loss {lerr:.3e}, worst leaf {gerr:.3e} of its largest "
+          f"entry ({worst}; tol {FULL_GRAD_TOL}), "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    require(lerr <= 1e-5 and gerr <= FULL_GRAD_TOL,
+            f"train f32 full width: card differs from CPU: loss "
+            f"{lerr:.3e}, gradients {gerr:.3e}")
+    _free()
+    return gerr
+
+
+def _smoke_train_batch(cfg, device):
+    b = to_device(SyntheticLM(cfg.vocab_size, 16, 2, seed=LM_SEED).batch(0),
+                  device)
+    if cfg.enc_dec:
+        b["enc_embeds"] = torch.randn(
+            (2, 24, cfg.d_model),
+            generator=torch.Generator().manual_seed(6)).to(device)
+    return b
+
+
+def _train_card_vs_cpu(arch, card) -> float:
+    """One train step of ``arch``'s SMOKE config on the card and on the
+    CPU from the same weights and batch: the loss and every gradient leaf
+    within TRAIN_GRAD_TOLS.get(arch, TRAIN_GRAD_TOL) of its largest CPU
+    entry.  MoE
+    models with capacity factor 8 and sharpened routers, as phase 22."""
+    base = get_smoke_config(arch)
+    cfg = base if base.moe is None else dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, capacity_factor=8.0))
+    lerr, gerr, worst, trainers = _grads_card_vs_cpu(
+        cfg, _smoke_train_batch(cfg, "cpu"))
+    gnorms = []
+    for tr, grads in trainers.values():
+        gnorm, _ = tr.apply_grads(grads, 1)
+        require(bool(torch.isfinite(gnorm)), f"{arch}: non-finite gnorm")
+        gnorms.append(float(gnorm))
+    tol = TRAIN_GRAD_TOLS.get(arch, TRAIN_GRAD_TOL)
+    print(f"[train] SMOKE {cfg.name}: one step on the card against the "
+          f"CPU, loss {lerr:.3e}, worst gradient leaf {gerr:.3e} of its "
+          f"largest entry ({worst}; tol {tol}); gnorm before clipping "
+          f"{' / '.join(f'{g:.4f}' for g in gnorms)}  [{card}]")
+    require(lerr <= 1e-5 and gerr <= tol,
+            f"{arch}: card train step differs from CPU: loss {lerr:.3e}, "
+            f"gradients {gerr:.3e}")
+    return gerr
+
+
+def _train_resume(card):
+    """Kill and restart on the card: SMOKE llama3.2-3b in float32, run A
+    trains 6 steps saving at step 3; a fresh trainer restores step 3 (its
+    state equal to the checkpoint bit for bit) and trains steps 4-6: the
+    first loss equal to run A's bit for bit (the dense forward uses no
+    atomics), the next two within RESUME_TOL (the embedding's backward
+    does)."""
+    cfg = get_smoke_config(TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(path):
+        tc = TrainConfig(lr=1e-3, warmup=2, total_steps=6,
+                         ckpt_dir=str(path), ckpt_every=3, log_every=100)
+        return Trainer(cfg, tc, seq_len=32, global_batch=4, device=DEVICE)
+
+    run_a = trainer(root / "a").fit(6, log=lambda *_: None)["losses"]
+    (root / "b").mkdir(parents=True)
+    shutil.copytree(root / "a" / "step_3", root / "b" / "step_3")
+    check = trainer(root / "b")
+    check.init_state()
+    restored, step = check.ckpt.resume(check.state_tree())
+    check.load_state_tree(restored)
+    saved, _ = restore_checkpoint(str(root / "b"), 3, check.state_tree())
+    live, saved = flatten(check.state_tree()), flatten(saved)
+    same = live.keys() == saved.keys() and all(
+        to_numpy(live[k]).tobytes() == to_numpy(saved[k]).tobytes()
+        for k in live)
+    run_b = trainer(root / "b").fit(6, log=lambda *_: None)["losses"]
+    rest = max(abs(a - b) / abs(b) for a, b in zip(run_b[1:], run_a[4:]))
+    print(f"[train] kill and restart on the card (SMOKE {cfg.name}, f32): "
+          f"run A losses {[f'{x:.6f}' for x in run_a]}; resumed at step "
+          f"{step}: state equal to the checkpoint bit for bit: {same}; "
+          f"step 4 loss {run_b[0]!r} against {run_a[3]!r}; steps 5-6 "
+          f"within {rest:.3e} (tol {RESUME_TOL})  [{card}]")
+    require(step == 3 and same, "resume: restored state != checkpoint")
+    require(len(run_b) == 3 and run_b[0] == run_a[3],
+            f"resume: step 4 loss {run_b[0]!r} != {run_a[3]!r}")
+    require(rest <= RESUME_TOL, f"resume: steps 5-6 differ by {rest:.3e}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(step4=run_b[0], rest=rest)
+
+
+def phase_train(card):
+    """Slice 11's main path: the full-width train step, its gradients in
+    float32 at 2 layers on the card against the CPU, the SMOKE train step
+    of every architecture on the card against the CPU, and kill and
+    restart on the card."""
+    _free()
+    out = _train_full_width(card)
+    out["f32_card_cpu"] = _train_full_width_f32(card)
+    out["card_cpu"] = {arch: _train_card_vs_cpu(arch, card)
+                       for arch in list_archs()}
+    out["resume"] = _train_resume(card)
+    return out
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3689,6 +4063,7 @@ def main() -> int:
     rows = [timed(f"{arch} at full width", phase_arch, arch, card)
             for arch in ARCHS_8B]
     print_arch_table(rows, card)
+    timed("train", phase_train, card)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

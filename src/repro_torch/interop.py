@@ -24,8 +24,9 @@ from repro_torch.solvers.cg import CGState, PrecondCGState
 from repro_torch.solvers.minres import MinresState, PrecondMinresState
 
 __all__ = ["SELLCS_ARRAYS", "SELLCS_META", "CGSTATE_ARRAYS", "STATE_TYPES",
-           "tensor_from_array", "sellcs_from_arrays", "state_from_arrays",
-           "model_from_arrays"]
+           "RAW_BF16", "to_numpy", "from_numpy", "tensor_from_array",
+           "sellcs_from_arrays", "state_from_arrays", "model_from_arrays",
+           "leaf_groups", "nest", "arrays_from_model"]
 
 #: the eight array fields of a SELL-C-sigma matrix, in both packages
 SELLCS_ARRAYS = ("vals", "cols", "chunk_off", "chunk_len", "rowids",
@@ -41,13 +42,46 @@ _INT_FIELDS = ("it", "maxiter")
 CGSTATE_ARRAYS = tuple(f for f in CGState._fields if f not in _INT_FIELDS)
 
 
+#: the numpy dtype of a bfloat16 array read back from an ``.npz``
+RAW_BF16 = np.dtype("V2")
+
+
+def to_numpy(leaf) -> np.ndarray:
+    """A tensor or array as a numpy array: a bfloat16 tensor (numpy has no
+    bfloat16 of its own) as raw two-byte records (``|V2``) holding its
+    bytes, the form in which a JAX bfloat16 array comes back from an
+    ``.npz``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view(RAW_BF16)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def from_numpy(arr: np.ndarray, like=None) -> torch.Tensor:
+    """A CPU tensor of a copy of ``arr``; raw two-byte records become
+    bfloat16.  With ``like`` (a tensor), the dtypes must agree."""
+    arr = np.array(arr, order="C")          # a writable copy
+    if arr.dtype == RAW_BF16:
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    if isinstance(like, torch.Tensor) and t.dtype != like.dtype:
+        raise ValueError(f"dtype {t.dtype} != {like.dtype}")
+    return t
+
+
 def tensor_from_array(a: np.ndarray, device) -> torch.Tensor:
     """A numpy array as a tensor on ``device``.  A bfloat16 array (numpy
-    has no bfloat16 of its own) crosses bit for bit through int16."""
-    a = np.array(a, order="C")               # a writable copy
+    has no bfloat16 of its own) crosses bit for bit through int16; so
+    does an array of raw two-byte records (``|V2``), the form in which a
+    bfloat16 array comes back from an ``.npz`` and in which
+    :func:`arrays_from_model` hands bfloat16 weights out."""
+    a = np.asarray(a)
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+        a = a.view(RAW_BF16)
+    return from_numpy(a).to(device)
 
 
 def sellcs_from_arrays(arrays: Mapping[str, np.ndarray],
@@ -155,3 +189,43 @@ def model_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
     if "lm_head" in tree:
         out["lm_head"] = _module(tree["lm_head"], dev)
     return Model(cfg, out)
+
+
+def leaf_groups(model: Model):
+    """The model's parameters grouped by the JAX package's tree paths, in
+    sorted order: ``[(path, parameters, stacked)]``.  A decoder (encoder)
+    weight is one path (``decoder/l0_mix/attn/wq``) holding that weight
+    of every period, in order, to be stacked on axis 0 (``stacked``); any
+    other weight is a path of its own (``embed/table``)."""
+    groups = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        stacked = parts[0] in ("decoder", "encoder")
+        key = "/".join(parts[:1] + parts[2:] if stacked else parts)
+        groups.setdefault(key, (stacked, []))[1].append(p)
+    return [(k, groups[k][1], groups[k][0]) for k in sorted(groups)]
+
+
+def nest(keys, values) -> dict:
+    """``{"a/b": v}`` as ``{"a": {"b": v}}``."""
+    tree: dict = {}
+    for k, v in zip(keys, values):
+        node = tree
+        *path, last = k.split("/")
+        for seg in path:
+            node = node.setdefault(seg, {})
+        node[last] = v
+    return tree
+
+
+def arrays_from_model(model: Model) -> dict:
+    """The inverse of :func:`model_from_arrays`: the JAX package's
+    parameter tree (:func:`leaf_groups`' paths) as nested dicts of numpy
+    arrays, each period's weights stacked on axis 0 under ``decoder``
+    (and ``encoder``).  A bfloat16 weight comes out as raw two-byte
+    records (:func:`to_numpy`); view it as ``ml_dtypes.bfloat16`` on the
+    JAX side."""
+    groups = leaf_groups(model)
+    return nest([k for k, _, _ in groups],
+                [to_numpy(torch.stack(ps) if stacked else ps[0])
+                 for _, ps, stacked in groups])

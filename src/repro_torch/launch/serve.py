@@ -42,13 +42,16 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def generate(cfg: T.ModelConfig, model: T.Model, prompts: torch.Tensor,
              gen: int, enc_out=None) -> Generation:
     """Prefill ``prompts`` (B, P) token by token, then decode greedily
     until ``gen`` tokens are out (the first comes from the prompt's last
     logits).  Tokens are taken among the first ``cfg.vocab_size`` logits.
     ``enc_out`` (B, S_enc, d): an encoder-decoder model's encoder states,
-    handed to every ``decode_step``."""
+    handed to every ``decode_step``.  It runs under
+    ``torch.inference_mode``, so a model whose weights are trainable
+    builds no graph here."""
     if gen < 1:
         raise ValueError(f"generate: gen={gen} must be at least 1")
     B, P = prompts.shape

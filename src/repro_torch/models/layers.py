@@ -5,8 +5,10 @@ weights live in an ``nn.ParameterDict`` under the JAX package's names
 (``wq``, ``wk``, ...), made by the ``*_init`` functions from a
 ``torch.Generator``; the ``*_apply`` functions are plain functions of those
 weights and tensors, and round to the working dtype where the JAX code
-does.  Weights never require gradients: the port serves, it does not
-train yet.
+does.  Weights are built taking no gradient, so serving builds no graph;
+the trainer turns gradients on with ``model.requires_grad_(True)``.
+``remat`` is ``jax.checkpoint``: a function whose activations are
+recomputed in the backward pass instead of kept.
 
 Attention streams over KV blocks with an online softmax (query blocks of
 256, KV blocks of ``kv_block``), so no ``(S, S)`` score matrix is formed,
@@ -23,13 +25,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["dense_init", "params", "rmsnorm_init", "rmsnorm",
            "layernorm_init", "layernorm", "norm_init", "apply_norm",
            "rope_freqs", "apply_rope", "apply_mrope", "sinusoidal_positions",
            "attention_init", "attention_apply", "mlp_init", "mlp_apply",
            "embed_init", "embed_apply", "lm_head_apply", "silu_as",
-           "gelu_as"]
+           "gelu_as", "needs_grad", "remat"]
 
 
 # ---------------------------------------------------------------------------
@@ -40,6 +43,28 @@ def params(**tensors: torch.Tensor) -> nn.ParameterDict:
     """One layer's weights, by name, as parameters that take no gradient."""
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
+
+
+def needs_grad(*tensors, weights=()) -> bool:
+    """Whether a gradient flows through a computation on ``tensors`` and
+    the parameters ``weights``: gradient mode is on and one of them
+    requires a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(isinstance(t, torch.Tensor) and t.requires_grad
+                for t in tensors)
+            or any(w.requires_grad for w in weights))
+
+
+def remat(fn, *args, weights=()):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) when a gradient flows through ``args`` or the
+    parameters ``weights`` that ``fn`` reads; a plain call otherwise, so
+    the serving path is unchanged.  The recomputation repeats the forward
+    exactly, so gradients equal those without it."""
+    if needs_grad(*args, weights=weights):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def dense_init(gen: torch.Generator, fan_in: int, shape,

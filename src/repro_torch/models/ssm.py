@@ -12,7 +12,13 @@ The port of ``repro/models/ssm.py``.  The scan over time has three forms
   plain version for CPU tensors).  The JAX package calls this form
   ``"pallas"``.  It pads nothing: the CUDA kernel takes any length, and
   the scan is causal, so the JAX code's padding to a multiple of
-  ``chunk`` changes no output.
+  ``chunk`` changes no output.  It serves forward only, in both
+  packages: a gradient through it raises.
+
+Under a gradient the first two forms run chunk by chunk of ``chunk``
+timesteps, each chunk recomputed in the backward pass (``layers.remat``,
+the JAX code's ``jax.checkpoint`` on its chunk body), so the backward
+keeps one chunk's per-step states at a time.
 
 Decode is O(1) per token through the carried (conv window, SSM state).
 """
@@ -26,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ops import mamba_scan
-from repro_torch.models.layers import dense_init, params, silu_as
+from repro_torch.models.layers import (dense_init, needs_grad, params,
+                                       remat, silu_as)
 
 __all__ = ["SSMConfig", "SCAN_IMPLS", "mamba_init", "mamba_apply",
            "mamba_decode_init", "mamba_decode_step"]
@@ -86,30 +93,51 @@ def _ssm_params(p, x, cfg: SSMConfig, d_model):
     return dt, Bc.float(), Cc.float()
 
 
-def _scan_materialized(dt, xc, Bc, Cc, A):
+def _materialized_chunk(h, dA, dBx):
+    """The recurrence over one chunk of the transition tensors: the last
+    state and every state (B, chunk, di, N)."""
+    hs = []
+    for s in range(dA.shape[1]):
+        h = dA[:, s] * h + dBx[:, s]
+        hs.append(h)
+    return h, torch.stack(hs, dim=1)
+
+
+def _scan_materialized(dt, xc, Bc, Cc, A, chunk):
     dA = torch.exp(dt[..., None] * A)                     # (B, S, di, N)
     dBx = (dt * xc)[..., None] * Bc[:, :, None, :]
-    hs = torch.empty_like(dA)
     h = torch.zeros_like(dA[:, 0])
-    for s in range(dt.shape[1]):
-        h = dA[:, s] * h + dBx[:, s]
-        hs[:, s] = h
-    return torch.einsum("bsdn,bsn->bsd", hs, Cc)
+    hs = []
+    for c0 in range(0, dt.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        h, hk = remat(_materialized_chunk, h, dA[:, sl], dBx[:, sl])
+        hs.append(hk)
+    return torch.einsum("bsdn,bsn->bsd", torch.cat(hs, dim=1), Cc)
+
+
+def _chunked_body(h, dt, xc, Bc, Cc, A):
+    """One chunk of the chunked scan: the transition tensors of these
+    timesteps only, the recurrence, and y (B, chunk, di)."""
+    dA = torch.exp(dt[..., None] * A)                     # (B, chunk, di, N)
+    dBx = (dt * xc)[..., None] * Bc[:, :, None, :]
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
+    return h, torch.stack(ys, dim=1)
 
 
 def _scan_chunked(dt, xc, Bc, Cc, A, chunk):
     B, S, di = dt.shape
     h = torch.zeros((B, di, A.shape[1]), dtype=torch.float32,
                     device=dt.device)
-    y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)
+    ys = []
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
-        dA = torch.exp(dt[:, sl, :, None] * A)           # (B, chunk, di, N)
-        dBx = (dt[:, sl] * xc[:, sl])[..., None] * Bc[:, sl, None, :]
-        for t in range(dA.shape[1]):
-            h = dA[:, t] * h + dBx[:, t]
-            y[:, c0 + t] = torch.einsum("bdn,bn->bd", h, Cc[:, c0 + t])
-    return y
+        h, y = remat(_chunked_body, h, dt[:, sl], xc[:, sl], Bc[:, sl],
+                     Cc[:, sl], A)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
 
 
 def _scan_inputs(p, x: torch.Tensor, cfg: SSMConfig):
@@ -140,11 +168,16 @@ def mamba_apply(p, x: torch.Tensor, cfg: SSMConfig, *,
     dt, xc, Bc, Cc, A, z = _scan_inputs(p, x, cfg)
     xf = xc.float()
     if cfg.scan_impl == "kernel":
+        if needs_grad(dt, xf, Bc, Cc, A):
+            raise ValueError(
+                "scan_impl='kernel' (B6) serves forward only and takes no "
+                "gradient, as in the JAX package; train with "
+                "'materialized' or 'chunked'")
         y = mamba_scan(dt, xf, Bc, Cc, A)
     elif cfg.scan_impl == "chunked":
         y = _scan_chunked(dt, xf, Bc, Cc, A, chunk)
     else:
-        y = _scan_materialized(dt, xf, Bc, Cc, A)
+        y = _scan_materialized(dt, xf, Bc, Cc, A, chunk)
 
     y = y + p["D"] * xf
     y = y.to(x.dtype) * silu_as(z, x.dtype)

@@ -13,8 +13,13 @@ whose attention layers also attend to the encoder's states; their K/V
 are projected from those states on every call, prefill and decode, as in
 the JAX package.
 
-What waits for later slices: ``loss_fn`` and ``remat`` belong to
-training, the sharding constraints to the distribution slice.
+Training: ``loss_fn`` is next-token cross entropy over the padded
+vocabulary plus 0.01 times the MoE load-balancing loss.  When a gradient
+flows, each period runs under ``layers.remat`` (the JAX code's
+``jax.checkpoint`` on its period body), so the backward keeps only each
+period's input and recomputes the rest; without a gradient ``forward`` is
+the serving path, unchanged.  The sharding constraints wait for the
+distribution slice.
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 
-__all__ = ["ModelConfig", "Model", "init_params", "forward", "init_cache",
-           "decode_step", "param_count", "active_param_count"]
+__all__ = ["ModelConfig", "Model", "init_params", "forward", "loss_fn",
+           "init_cache", "decode_step", "param_count", "active_param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,22 +322,34 @@ def _embed(cfg: ModelConfig, model: Model, tokens, first_pos: int):
     return x, positions, positions3
 
 
+def _run_period(cfg: ModelConfig, p, x, aux, causal, positions,
+                positions3, enc):
+    """One period of the pattern over ``x``; ``aux`` accumulates the
+    load-balancing losses."""
+    for i, (mix, ffn) in enumerate(cfg.pattern):
+        pm = p[f"l{i}_mix"]
+        x, _ = _apply_mixer(cfg, pm, x, mix, positions=positions,
+                            positions3=positions3, causal=causal)
+        if enc is not None and "xattn" in pm:
+            x = _cross_attend(cfg, pm, x, enc)
+        x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
+        if "load_balance" in a:
+            aux = aux + a["load_balance"]
+    return x, aux
+
+
 def _run_stack(cfg: ModelConfig, stack, x, *, causal, positions,
                positions3, enc=None):
     """The periods of ``stack`` over ``x``; with ``enc``, each attention
     layer that has a cross-attention attends to those encoder states.
-    Returns ``(x, summed load-balancing loss)``."""
+    Each period is recomputed in the backward pass when a gradient flows
+    (``layers.remat``).  Returns ``(x, summed load-balancing loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in stack:
-        for i, (mix, ffn) in enumerate(cfg.pattern):
-            pm = p[f"l{i}_mix"]
-            x, _ = _apply_mixer(cfg, pm, x, mix, positions=positions,
-                                positions3=positions3, causal=causal)
-            if enc is not None and "xattn" in pm:
-                x = _cross_attend(cfg, pm, x, enc)
-            x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
-            if "load_balance" in a:
-                aux = aux + a["load_balance"]
+        def period(x, aux, enc, p=p):
+            return _run_period(cfg, p, x, aux, causal, positions,
+                               positions3, enc)
+        x, aux = L.remat(period, x, aux, enc, weights=p.parameters())
     return x, aux
 
 
@@ -367,6 +384,27 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
                           enc=enc)
     x = L.apply_norm(cfg.norm, model.final_norm, x)
     return L.lm_head_apply(model.embed, x, model.lm_head), aux_d + aux
+
+
+def loss_fn(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
+    """Next-token cross entropy over the padded vocabulary (+ 0.01 x the
+    MoE load-balancing loss).  ``batch["labels"]`` (B, S) integers;
+    optional ``batch["loss_mask"]`` (B, S) weights the positions.
+    Returns ``(loss, {"ce": cross entropy, "aux": load-balancing loss})``,
+    as the JAX package's ``loss_fn``."""
+    logits, aux = forward(cfg, model, batch)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = nll.numel()
+    loss = nll.sum() / denom
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

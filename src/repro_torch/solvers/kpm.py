@@ -17,6 +17,15 @@ block vector (SpMMV).
 The probes are float32, as in the JAX package, so the operator computes
 in float32; they come from a ``torch.Generator`` seeded with ``seed`` on
 the operator's device, not from ``jax.random``.
+
+The probes live on the operator's real rows only: they are drawn over
+the matrix's ``nrows`` original rows, scaled by 1/sqrt(nrows) and placed
+in the operator space with ``to_op_space``, so the padding slots (which
+the operators keep at zero) hold zeros.  The moments then do not depend
+on how the matrix is padded.  The JAX package draws over all ``op.n``
+padded rows, so on a matrix whose row count is no multiple of C its
+moments carry eigenvalue-0 terms from the padding (a deliberate
+difference).
 """
 from __future__ import annotations
 
@@ -29,6 +38,17 @@ from repro_torch.core.spmv import SpmvOpts
 from repro_torch.solvers.lanczos import lanczos_extrema, op_device
 
 __all__ = ["kpm_dos_moments", "jackson_kernel", "kpm_dos"]
+
+
+def _real_rows(op):
+    """``(n, place)``: the operator's number of real rows and the map of
+    a vector over them into the operator space (``to_op_space`` for an
+    operator over a matrix, which zeros the padding; the identity for a
+    matrix-free operator, all of whose ``n`` rows are real)."""
+    A = getattr(op, "A", None)
+    if A is None or not hasattr(op, "to_op_space"):
+        return op.n, lambda v: v
+    return A.nrows, op.to_op_space
 
 
 def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
@@ -45,12 +65,12 @@ def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
     gamma = (hi + lo) / 2.0
     alpha2 = 2.0 / a
 
-    n = op.n
     dev = op_device(op)
     g = torch.Generator(device=dev).manual_seed(int(seed))
-    # Rademacher probes
+    # Rademacher probes on the real rows, zero in the padding slots
+    n, place = _real_rows(op)
     bits = torch.rand((n, n_probes), generator=g, device=dev) < 0.5
-    v0 = torch.where(bits, 1.0, -1.0).to(torch.float32) / np.sqrt(n)
+    v0 = place(torch.where(bits, 1.0, -1.0).to(torch.float32) / np.sqrt(n))
 
     M = n_moments
     half = (M + 1) // 2

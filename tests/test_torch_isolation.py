@@ -40,6 +40,17 @@ def test_no_jax_or_reference_imports(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+def test_training_modules_are_scanned():
+    """The training half of the LM scaffold is among the files scanned
+    for JAX imports, and no file of the port names ``ml_dtypes``."""
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES
+             if PORT in p.parents}
+    assert {"data/pipeline.py", "train/optimizer.py", "train/checkpoint.py",
+            "train/trainer.py", "launch/train.py"} <= names
+    for path in PORT_FILES:
+        assert "ml_dtypes" not in set(_imported_roots(path)), path
+
+
 def test_runtime_is_scanned():
     """The serving runtime and the heterogeneous engine are among the
     files scanned for JAX imports."""
@@ -70,7 +81,9 @@ def test_port_has_its_modules():
             "core/partition.py", "core/distributed.py",
             "configs/ghost_spmv.py", "launch/costmodel.py",
             "launch/hillclimb.py", "runtime/devicepool.py",
-            "runtime/split.py", "runtime/pipeline.py", "runtime/engine.py"}
+            "runtime/split.py", "runtime/pipeline.py", "runtime/engine.py",
+            "data/pipeline.py", "train/optimizer.py", "train/checkpoint.py",
+            "train/trainer.py", "launch/train.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
     assert want <= have
@@ -88,7 +101,9 @@ NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
           "solvers/chebfd.py", "solvers/kpm.py", "runtime/service.py",
           "core/partition.py", "core/distributed.py", "solvers/operator.py",
           "runtime/devicepool.py", "runtime/split.py", "runtime/pipeline.py",
-          "runtime/engine.py", "../../chip_smoke.py"]
+          "runtime/engine.py", "data/pipeline.py", "train/optimizer.py",
+          "train/checkpoint.py", "train/trainer.py", "launch/train.py",
+          "models/xlstm.py", "../../chip_smoke.py"]
 
 
 @pytest.mark.parametrize("rel", NO_TRY)
@@ -476,3 +491,29 @@ def test_chip_smoke_engine_phases_rehearse_on_cpu(monkeypatch):
     assert len(reb["gens"]) == chip_smoke.REBALANCE_STEPS + 1
     assert chip_smoke.phase_engine_serving(ecg["4 card shards"]["eng"], fw,
                                            "cpu rehearsal") == 0
+
+
+def test_chip_smoke_train_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 23 (the full-width train step, every
+    architecture's SMOKE train step on the "card" against the CPU, kill
+    and restart), run on the CPU at the registered SMOKE widths and a
+    short sequence: it checks the phase's steps, gates and control flow.
+    The full-width step's widths on the card are llama3.2-3b's published
+    ones."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    assert (chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ) == (2, 2048)
+    for name, value in (("DEVICE", "cpu"), ("LM_WIDTHS", "smoke"),
+                        ("TRAIN_SEQ", 16), ("TRAIN_STEPS", 3)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_train("cpu rehearsal")
+    assert np.isfinite(out["first"]["loss"]) and out["last"]["gnorm"] > 0
+    assert out["bound_ms"] > 0
+    assert set(out["card_cpu"]) == set(chip_smoke.list_archs())
+    assert all(err == 0.0 for err in out["card_cpu"].values())
+    assert out["f32_card_cpu"] == 0.0
+    assert out["resume"]["rest"] == 0.0          # the CPU: bit for bit
+    assert not (REPO / "build" / "chip_smoke_train").exists()
+    monkeypatch.setattr(chip_smoke, "LM_WIDTHS", "full")
+    cfg = chip_smoke.arch_config(chip_smoke.TRAIN_ARCH, torch.bfloat16)
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (28, 3072, 128256)
