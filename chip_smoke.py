@@ -145,7 +145,21 @@ the card, holding every kernel against its plain PyTorch version:
     float32): a run of 6 steps saving at step 3, a fresh trainer
     resuming there, its state equal to the checkpoint bit for bit, its
     first loss equal to the first run's bit for bit and the next two
-    within 1e-4.  No kernel of the port is on the training path.
+    within 1e-4.  No kernel of the port is on the training path;
+24. slice 12: the dry run.  The structural pass of all 32 (architecture
+    x shape) cells on the single-pod mesh (``launch.dryrun.run_cell``:
+    the model on ``meta``, per-device argument bytes, the analytic cost
+    with the H100 table) and the measured pass of six cells at their
+    published widths, one period each at one device's share of the pod
+    (llama3.2-3b train_4k, prefill_32k and decode_32k; grok-1
+    prefill_32k, MoE; xlstm-1.3b long_500k, recurrent; jamba-1.5-large
+    train_4k, which must be recorded as not fitting the card): median ms,
+    peak memory, ``compute_fraction`` in (0, 1.05] and peak within the
+    card's memory, ``measured_fraction`` printed (above 1.05 it shows an
+    overcount in the analytic bytes model), one more run of the train and
+    prefill cells under the profiler (the card's idle share, device time
+    by kind of kernel), and the roofline table.  No kernel of the port is
+    on these paths.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -219,6 +233,11 @@ from repro_torch.interop import to_numpy  # noqa: E402
 from repro_torch.train.checkpoint import (flatten,  # noqa: E402
                                           restore_checkpoint)
 from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
+from repro_torch.configs import SHAPES, dryrun_cells  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
 from repro_torch.solvers import run_chunk  # noqa: E402
@@ -333,6 +352,21 @@ TRAIN_WARM, TRAIN_STEPS, TRAIN_LR = 2, 8, 1e-4
 FULL_GRAD_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-4
 TRAIN_GRAD_TOLS = {"jamba_1_5_large_398b": 2.5e-4, "xlstm_1_3b": 2e-3}
 RESUME_TOL = 1e-4
+#: slice 12 (phase 24): the dry run's measured cells (one period each, at
+#: one device's share of the single-pod mesh), the one that must be
+#: recorded as not fitting the card, and the largest compute_fraction
+#: allowed (its FLOPs are exact counts, so above 1 only by timing noise)
+DRYRUN_MEASURED = (("llama3_2_3b", "train_4k"), ("llama3_2_3b", "prefill_32k"),
+                   ("llama3_2_3b", "decode_32k"), ("grok_1_314b", "prefill_32k"),
+                   ("xlstm_1_3b", "long_500k"),
+                   ("jamba_1_5_large_398b", "train_4k"))
+DRYRUN_NO_FIT = (("jamba_1_5_large_398b", "train_4k"),)
+FRACTION_MAX = 1.05
+#: the measured cells whose step runs once more under the profiler: the
+#: train and prefill cells, furthest under the compute roofline
+DRYRUN_PROFILED = (("llama3_2_3b", "train_4k"),
+                   ("llama3_2_3b", "prefill_32k"),
+                   ("grok_1_314b", "prefill_32k"))
 
 
 def sync() -> None:
@@ -3954,6 +3988,105 @@ def phase_train(card):
     return out
 
 
+def _dryrun_profile(arch, shape, card):
+    """One more run of a measured cell's step under ``torch.profiler``:
+    the card's busy and idle time and device time by kind of kernel."""
+    sp = SHAPES[shape]
+    full = get_config(arch)
+    cut = ShapeSpec(shape, sp.seq_len,
+                    max(1, sp.global_batch // DR.MEASURE_DEVICES), sp.kind)
+    opt = DR.pick_optimizer(T.param_count(T.init_params(full,
+                                                         device="meta")))
+    fn, _ = DR._step_fn(DR.one_period(full), cut, opt, torch.device("cuda"),
+                        0)
+    fn()
+    split = _device_split(fn, 1, TRAIN_KERNEL_KINDS)
+    del fn
+    _free()
+    if split is None:
+        print(f"[dryrun] {arch} x {shape} profiler split: not measured (the "
+              f"profiler saw no kernel)  [{card}]")
+        return
+    kinds = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+        split["kinds"].items(), key=lambda kv: -kv[1]))
+    top = ", ".join(f"{k[:50]} {v:.1f}" for k, v in sorted(
+        split["names"].items(), key=lambda kv: -kv[1])[:5])
+    print(f"[dryrun] {arch} x {shape} profiler split of one run: "
+          f"{split['wall']:.1f} ms wall, the card busy {split['busy']:.1f} ms "
+          f"and idle {split['idle']:.1f} ms ({100 * split['idle_share']:.1f}% "
+          f"of its window); device ms by kind: {kinds}; the most device "
+          f"time: {top}  [{card}]")
+
+
+def phase_dryrun(card):
+    """Slice 12's main path: the structural dry run of every cell, then the
+    measured pass of ``DRYRUN_MEASURED`` on the card (a CPU rehearsal
+    stops after the structural pass: the measured one needs the card)."""
+    _free()
+    out = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    DR.OUT_DIR = str(out)
+    mesh = make_mesh("single")
+    cells = dryrun_cells()
+    t0 = time.perf_counter()
+    for arch, shape in cells:
+        r = DR.run_cell(arch, shape, mesh, "single", verbose=False)
+        require(r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+                and r["memory"]["argument_size_in_bytes"] > 0,
+                f"dry run {arch} x {shape}: empty terms")
+    require(len(roofline.load("single")) == len(cells) == 32,
+            f"dry run: {len(cells)} cells")
+    print(f"[dryrun] structural pass: {len(cells)} cells in "
+          f"{time.perf_counter() - t0:.1f} s (meta models, per-device "
+          f"argument bytes, analytic cost with the H100 table)")
+    if DEVICE != "cuda":
+        print("[dryrun] measured pass: needs the card (CPU rehearsal)")
+        shutil.rmtree(out)
+        return {}
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    execution.reset_launch_counts()
+    blocks = {}
+    for arch, shape in DRYRUN_MEASURED:
+        m = DR.run_cell(arch, shape, mesh, "single", verbose=False,
+                        measure=True)["measured"]
+        blocks[(arch, shape)] = m
+        _free()
+        if (arch, shape) in DRYRUN_NO_FIT:
+            require(m["fits"] is False and "ms" not in m,
+                    f"dry run {arch} x {shape} should not fit: {m}")
+            print(f"[dryrun] {arch} x {shape}: does not fit: {m['reason']} "
+                  f"(t_compute {m['t_compute'] * 1e3:.2f} ms, t_memory "
+                  f"{m['t_memory'] * 1e3:.2f} ms)  [{card}]")
+            continue
+        require(m["fits"] and m["runs"] >= 1, f"dry run {arch} x {shape}: {m}")
+        over = m["measured_fraction"] > FRACTION_MAX
+        print(f"[dryrun] {arch} x {shape}: B {m['B_card']} x S "
+              f"{m['seq_len']}, 1 period ({m['n_layers']} layers): "
+              f"{m['ms']:.3f} ms median of {m['runs']} (warm-up "
+              f"{m['warmup_ms']:.1f} ms), peak {m['peak_bytes'] / 1e9:.3f} "
+              f"GB (arguments {m['argument_bytes'] / 1e9:.3f}, temporaries "
+              f"{m['temp_bytes'] / 1e9:.3f}); t_compute "
+              f"{m['t_compute'] * 1e3:.3f} ms, t_memory "
+              f"{m['t_memory'] * 1e3:.3f} ms; compute_fraction "
+              f"{m['compute_fraction']:.4f}, measured_fraction "
+              f"{m['measured_fraction']:.4f}"
+              f"{' (above 1.05: the analytic bytes overcount)' if over else ''}"
+              f"  [{card}]")
+        require(0 < m["compute_fraction"] <= FRACTION_MAX,
+                f"dry run {arch} x {shape}: compute_fraction "
+                f"{m['compute_fraction']}")
+        require(m["peak_bytes"] <= card_bytes,
+                f"dry run {arch} x {shape}: peak {m['peak_bytes']}")
+    launches = execution.launch_counts()
+    print(f"[dryrun] launches on the measured paths: {launches}")
+    require(not any(launches.values()), "a kernel on the dry run's paths")
+    for arch, shape in DRYRUN_PROFILED:
+        _dryrun_profile(arch, shape, card)
+    print(roofline.table(roofline.load("single")))
+    shutil.rmtree(out)
+    return blocks
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4064,6 +4197,7 @@ def main() -> int:
             for arch in ARCHS_8B]
     print_arch_table(rows, card)
     timed("train", phase_train, card)
+    timed("dry run", phase_dryrun, card)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,15 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.models.transformer import ModelConfig
 
 __all__ = ["ShapeSpec", "SHAPES", "ARCH_IDS", "ARCHS", "ArchEntry",
            "register", "list_archs", "get_config", "get_smoke_config",
-           "shape_applicable"]
+           "shape_applicable", "dryrun_cells", "input_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +88,55 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
     if shape.name == "long_500k" and not cfg.sub_quadratic:
         return False, "full-attention arch: long_500k skipped (quadratic)"
     return True, ""
+
+
+def dryrun_cells() -> List[Tuple[str, str]]:
+    """All applicable (arch, shape) dry-run cells, in the registry's and
+    ``SHAPES``' order."""
+    cells = []
+    for aid in list_archs():
+        cfg = ARCHS[aid].config
+        for sname, sp in SHAPES.items():
+            ok, _ = shape_applicable(cfg, sp)
+            if ok:
+                cells.append((aid, sname))
+    return cells
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                *, batch_override: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The batch of one cell as tensors on ``meta`` (the JAX package's
+    ``ShapeDtypeStruct``s).
+
+    train/prefill: int32 tokens (B, S) [+ labels for train; a float32
+    ``enc_embeds`` stub (B, S, d) for enc-dec, whose decoder then takes
+    S // dec_len_ratio tokens].  decode: tokens (B, 1) [+ ``enc_embeds``];
+    the cache is a separate argument (``init_cache``, see launch/dryrun.py).
+    """
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    i32 = torch.int32
+
+    if shape.kind in ("train", "prefill"):
+        S_dec = S // cfg.dec_len_ratio if cfg.enc_dec else S
+        spec = {"tokens": _spec((B, max(S_dec, 1)), i32)}
+        if cfg.enc_dec:
+            spec["enc_embeds"] = _spec((B, S, cfg.d_model), torch.float32)
+        if shape.kind == "train":
+            spec["labels"] = _spec(spec["tokens"].shape, i32)
+        return spec
+
+    # decode: one new token against a cache of S
+    spec = {"tokens": _spec((B, 1), i32)}
+    if cfg.enc_dec:
+        spec["enc_embeds"] = _spec((B, S, cfg.d_model), torch.float32)
+    return spec

@@ -1,13 +1,35 @@
-"""The weight-update rule of the heterogeneous engine's rebalance loop.
+"""Hill climbing: run one dry-run cell with named optimization
+variants and log the roofline-term deltas, plus the reusable
+``proportional_step`` weight-update rule.
 
-The port keeps only ``proportional_step`` of ``repro.launch.hillclimb``;
-the rest of that module drives the JAX package's dry-run variants.
+The port of ``repro/launch/hillclimb.py``.  Importing it is side-effect
+free (the heterogeneous runtime's rebalance loop pulls
+``proportional_step`` from here); the dry run loads only inside
+``main()``.
+
+    python -m repro_torch.launch.hillclimb --arch qwen2_5_3b \
+        --shape train_4k --variant fsdp_layout [--measure]
+
+Variants (composable, comma-separated):
+    baseline       — defaults (TP layout)
+    fsdp_layout    — treat 'model' as extra FSDP/data parallelism
+    zero1_layout   — params replicated, optimizer state sharded
+    causal_skip    — a no-op: the port's attention always skips the tiles
+                     the causal mask empties, and its dry run counts so
+    chunkwise      — chunkwise-parallel mLSTM
+    chunked_mamba  — the Mamba scan recomputing its terms per chunk
+    dense_moe      — conventional one-hot MoE dispatch (ablation: the
+                     paper's sparse dispatch OFF)
+Each run writes experiments/dryrun_torch/<cell>__<variant>.json.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
+
 import numpy as np
 
-__all__ = ["proportional_step"]
+__all__ = ["proportional_step", "apply_variants", "main"]
 
 
 def proportional_step(weights, costs, *, step: float = 0.5,
@@ -61,3 +83,62 @@ def proportional_step(weights, costs, *, step: float = 0.5,
         if not newly.any():
             return scaled
         clipped |= newly
+
+
+def apply_variants(arch: str, variants):
+    """The config of ``arch`` with ``variants`` applied; sets the sharding
+    layout (``tp`` unless a layout variant names another)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import sharding as SH
+    cfg = get_config(arch)
+    SH.set_layout("tp")
+    for v in variants:
+        if v in ("baseline", "causal_skip"):
+            continue
+        elif v == "fsdp_layout":
+            SH.set_layout("fsdp")
+        elif v == "zero1_layout":
+            SH.set_layout("zero1")
+        elif v == "chunkwise":
+            cfg = dataclasses.replace(
+                cfg, xlstm=dataclasses.replace(cfg.xlstm, chunkwise=True))
+        elif v == "chunked_mamba":
+            cfg = dataclasses.replace(
+                cfg, ssm=dataclasses.replace(cfg.ssm, scan_impl="chunked"))
+        elif v == "dense_moe":
+            if cfg.moe is None:
+                raise ValueError("variant 'dense_moe' needs a MoE config")
+            cfg = dataclasses.replace(
+                cfg, moe=dataclasses.replace(cfg.moe, ghost_dispatch=False))
+        else:
+            raise SystemExit(f"unknown variant {v}")
+    return cfg
+
+
+def main(argv=None):
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import MESHES, make_mesh
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True)
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--mesh", choices=sorted(MESHES), default="single")
+    ap.add_argument("--measure", action="store_true",
+                    help="also run one period of the cell on the card")
+    args = ap.parse_args(argv)
+
+    variants = args.variant.split(",")
+    cfg = apply_variants(args.arch, variants)
+    tag = "+".join(v for v in variants if v != "baseline") or "baseline"
+    r = run_cell(args.arch, args.shape, make_mesh(args.mesh), args.mesh,
+                 cfg=cfg, tag=tag, measure=args.measure)
+    print(f"\n== {args.arch} x {args.shape} [{tag}] ==")
+    for k in ("t_compute", "t_memory", "t_collective", "bottleneck",
+              "roofline_fraction", "useful_flops_ratio"):
+        print(f"  {k}: {r[k]}")
+    return r
+
+
+if __name__ == "__main__":
+    main()

@@ -67,13 +67,26 @@ def remat(fn, *args, weights=()):
     return fn(*args)
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (which
+    has none): the init functions read its ``device`` and allocate shapes
+    there without drawing."""
+    device = torch.device("meta")
+
+
+def _normal(gen, shape) -> torch.Tensor:
+    """Standard normals in float32 from ``gen`` on its device; on ``meta``
+    (a :class:`MetaGenerator`) the shape alone."""
+    draw = gen if isinstance(gen, torch.Generator) else None
+    return torch.randn(tuple(shape), generator=draw, dtype=torch.float32,
+                       device=gen.device)
+
+
 def dense_init(gen: torch.Generator, fan_in: int, shape,
                dtype) -> torch.Tensor:
     """Normal weights of standard deviation ``1/sqrt(fan_in)``, drawn in
     float32 from ``gen`` on its device, then cast to ``dtype``."""
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+    return _normal(gen, shape).mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -380,8 +393,7 @@ def mlp_apply(p, x, *, act="swiglu"):
 # ---------------------------------------------------------------------------
 
 def embed_init(gen, vocab, d_model, dtype=torch.bfloat16) -> nn.ParameterDict:
-    t = torch.randn((vocab, d_model), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    t = _normal(gen, (vocab, d_model))
     return params(table=t.mul_(0.02).to(dtype))
 
 

@@ -194,9 +194,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """Random weights from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (default: the card).  The draws differ from the JAX
     package's ``jax.random`` ones; ``interop.model_from_arrays`` carries
-    its weights across instead."""
+    its weights across instead.  On ``device="meta"`` the weights are
+    shapes and dtypes only (the JAX package's ``eval_shape``): nothing is
+    drawn or allocated."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (L.MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
 
     def stack(n_periods, cross):
         return [{**{f"l{i}_mix": _mixer_init(gen, cfg, mix, cross)

@@ -51,6 +51,18 @@ def test_training_modules_are_scanned():
         assert "ml_dtypes" not in set(_imported_roots(path)), path
 
 
+def test_planning_layer_is_scanned():
+    """The LM scaffold's planning layer (the H100 table and mesh shapes,
+    the sharding rules, the dry run, the hill climbing, the cost
+    refresh and the roofline) is among the files scanned for JAX
+    imports."""
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES
+             if PORT in p.parents}
+    assert {"launch/mesh.py", "launch/costmodel.py", "models/sharding.py",
+            "launch/dryrun.py", "launch/hillclimb.py",
+            "launch/refresh_costs.py", "launch/roofline.py"} <= names
+
+
 def test_runtime_is_scanned():
     """The serving runtime and the heterogeneous engine are among the
     files scanned for JAX imports."""
@@ -83,7 +95,9 @@ def test_port_has_its_modules():
             "launch/hillclimb.py", "runtime/devicepool.py",
             "runtime/split.py", "runtime/pipeline.py", "runtime/engine.py",
             "data/pipeline.py", "train/optimizer.py", "train/checkpoint.py",
-            "train/trainer.py", "launch/train.py"}
+            "train/trainer.py", "launch/train.py", "launch/mesh.py",
+            "models/sharding.py", "launch/dryrun.py",
+            "launch/refresh_costs.py", "launch/roofline.py"}
     have = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
             if p.is_file() and "__pycache__" not in p.parts}
     assert want <= have
@@ -103,7 +117,9 @@ NO_TRY = ["kernels/ops.py", "kernels/sellcs_spmv.py", "kernels/tsmttsm.py",
           "runtime/devicepool.py", "runtime/split.py", "runtime/pipeline.py",
           "runtime/engine.py", "data/pipeline.py", "train/optimizer.py",
           "train/checkpoint.py", "train/trainer.py", "launch/train.py",
-          "models/xlstm.py", "../../chip_smoke.py"]
+          "models/xlstm.py", "models/sharding.py", "launch/mesh.py",
+          "launch/costmodel.py", "launch/hillclimb.py",
+          "../../chip_smoke.py"]
 
 
 @pytest.mark.parametrize("rel", NO_TRY)
@@ -517,3 +533,20 @@ def test_chip_smoke_train_phase_rehearses_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "LM_WIDTHS", "full")
     cfg = chip_smoke.arch_config(chip_smoke.TRAIN_ARCH, torch.bfloat16)
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (28, 3072, 128256)
+
+
+def test_chip_smoke_dryrun_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's dry-run phase on the CPU: the structural pass of
+    all 32 cells and the roofline over them (the measured pass needs the
+    card and is left out there); the measured cells are dry-run cells and
+    jamba's train cell is among them."""
+    from repro_torch.configs import dryrun_cells
+    from repro_torch.launch import dryrun as DR
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(DR, "OUT_DIR", DR.OUT_DIR)
+    assert chip_smoke.phase_dryrun("cpu rehearsal") == {}
+    assert not (REPO / "build" / "chip_smoke_dryrun").exists()
+    assert set(chip_smoke.DRYRUN_MEASURED) <= set(dryrun_cells())
+    assert set(chip_smoke.DRYRUN_NO_FIT) <= set(chip_smoke.DRYRUN_MEASURED)
