@@ -160,6 +160,31 @@ the card, holding every kernel against its plain PyTorch version:
     prefill cells under the profiler (the card's idle share, device time
     by kind of kernel), and the roofline table.  No kernel of the port is
     on these paths.
+25. slice 13: training on a (data, model) mesh of 4 ranks, one process
+    a rank (``nccl`` with a card a rank where the machine has 4 cards,
+    else ``gloo`` with the ranks sharing the card; the backend, the card
+    count and each rank's device printed): (a) ``compressed_psum`` on
+    the card, int8 equal to the int32 sum of the quantised inputs and
+    within world * scale / 2 of the float64 sum, bf16 within 2^-6 of the
+    sum of |x|; (b) the SMOKE qwen2.5-3b and grok-1 in float32 (grok-1
+    at capacity factor 8, which drops no token, and at its own 1.25,
+    whose drops the mesh must reproduce), 4 steps
+    on (2, 2) under each layout against the one-device trainer on the
+    card and on the CPU, one checksum of the full parameters on every
+    rank after each step, resume on (2, 2) (the restored state bit-equal
+    to the checkpoint), save on (2, 2) and resume on (4, 1) and on one
+    device; (c) llama3.2-3b at its published widths cut to 2 layers,
+    bf16 with float32 AdamW, global batch 4 x S 2048 on (2, 2) ``tp``: ms
+    a step (median of 3 after a warm-up), each rank's peak memory, the
+    bytes it holds (full parameters and gradient, its AdamW slot shards
+    against ``shard_bytes``), a profiler split of one step into
+    collectives, compute and idle on rank 0, then a save, two more
+    steps, and the same two steps resumed on (4, 1) (the restored state
+    bit-equal to the checkpoint; the losses within MESH_BF16_TOL, and a
+    control run from fresh weights at least 10x further off).  Every
+    rank runs
+    every check; a failure in any rank fails the phase.  No kernel of
+    the port is on this path.
 
 Each phase prints its seconds.  It prints one JSON line describing every
 kernel, then as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -175,6 +200,7 @@ import importlib
 import inspect
 import json
 import os
+import pickle
 import platform
 import re
 import shutil
@@ -187,6 +213,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -237,7 +264,11 @@ from repro_torch.configs import SHAPES, dryrun_cells  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import (init_ranks,  # noqa: E402
+                                     make_host_mesh, make_mesh)
+from repro_torch.interop import arrays_from_model, model_from_arrays  # noqa: E402
+from repro_torch.models import sharding as SH  # noqa: E402
+from repro_torch.train.optimizer import compressed_psum  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
 from repro_torch.solvers import run_chunk  # noqa: E402
@@ -367,6 +398,35 @@ FRACTION_MAX = 1.05
 DRYRUN_PROFILED = (("llama3_2_3b", "train_4k"),
                    ("llama3_2_3b", "prefill_32k"),
                    ("grok_1_314b", "prefill_32k"))
+
+#: slice 13 (phase 25): training on a mesh of MESH_WORLD ranks (one
+#: process a rank; ``nccl`` with a card a rank where the machine has that
+#: many cards, else ``gloo`` with the ranks sharing the card).  (a)
+#: ``compressed_psum`` of MESH_PSUM_N float32 values a rank; (b) the SMOKE
+#: configs MESH_RUNS (architecture, MoE capacity factor: 8 drops no
+#: token, None is the config's own) in float32, MESH_STEPS steps on (2, 2) under each
+#: layout against the one-device trainer on the card and on the CPU
+#: (MESH_LOSS_TOL, the CPU tests' relative tolerance), resume and elastic
+#: restore; (c) TRAIN_ARCH at its published widths cut to
+#: MESH_FULL_PERIODS periods, bf16 with float32 AdamW, global batch
+#: MESH_FULL_BATCH x MESH_FULL_SEQ on (2, 2) under ``tp``:
+#: MESH_FULL_WARM untimed and MESH_FULL_TIMED timed steps, then a step
+#: under the profiler, a save, MESH_FULL_NEXT more steps straight on and
+#: the same steps resumed on (4, 1).  MESH_BF16_TOL bounds the distance
+#: of those resumed bf16 losses from the straight ones (measured 1.0e-5),
+#: and the same steps from fresh weights (the control: what a restore
+#: that loaded nothing gives) must lie at least 10x further off.
+#: The ranks take
+#: the settings MESH_SETTINGS from this process (a CPU rehearsal lowers
+#: them).
+MESH_WORLD, MESH_PSUM_N = 4, 1 << 22
+MESH_RUNS = (("qwen2_5_3b", 8.0), ("grok_1_314b", 8.0), ("grok_1_314b", None))
+MESH_STEPS, MESH_LOSS_TOL = 4, 1e-5
+MESH_FULL_PERIODS, MESH_FULL_BATCH, MESH_FULL_SEQ = 2, 4, 2048
+MESH_FULL_WARM, MESH_FULL_TIMED, MESH_FULL_NEXT = 1, 3, 2
+MESH_BF16_TOL = 1e-4
+MESH_SETTINGS = ("DEVICE", "LM_WIDTHS", "MESH_PSUM_N", "MESH_STEPS",
+                 "MESH_FULL_SEQ", "MESH_FULL_BATCH", "MESH_FULL_TIMED")
 
 
 def sync() -> None:
@@ -4087,6 +4147,444 @@ def phase_dryrun(card):
     return blocks
 
 
+# ----------------------------------------------------------------- phase 25
+def _all(obj):
+    """``obj`` of every rank, in rank order."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _same_on_all(obj, what) -> None:
+    got = _all(obj)
+    require(all(g == got[0] for g in got),
+            f"mesh: {what} differs between ranks: {got}")
+
+
+def _mesh_psum(rank, dev, say, card):
+    """(a) ``compressed_psum`` on the ranks' tensors: int8 equal to the
+    int32 sum of the inputs quantised with the group's scale (computed
+    from the all-gathered inputs) and within world * scale / 2 of the
+    float64 sum; bf16 within 2^-6 of the sum of |x|; ms of each beside a
+    float32 all-reduce of the same tensor."""
+    world = dist.get_world_size()
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + rank)
+    x = torch.randn(MESH_PSUM_N, generator=g, device=dev) * (0.5 + rank)
+    y8, y16 = compressed_psum(x, bits=8), compressed_psum(x, bits=16)
+    allx = x.new_empty(world * MESH_PSUM_N)
+    dist.all_gather_into_tensor(allx, x)
+    allx = allx.view(world, MESH_PSUM_N)
+    scale = max(torch.max(torch.abs(r)) / 127.0 + 1e-12 for r in allx)
+    q = torch.clamp(torch.round(allx / scale), -127, 127).to(torch.int32)
+    want8 = q.sum(0).float() * scale
+    exact = allx.double().sum(0)
+    err8 = float((y8.double() - exact).abs().max())
+    bound8 = world * float(scale) / 2 + 2.0 ** -23 * float(exact.abs().max())
+    err16 = float(((y16.double() - exact).abs()
+                   / allx.double().abs().sum(0)).max())
+    require(torch.equal(y8, want8), "compressed_psum int8 != the int32 sum "
+            "of the quantised inputs")
+    require(err8 <= bound8, f"compressed_psum int8: {err8} > {bound8}")
+    require(err16 <= 2.0 ** -6, f"compressed_psum bf16: {err16} of sum|x|")
+
+    def ms(fn):
+        t = []
+        for _ in range(5):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            t.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(t))
+
+    f32 = ms(lambda: dist.all_reduce(x.clone()))
+    t8, t16 = (ms(lambda b=b: compressed_psum(x, bits=b)) for b in (8, 16))
+    say(f"[mesh] compressed_psum of {MESH_PSUM_N} float32 a rank on "
+        f"{world} ranks ({x.device}): int8 equal to the int32 sum of the "
+        f"quantised inputs on every rank, {err8:.3e} from the float64 sum "
+        f"(bound world * scale / 2 = {bound8:.3e}); bf16 {err16:.3e} of "
+        f"sum |x| (tol 2^-6); ms median of 5 (host clock): int8 {t8:.2f}, "
+        f"bf16 {t16:.2f}, float32 all_reduce {f32:.2f}  [{card}]")
+    return dict(err8=err8, err16=err16, int8_ms=t8, bf16_ms=t16, f32_ms=f32)
+
+
+def _mesh_cfg(arch, cf=8.0):
+    """``arch``'s SMOKE config with an MoE capacity factor ``cf`` (8 drops
+    no token; ``None`` keeps the config's own)."""
+    base = get_smoke_config(arch)
+    return base if base.moe is None or cf is None else dataclasses.replace(
+        base, moe=dataclasses.replace(base.moe, capacity_factor=cf))
+
+
+def _mesh_trainer(arch, mesh, dev, arrays, root, every=100, layout="tp",
+                  cf=8.0):
+    SH.set_layout(layout)
+    cfg = _mesh_cfg(arch, cf)
+    tc = TrainConfig(lr=1e-3, warmup=2, total_steps=10, ckpt_dir=str(root),
+                     ckpt_every=every, log_every=100)
+    return Trainer(cfg, tc, mesh, seq_len=16, global_batch=4, device=dev,
+                   init_model=lambda: model_from_arrays(cfg, arrays, dev))
+
+
+def _mesh_steps(tr, steps):
+    """``steps`` steps from 0: losses, and after each step this rank's
+    float64 sum of its full parameters, held equal on every rank."""
+    tr.init_state()
+    data = SyntheticLM(tr.cfg.vocab_size, 16, 4, seed=LM_SEED)
+    losses = []
+    for s in range(steps):
+        losses.append(float(tr.train_step(tr.local_batch(data.batch(s)),
+                                          s)["loss"]))
+        if tr.mesh is not None:
+            _same_on_all(float(sum(p.double().sum() for p in tr.params)),
+                         f"{tr.cfg.name} checksum after step {s}")
+    return losses
+
+
+def _rel_dist(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _mesh_smoke(rank, dev, say, root, card):
+    """(b) The SMOKE configs in float32 on (2, 2) under each layout
+    against one device on the card and on the CPU (an MoE config at its
+    own capacity factor too, whose drops must differ from none); resume
+    on (2, 2); save on (2, 2), resume on (4, 1) and on one device."""
+    m22 = make_host_mesh(2, 2, device=dev)
+    m41 = make_host_mesh(4, 1, device=dev)
+    out, one = {}, {}
+    for arch, cf in MESH_RUNS:
+        host = T.init_params(_mesh_cfg(arch, cf), LM_SEED, "cpu")
+        _sharpen_routers(host)
+        arrays = arrays_from_model(host)
+        ref = {d: _mesh_steps(_mesh_trainer(arch, None, d, arrays, root,
+                                            cf=cf), MESH_STEPS)
+               for d in (dev, "cpu")}
+        one[(arch, cf)] = ref[dev]
+        what = f"{arch} capacity factor {cf or 'own'}"
+        for layout in ("tp", "fsdp", "zero1"):
+            got = _mesh_steps(_mesh_trainer(arch, m22, dev, arrays, root,
+                                            layout=layout, cf=cf), MESH_STEPS)
+            _same_on_all(got, f"{what} {layout} losses")
+            e_card, e_cpu = _rel_dist(got, ref[dev]), _rel_dist(got,
+                                                                ref["cpu"])
+            say(f"[mesh] SMOKE {what} f32 (2, 2) {layout}: losses "
+                f"{[f'{x:.6f}' for x in got]}, against one device on "
+                f"{dev.type} {e_card:.2e}, on the CPU {e_cpu:.2e} (tol "
+                f"{MESH_LOSS_TOL}, relative)  [{card}]")
+            require(max(e_card, e_cpu) <= MESH_LOSS_TOL,
+                    f"mesh {what} {layout}: {e_card:.2e} / {e_cpu:.2e}")
+            out[(arch, cf, layout)] = (e_card, e_cpu)
+    for arch, cf in MESH_RUNS:
+        if cf is None:
+            drops = _rel_dist(one[(arch, cf)], one[(arch, 8.0)])
+            say(f"[mesh] SMOKE {arch}: one device's losses at its own "
+                f"capacity factor {drops:.2e} from those at 8 (tokens "
+                f"dropped; must exceed {10 * MESH_LOSS_TOL})  [{card}]")
+            require(drops > 10 * MESH_LOSS_TOL,
+                    f"mesh {arch}: the own capacity drops nothing")
+    SH.set_layout("tp")
+    arch = MESH_RUNS[0][0]
+    host = T.init_params(_mesh_cfg(arch), LM_SEED, "cpu")
+    arrays = arrays_from_model(host)
+    quiet = dict(log=lambda *a: None)
+    run_a = _mesh_trainer(arch, m22, dev, arrays, root / "a", 2).fit(
+        6, **quiet)["losses"]
+    world = dist.get_world_size()
+    if rank == 0:
+        shutil.copytree(root / "a" / "step_2", root / "b" / "step_2")
+        for d in ["c"] + [f"one{r}" for r in range(world)]:
+            shutil.copytree(root / "a" / "step_4", root / d / "step_4")
+    dist.barrier()
+    check = _mesh_trainer(arch, m22, dev, arrays, root / "b", 2)
+    step = check.restore()
+    live = check.state_tree()
+    saved, _ = restore_checkpoint(str(root / "b"), step, live)
+    live, saved = flatten(live), flatten(saved)
+    same = step == 2 and live.keys() == saved.keys() and all(
+        to_numpy(live[k]).tobytes() == to_numpy(saved[k]).tobytes()
+        for k in saved)
+    run_b = _mesh_trainer(arch, m22, dev, arrays, root / "b", 2).fit(
+        4, **quiet)["losses"]
+    rest = _rel_dist(run_b[1:], run_a[3:4])
+    on41 = _mesh_trainer(arch, m41, dev, arrays, root / "c").fit(
+        6, **quiet)["losses"]
+    one_losses = _mesh_trainer(arch, None, dev, arrays,
+                               root / f"one{rank}").fit(6, **quiet)["losses"]
+    e41, e1 = _rel_dist(on41, run_a[4:]), _rel_dist(one_losses, run_a[4:])
+    say(f"[mesh] SMOKE {arch} f32 on (2, 2), saving at steps 2 and 4: "
+        f"losses {[f'{x:.6f}' for x in run_a]}; step 2 restored on (2, 2): "
+        f"state equal to the checkpoint bit for bit: {same}; step 3 loss "
+        f"{run_b[0]!r} against {run_a[2]!r}, step 4 within {rest:.2e} (tol "
+        f"{RESUME_TOL}); step 4 resumed on (4, 1): steps 5-6 within "
+        f"{e41:.2e} of the (2, 2) run's, on one device {e1:.2e} (tol "
+        f"{MESH_LOSS_TOL})  [{card}]")
+    require(same, "mesh resume: restored state != checkpoint")
+    require(run_b[0] == run_a[2], f"mesh resume: {run_b[0]!r} != "
+            f"{run_a[2]!r}")
+    require(rest <= RESUME_TOL, f"mesh resume: step 4 {rest:.2e}")
+    require(max(e41, e1) <= MESH_LOSS_TOL,
+            f"mesh elastic restore: {e41:.2e} / {e1:.2e}")
+    out["elastic"] = (e41, e1)
+    return out
+
+
+def _mesh_split(step):
+    """One step under ``torch.profiler`` (CPU and card): the wall time
+    split into collectives (host time inside c10d calls, and NCCL
+    kernels), compute (the card busy outside them) and idle (the rest),
+    in ms.  None if the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        sync()
+        wall = 1e3 * (time.perf_counter() - t0)
+    coll_names = ("all_reduce", "allreduce", "all_gather", "allgather",
+                  "c10d::", "gloo:", "nccl:", "barrier")
+    coll, busy = [], []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end)
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            (coll if "nccl" in e.name.lower() else busy).append(span)
+        elif any(n in e.name for n in coll_names):
+            coll.append(span)
+    if not busy:
+        return None
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    coll = union(coll)
+    coll_us = sum(b - a for a, b in coll)
+    busy_us = sum(b - a for a, b in union(busy))
+    inside = sum(max(0.0, min(b, d) - max(a, c))
+                 for a, b in union(busy) for c, d in coll)
+    compute = (busy_us - inside) * 1e-3
+    return dict(wall=wall, collectives=coll_us * 1e-3, compute=compute,
+                idle=max(0.0, wall - coll_us * 1e-3 - compute),
+                device_busy=busy_us * 1e-3)
+
+
+def _mesh_full(rank, dev, say, root, card):
+    """(c) TRAIN_ARCH at its published widths cut to MESH_FULL_PERIODS
+    periods, bf16 with float32 AdamW, on (2, 2) under ``tp``."""
+    world = dist.get_world_size()
+    SH.set_layout("tp")
+    cfg = arch_config(TRAIN_ARCH, torch.bfloat16, periods=MESH_FULL_PERIODS)
+    m22 = make_host_mesh(2, 2, device=dev)
+    n = MESH_FULL_WARM + MESH_FULL_TIMED + 1 + MESH_FULL_NEXT
+
+    def trainer(mesh):
+        tc = TrainConfig(lr=TRAIN_LR, warmup=n, total_steps=n, seed=LM_SEED,
+                         ckpt_dir=str(root / "full"), ckpt_every=1000,
+                         log_every=1000)
+        return Trainer(cfg, tc, mesh, seq_len=MESH_FULL_SEQ,
+                       global_batch=MESH_FULL_BATCH, device=dev)
+
+    tr = trainer(m22)
+    t0 = time.perf_counter()
+    tr.init_state()
+    sync()
+    made = time.perf_counter() - t0
+    data = SyntheticLM(cfg.vocab_size, MESH_FULL_SEQ, MESH_FULL_BATCH,
+                       seed=LM_SEED)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    execution.reset_launch_counts()
+    ms, losses = [], []
+    for step in range(MESH_FULL_WARM + MESH_FULL_TIMED):
+        b = tr.local_batch(data.batch(step))
+        dist.barrier()
+        t0 = time.perf_counter()
+        m = tr.train_step(b, step)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    launches = execution.launch_counts()
+    step = MESH_FULL_WARM + MESH_FULL_TIMED
+    b = tr.local_batch(data.batch(step))
+    dist.barrier()
+    if rank == 0 and DEVICE == "cuda":
+        split = _mesh_split(lambda: tr.train_step(b, step))
+    else:
+        split = None
+        tr.train_step(b, step)
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if DEVICE == "cuda"
+            else 0.0)
+    # a rank holds the full parameters (the forward needs them), their
+    # full gradient during a step, and its shards of the AdamW slots
+    full_p = sum(p.numel() * p.element_size() for p in tr.params)
+    held_o = sum(t.numel() * t.element_size()
+                 for t in tr.opt_leaves().values())
+    want_o = SH.shard_bytes(tr.opt_leaves(full=True), tr.ospecs, tr.view)
+    full_o = sum(t.numel() * t.element_size()
+                 for t in tr.opt_leaves(full=True).values())
+    _same_on_all(float(sum(p.double().sum() for p in tr.params)),
+                 "full-width checksum")
+    per_rank = _all(dict(device=str(dev), peak=peak, held_o=held_o,
+                         want_o=want_o))
+    timed_ms = ms[MESH_FULL_WARM:]
+    med = float(np.median(timed_ms))
+    tokens = MESH_FULL_BATCH * MESH_FULL_SEQ
+    say(f"[mesh] {TRAIN_ARCH} at published widths (d={cfg.d_model}, "
+        f"{cfg.n_layers} layers, vocab {cfg.vocab_size}), bf16 with float32 "
+        f"AdamW, (2, 2) tp on {world} ranks, global batch {MESH_FULL_BATCH}"
+        f" x S {MESH_FULL_SEQ}: state made in {made:.1f} s; {med:.1f} ms a "
+        f"step (median of {len(timed_ms)} after {MESH_FULL_WARM} warm-up: "
+        f"{', '.join(f'{x:.1f}' for x in timed_ms)}; warm-up "
+        f"{ms[0]:.1f}), {1e3 * tokens / med:.0f} tokens/s; losses "
+        f"{[f'{x:.4f}' for x in losses]}; kernel launches "
+        f"{dict(launches) or 'none'}  [{card}]")
+    for r, pr in enumerate(per_rank):
+        say(f"[mesh] rank {r} on {pr['device']}: peak {pr['peak']:.2f} GB; "
+            f"holds the full parameters {full_p / 1e9:.3f} GB, their full "
+            f"gradient {full_p / 1e9:.3f} GB during a step, and AdamW slot "
+            f"shards {pr['held_o'] / 1e9:.3f} GB (placement: shard_bytes "
+            f"{pr['want_o'] / 1e9:.3f}; the full state {full_o / 1e9:.3f})"
+            f"  [{card}]")
+        require(pr["held_o"] == pr["want_o"] < full_o,
+                f"mesh: rank {r}'s slot shards are not shard_bytes: {pr}")
+    if split is not None:
+        say(f"[mesh] profiler split of one (2, 2) step on rank 0: "
+            f"{split['wall']:.1f} ms wall: collectives {split['collectives']:.1f}"
+            f" ms, compute {split['compute']:.1f} ms (the card busy "
+            f"{split['device_busy']:.1f} ms in all), idle {split['idle']:.1f} "
+            f"ms  [{card}]")
+    require(all(np.isfinite(losses)), f"mesh full width: losses {losses}")
+    require(not any(launches.values()), f"mesh: a kernel ran: {launches}")
+    tr.ckpt.maybe_save(step + 1, tr.state_tree, force=True)
+    straight = []
+    for s in range(step + 1, step + 1 + MESH_FULL_NEXT):
+        straight.append(float(tr.train_step(
+            tr.local_batch(data.batch(s)), s)["loss"]))
+    del tr, b
+    _free()
+    m41 = make_host_mesh(4, 1, device=dev)
+    tr = trainer(m41)
+    at = tr.restore()
+    require(at == step + 1, f"mesh full width: resumed step {at}")
+    same = _restored_equals_checkpoint(tr, root / "full", at)
+    _same_on_all(same, "full-width restored state equal to the checkpoint")
+    resumed = [float(tr.train_step(tr.local_batch(data.batch(s)), s)["loss"])
+               for s in range(at, at + MESH_FULL_NEXT)]
+    # the control: the same steps on (4, 1) from fresh weights, as a
+    # restore that loaded nothing would take them
+    tr.init_state()
+    control = [float(tr.train_step(tr.local_batch(data.batch(s)), s)["loss"])
+               for s in range(at, at + MESH_FULL_NEXT)]
+    del tr
+    gap, gap_ctl = _rel_dist(resumed, straight), _rel_dist(control, straight)
+    say(f"[mesh] saved at step {step + 1} on (2, 2), resumed on (4, 1): "
+        f"this rank's restored state equal to the checkpoint bit for bit: "
+        f"{same}; losses {[f'{x:.5f}' for x in resumed]} against "
+        f"{[f'{x:.5f}' for x in straight]} straight on (2, 2): {gap:.2e} "
+        f"relative (bf16; tol {MESH_BF16_TOL}); the control from fresh "
+        f"weights {[f'{x:.5f}' for x in control]}: {gap_ctl:.2e}  [{card}]")
+    require(same, "mesh full width: restored state != checkpoint")
+    require(len(resumed) == MESH_FULL_NEXT and np.isfinite(resumed).all(),
+            f"mesh full width resume: {resumed}")
+    require(gap <= MESH_BF16_TOL and 10 * gap <= gap_ctl,
+            f"mesh full width resume: {gap:.2e} (control {gap_ctl:.2e})")
+    _free()
+    return dict(ms=med, timed=timed_ms, per_rank=per_rank, split=split,
+                losses=losses, straight=straight, resumed=resumed, gap=gap,
+                control=control, gap_control=gap_ctl, full_p=full_p,
+                full_o=full_o)
+
+
+def _restored_equals_checkpoint(tr, directory, step) -> bool:
+    """Whether a trainer's state just restored from ``directory`` equals
+    the checkpoint of ``step`` bit for bit: its full parameters, and its
+    own slice of each optimizer slot (the archive's keys: ``[0]/<leaf
+    path>``, ``[1]/<slot path>``)."""
+    with np.load(Path(directory) / f"step_{step}" / "arrays.npz") as z:
+        for k, p in zip(tr.keys, tr.params):
+            if to_numpy(p).tobytes() != z[f"[0]/{k}"].tobytes():
+                return False
+        for path, t in tr.opt_leaves().items():
+            full = z[f"[1]/{path}"]
+            idx = SH.shard_index(tr.ospecs[path], full.shape, tr.view,
+                                 tr.coord)
+            if to_numpy(t).tobytes() != np.ascontiguousarray(
+                    full[idx]).tobytes():
+                return False
+    return True
+
+
+def mesh_rank(rank, world, root, backend, settings):
+    """One rank of phase 25 (spawned): joins the group, runs (a)-(c),
+    and writes its results to ``root/rank<r>.pkl``; a failed check
+    raises, which fails the phase."""
+    globals().update(settings)
+    torch.set_num_threads(1 if DEVICE == "cpu" else 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = Path(root)
+    dev = init_ranks(backend, device=DEVICE, init_method=f"file://{root}/store",
+                     rank=rank, world_size=world, timeout_s=900)
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip().splitlines()[0] \
+        if DEVICE == "cuda" else "cpu rehearsal"
+    devices = _all(str(dev))
+    say(f"[mesh] {world} ranks, backend {backend}, "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}, devices "
+        f"{devices}  [{card}]")
+    require(all(d.startswith(DEVICE) for d in devices),
+            f"mesh: a rank is not on {DEVICE}: {devices}")
+    out = dict(devices=devices)
+    out["psum"] = _mesh_psum(rank, dev, say, card)
+    out["smoke"] = _mesh_smoke(rank, dev, say, root / "smoke", card)
+    out["full"] = _mesh_full(rank, dev, say, root, card)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(root / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def phase_mesh(card):
+    """Slice 13's main path: training on a (data, model) mesh of
+    MESH_WORLD ranks, each a process (see MESH_WORLD).  Every rank runs
+    every check; a failure in any rank fails the phase."""
+    _free()
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if cards >= MESH_WORLD:
+        backend, why = "nccl", f"{cards} cards: one a rank"
+    else:
+        backend = "gloo"
+        why = (f"{MESH_WORLD} ranks share {cards} card(s), and NCCL takes "
+               f"one card a rank" if DEVICE == "cuda" else "CPU rehearsal")
+    print(f"[mesh] spawning {MESH_WORLD} ranks: backend {backend} ({why})")
+    root = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    settings = {k: globals()[k] for k in MESH_SETTINGS}
+    torch.multiprocessing.start_processes(
+        mesh_rank, args=(MESH_WORLD, str(root), backend, settings),
+        nprocs=MESH_WORLD, start_method="spawn")
+    out = []
+    for r in range(MESH_WORLD):
+        with open(root / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(root)
+    return dict(backend=backend, ranks=out)
+
+
 def timed(label, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4198,6 +4696,7 @@ def main() -> int:
     print_arch_table(rows, card)
     timed("train", phase_train, card)
     timed("dry run", phase_dryrun, card)
+    timed("mesh training", phase_mesh, card)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,19 +7,22 @@ injected local structure (skip-gram copies) so the loss has signal to
 descend.  The batches are numpy, drawn exactly as the JAX package draws
 them, so both packages see the same tokens bit for bit.
 
-``to_device`` takes the place of ``make_global_batch``: on one card there
-is no mesh to shard over, only a copy of the int32 arrays to the device.
+On one card ``to_device`` copies the int32 arrays to the device; on a
+mesh of ranks ``make_global_batch`` gives each rank its rows of the host
+batch (every rank draws the same host batch).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.execution import resolve_device
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.sharding import shard_index
 
-__all__ = ["SyntheticLM", "to_device"]
+__all__ = ["SyntheticLM", "to_device", "make_global_batch"]
 
 
 class SyntheticLM:
@@ -64,3 +67,17 @@ def to_device(batch: Dict[str, np.ndarray], device=None
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in batch.items()}
+
+
+def make_global_batch(batch: Dict[str, np.ndarray], mesh, specs: Mapping,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """This rank's part of a host batch on a mesh of ranks (a
+    ``DeviceMesh``): each array's slice under its spec (``batch_specs``)
+    at this rank's mesh coordinate, as a tensor on ``device`` (``None``:
+    the card).  Rows are whole on every rank where the spec replicates
+    them (a global batch that the data axes do not divide)."""
+    dev = resolve_device(device)
+    view, coord = Mesh.of(mesh), mesh.get_coordinate()
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[shard_index(specs[k], v.shape, view, coord)])).to(dev)
+        for k, v in batch.items()}

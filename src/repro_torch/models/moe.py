@@ -5,20 +5,37 @@ sparse selection operator.  ``_ghost_dispatch`` sorts the (token, slot)
 pairs by expert (the analogue of GHOST's sigma-sort), finds each pair's
 position inside its expert with a segment start, and gathers/scatters with
 integer index vectors, never a one-hot tensor; ``_dense_dispatch`` is the
-one-hot (T, K, E, capacity) baseline.  Expert sharding waits for the
-port's distribution slice.
+one-hot (T, K, E, capacity) baseline.
+
+A trainer whose global batch is split over ranks passes ``rows``
+(:class:`RowShare`): each rank dispatches its own rows as its part of
+the global batch's dispatch, as the JAX package's step on a mesh
+dispatches the global batch.  The capacity is the global batch's, a
+rank's (token, slot) pairs take their place in each expert after the
+pairs of the ranks before it in row order (so the same pairs are
+dropped), and the load-balancing statistics are the global batch's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.models.layers import dense_init, gelu_as, params, silu_as
 
-__all__ = ["MoEConfig", "moe_init", "moe_apply"]
+__all__ = ["MoEConfig", "RowShare", "moe_init", "moe_apply"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShare:
+    """This rank's share of a batch whose rows are split over ``n``
+    ranks in equal blocks: ``gather(t)`` stacks every rank's ``t`` into
+    ``(n, *t.shape)`` in the order of their rows (a collective), and
+    ``index`` is this rank's place in that order."""
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    index: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,9 +69,11 @@ def _expert_ffn(p, xe, act):
 
 
 def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *, act="swiglu",
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              rows: Optional[RowShare] = None):
     """x: (B, S, d) -> ((B, S, d), aux losses dict).  Router jitter needs a
-    ``generator`` (the JAX code's ``rng``)."""
+    ``generator`` (the JAX code's ``rng``).  With ``rows``, ``x`` is this
+    rank's rows of the global batch (see the module's docstring)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -71,18 +90,34 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, *, act="swiglu",
 
     # load-balancing aux loss (Switch-style)
     me = probs.mean(dim=0)
-    ce = torch.bincount(expert_ids[:, 0], minlength=E).float() / T
+    first = torch.bincount(expert_ids[:, 0], minlength=E).float()
+    n, before = 1, None
+    if rows is not None:
+        # every rank's mean probabilities, first choices and (token,
+        # slot) pairs per expert, in row order
+        every = rows.gather(torch.stack([
+            me.detach(), first,
+            torch.bincount(expert_ids.reshape(-1), minlength=E).float()]))
+        n = every.shape[0]
+        # the global value, with this rank's gradient
+        me = every[:, 0].mean(0) + (me - me.detach())
+        first = every[:, 1].sum(0)
+        before = every[:rows.index, 2].sum(0).long()
+    ce = first / (T * n)
     aux = {"load_balance": E * torch.sum(me * ce)}
 
-    cap = int(max(1, T * K * cfg.capacity_factor / E))
+    cap = int(max(1, T * n * K * cfg.capacity_factor / E))
     dispatch = _ghost_dispatch if cfg.ghost_dispatch else _dense_dispatch
-    out = dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act)
+    out = dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act, before)
     return out.reshape(B, S, d), aux
 
 
-def _ghost_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act):
+def _ghost_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act,
+                    before=None):
     """Sparse dispatch: sort by expert (sigma-sort analogue), compressed
-    integer gather/scatter (remote-column compression analogue)."""
+    integer gather/scatter (remote-column compression analogue).
+    ``before`` (E,): the pairs each expert takes ahead of these tokens'
+    (the ranks before this one); a pair is dropped at position ``cap``."""
     T, d = xt.shape
     dev = xt.device
     flat_e = expert_ids.reshape(T * K)
@@ -96,16 +131,18 @@ def _ghost_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act):
     seg_start = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
     pos_in_e = torch.arange(T * K, device=dev) - seg_start[e_sorted]
 
-    keep = pos_in_e < cap                                    # capacity drop
-    slot = torch.where(keep, e_sorted * cap + pos_in_e, E * cap)
+    pos = pos_in_e if before is None else pos_in_e + before[e_sorted]
+    keep = pos < cap                                         # capacity drop
+    room = min(cap, T * K)             # the workspace's rows an expert
+    slot = torch.where(keep, e_sorted * room + pos_in_e, E * room)
 
-    # gather tokens into the (E*cap, d) workspace; dropped slots land in
+    # gather tokens into the (E*room, d) workspace; dropped slots land in
     # the spare last row
-    buf = torch.zeros((E * cap + 1, d), dtype=xt.dtype, device=dev)
+    buf = torch.zeros((E * room + 1, d), dtype=xt.dtype, device=dev)
     buf[slot] = xt[t_sorted]
-    xe = buf[:E * cap].reshape(E, cap, d)
+    xe = buf[:E * room].reshape(E, room, d)
 
-    ye = _expert_ffn(p, xe, act).reshape(E * cap, d)
+    ye = _expert_ffn(p, xe, act).reshape(E * room, d)
 
     # combine: weighted scatter-add back to tokens (the SpMMV y += A @ x
     # step, as a segment sum)
@@ -116,16 +153,18 @@ def _ghost_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act):
     return out.to(xt.dtype)
 
 
-def _dense_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act):
+def _dense_dispatch(p, xt, expert_ids, gate_vals, E, K, cap, act,
+                    before=None):
     """Conventional one-hot dispatch/combine (the 'dense storage'
-    baseline)."""
+    baseline); ``before`` as in :func:`_ghost_dispatch`."""
     T, d = xt.shape
     oh = torch.nn.functional.one_hot(expert_ids, E)          # (T, K, E)
     pos = torch.cumsum(oh.reshape(T * K, E), dim=0).reshape(T, K, E) - 1
     pos = torch.sum(pos * oh, dim=-1)                        # (T, K)
-    keep = pos < cap
+    keep = (pos if before is None else pos + before[expert_ids]) < cap
+    room = min(cap, T * K)
     # a position at or past cap has an all-zero one-hot row, as in JAX
-    oh_pos = torch.nn.functional.one_hot(pos.clamp(max=cap - 1), cap) \
+    oh_pos = torch.nn.functional.one_hot(pos.clamp(max=room - 1), room) \
         * keep[..., None]
     disp = (oh.to(xt.dtype)[..., :, None] * oh_pos.to(xt.dtype)[..., None, :])
     xe = torch.einsum("td,tkec->ecd", xt, disp)

@@ -2,9 +2,11 @@
 philosophy (paper C4) mapped onto the pod mesh, as pure functions of leaf
 shapes.
 
-The port of ``repro/models/sharding.py``'s rules.  On one card nothing is
-placed: the dry run reads these specs to size each device's shard of the
-production meshes (``launch/mesh.py``).  A spec is a tuple with one entry
+The port of ``repro/models/sharding.py``.  The dry run reads these specs
+to size each device's shard of the production meshes
+(``launch/mesh.py``); a trainer on a mesh of ranks places its leaves by
+them (:func:`shard_index`, :func:`shard`, :func:`gather`, the
+counterpart of ``named``).  A spec is a tuple with one entry
 per dim: ``None``, an axis name, or a tuple of names, normalised as a JAX
 ``PartitionSpec`` normalises its entries (a one-name tuple becomes the
 name, an empty one ``None``), so ``tuple(PartitionSpec)`` of the JAX
@@ -29,16 +31,27 @@ single-pod.  Strategy:
 Every proposed axis is divisibility-guarded: a dim that does not divide the
 mesh axis is replicated instead.
 
-``constrain``, ``ambient_mesh``, ``tp_size`` and ``named`` have nothing to
-do on one card and have no counterpart.
+Placement: an entry shards its dim over the product of its axes,
+row-major in the tuple's order (``("data", "model")`` puts the block of
+``(i, j)`` at ``i * model + j``), as a JAX ``NamedSharding`` places it;
+a dim without axes is whole on every rank.  ``constrain``,
+``ambient_mesh`` and ``tp_size`` steer the JAX compiler's placement of
+activations and have no counterpart: a trainer on ranks gathers the full
+leaves for its forward.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import Mesh
 
 __all__ = ["set_layout", "get_layout", "dp_axes", "guard_spec",
            "param_specs", "batch_specs", "cache_specs", "opt_specs",
-           "Spec", "flatten", "shard_bytes"]
+           "Spec", "flatten", "shard_bytes", "axes_of", "shard_index",
+           "shard", "gather"]
 
 #: one entry per dim: None, an axis name, or a tuple of axis names
 Entry = Optional[Union[str, Tuple[str, ...]]]
@@ -333,17 +346,96 @@ def flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def axes_of(entry: Entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, in its order."""
+    return () if entry is None else entry if isinstance(entry, tuple) \
+        else (entry,)
+
+
 def shard_bytes(leaves: Mapping[str, Any], specs: Mapping[str, Spec],
                 mesh) -> int:
     """Bytes one device holds of ``leaves`` (tensors, e.g. on ``meta``)
     sharded by ``specs``: each leaf's bytes over the product of the mesh
-    axes its dims are sharded on (the specs are divisibility-guarded)."""
+    axes its dims are sharded on (the specs are divisibility-guarded).
+    A rank of a trainer on a mesh holds exactly this many bytes of its
+    optimizer state under ``opt_specs`` (its parameters are whole)."""
     total = 0
     for path, leaf in leaves.items():
         parts = 1
         for ax in specs[path]:
-            for a in (() if ax is None else
-                      ax if isinstance(ax, tuple) else (ax,)):
+            for a in axes_of(ax):
                 parts *= mesh.shape[a]
         total += leaf.numel() * leaf.element_size() // parts
     return total
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def shard_index(spec, shape, mesh, coord: Sequence[int]
+                ) -> Tuple[slice, ...]:
+    """The slices of a leaf of ``shape`` that the device at mesh
+    coordinate ``coord`` (one index per ``mesh.axis_names``) holds under
+    ``spec``: ``slice(None)`` for a whole dim (no axes, or axes of size
+    1), else its block, the blocks
+    numbered row-major over the entry's axes in their order.  Equal to
+    JAX's ``NamedSharding(mesh, spec).devices_indices_map(shape)`` for
+    that device.  A dim that its axes do not divide raises (the rules'
+    specs are guarded)."""
+    spec = P(*spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    at = dict(zip(mesh.axis_names, coord))
+    out = []
+    for dim, entry in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        axes = axes_of(entry)
+        if not axes:
+            out.append(slice(None))
+            continue
+        parts, pos = 1, 0
+        for a in axes:
+            parts *= mesh.shape[a]
+            pos = pos * mesh.shape[a] + at[a]
+        if parts == 1:
+            out.append(slice(None))
+            continue
+        if dim % parts:
+            raise ValueError(f"dim {dim} does not divide over {axes} "
+                             f"({parts} parts)")
+        size = dim // parts
+        out.append(slice(pos * size, (pos + 1) * size))
+    return tuple(out)
+
+
+def shard(full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's slice of ``full`` under ``spec`` on ``mesh`` (a
+    ``DeviceMesh``), as a tensor of its own."""
+    idx = shard_index(spec, full.shape, Mesh.of(mesh), mesh.get_coordinate())
+    return full[idx].clone(memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, spec, shape, mesh) -> torch.Tensor:
+    """The full leaf of ``shape`` from each rank's slice ``local`` under
+    ``spec``: for each dim, ``all_gather_into_tensor`` over each of its
+    axes' groups on ``mesh`` (a ``DeviceMesh``), the last axis of an entry
+    first, so the blocks come together in the spec's order.  A spec that
+    names no axis returns ``local`` itself."""
+    spec = P(*spec)
+    out = local
+    for d, entry in enumerate(spec):
+        for a in reversed(axes_of(entry)):
+            group = mesh.get_group(a)
+            n = dist.get_world_size(group)
+            out = out.contiguous()
+            shp = tuple(out.shape)
+            buf = out.new_empty((n * shp[0],) + shp[1:])
+            dist.all_gather_into_tensor(buf, out, group=group)
+            if d:
+                buf = buf.reshape((n,) + shp).movedim(0, d).reshape(
+                    shp[:d] + (n * shp[d],) + shp[d + 1:])
+            out = buf
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"gathered {tuple(out.shape)}, expected "
+                         f"{tuple(shape)}")
+    return out

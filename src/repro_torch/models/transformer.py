@@ -293,7 +293,7 @@ def _cross_attend(cfg: ModelConfig, p, x, enc):
     return x + out
 
 
-def _apply_ffn(cfg: ModelConfig, p, x, kind):
+def _apply_ffn(cfg: ModelConfig, p, x, kind, rows=None):
     aux = {}
     if kind == "none" or len(p) == 0:
         return x, aux
@@ -301,7 +301,8 @@ def _apply_ffn(cfg: ModelConfig, p, x, kind):
     if kind == "mlp":
         x = x + L.mlp_apply(p["mlp"], h, act=cfg.act)
     else:
-        out, aux = MOE.moe_apply(p["moe"], h, cfg.moe, act=cfg.act)
+        out, aux = MOE.moe_apply(p["moe"], h, cfg.moe, act=cfg.act,
+                                 rows=rows)
         x = x + out
     return x, aux
 
@@ -326,7 +327,7 @@ def _embed(cfg: ModelConfig, model: Model, tokens, first_pos: int):
 
 
 def _run_period(cfg: ModelConfig, p, x, aux, causal, positions,
-                positions3, enc):
+                positions3, enc, rows):
     """One period of the pattern over ``x``; ``aux`` accumulates the
     load-balancing losses."""
     for i, (mix, ffn) in enumerate(cfg.pattern):
@@ -335,28 +336,30 @@ def _run_period(cfg: ModelConfig, p, x, aux, causal, positions,
                             positions3=positions3, causal=causal)
         if enc is not None and "xattn" in pm:
             x = _cross_attend(cfg, pm, x, enc)
-        x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn)
+        x, a = _apply_ffn(cfg, p[f"l{i}_ffn"], x, ffn, rows)
         if "load_balance" in a:
             aux = aux + a["load_balance"]
     return x, aux
 
 
 def _run_stack(cfg: ModelConfig, stack, x, *, causal, positions,
-               positions3, enc=None):
+               positions3, enc=None, rows=None):
     """The periods of ``stack`` over ``x``; with ``enc``, each attention
-    layer that has a cross-attention attends to those encoder states.
+    layer that has a cross-attention attends to those encoder states;
+    ``rows`` goes to the MoE layers (``moe.RowShare``).
     Each period is recomputed in the backward pass when a gradient flows
     (``layers.remat``).  Returns ``(x, summed load-balancing loss)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in stack:
         def period(x, aux, enc, p=p):
             return _run_period(cfg, p, x, aux, causal, positions,
-                               positions3, enc)
+                               positions3, enc, rows)
         x, aux = L.remat(period, x, aux, enc, weights=p.parameters())
     return x, aux
 
 
-def encode(cfg: ModelConfig, model: Model, enc_embeds: torch.Tensor):
+def encode(cfg: ModelConfig, model: Model, enc_embeds: torch.Tensor,
+           rows=None):
     """The encoder of an encoder-decoder model: sinusoidal positions
     added to the frontend's frame embeddings (B, S_enc, d), the
     bidirectional stack, ``enc_norm``.  Returns ``(states, aux_loss)``."""
@@ -364,38 +367,41 @@ def encode(cfg: ModelConfig, model: Model, enc_embeds: torch.Tensor):
     e = e + L.sinusoidal_positions(e.shape[1], cfg.d_model,
                                    e.device)[None].to(e.dtype)
     e, aux = _run_stack(cfg, model.encoder, e, causal=False,
-                        positions=None, positions3=None)
+                        positions=None, positions3=None, rows=rows)
     return L.apply_norm(cfg.norm, model.enc_norm, e), aux
 
 
-def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
+def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
+            rows=None):
     """Returns ``(logits, aux_loss)``: float32 logits (B, S, padded_vocab).
 
     ``batch["tokens"]`` (B, S) integers, the decoder's tokens; for an
     encoder-decoder model also ``enc_embeds`` (B, S_enc, d), the stub
     frontend's output; for an mrope model optionally ``positions3``
-    (B, S, 3).
+    (B, S, 3).  ``rows`` (``moe.RowShare``): the batch is this rank's
+    rows of a global batch split over ranks, for the MoE layers.
     """
     x, positions, positions3 = _embed(cfg, model, batch["tokens"], 0)
     if batch.get("positions3") is not None:
         positions3 = batch["positions3"]
     enc, aux = None, 0.0
     if cfg.enc_dec:
-        enc, aux = encode(cfg, model, batch["enc_embeds"])
+        enc, aux = encode(cfg, model, batch["enc_embeds"], rows)
     x, aux_d = _run_stack(cfg, model.decoder, x, causal=True,
                           positions=positions, positions3=positions3,
-                          enc=enc)
+                          enc=enc, rows=rows)
     x = L.apply_norm(cfg.norm, model.final_norm, x)
     return L.lm_head_apply(model.embed, x, model.lm_head), aux_d + aux
 
 
-def loss_fn(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
+def loss_fn(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
+            rows=None):
     """Next-token cross entropy over the padded vocabulary (+ 0.01 x the
     MoE load-balancing loss).  ``batch["labels"]`` (B, S) integers;
     optional ``batch["loss_mask"]`` (B, S) weights the positions.
     Returns ``(loss, {"ce": cross entropy, "aux": load-balancing loss})``,
-    as the JAX package's ``loss_fn``."""
-    logits, aux = forward(cfg, model, batch)
+    as the JAX package's ``loss_fn``.  ``rows`` as in :func:`forward`."""
+    logits, aux = forward(cfg, model, batch, rows)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]

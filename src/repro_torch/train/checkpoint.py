@@ -12,7 +12,12 @@ format, so a checkpoint written by either package restores in the other:
 * writes are atomic: ``step_<N>.tmp`` -> fsync -> rename, so a crash
   mid-write never corrupts the latest checkpoint; ``latest_step`` skips
   ``.tmp`` directories and directories without a manifest;
-* a retention policy keeps the newest ``keep`` checkpoints.
+* a retention policy keeps the newest ``keep`` checkpoints;
+* on a mesh of ranks the arrays are the logical (full) leaves: one rank
+  writes (``CheckpointManager(writer=)``) and every rank waits at the
+  manager's ``barrier`` before any reads ``latest_step``; every rank
+  restores the logical arrays and keeps its own slice, so a checkpoint
+  resumes on any mesh (the elastic restore) or on one device.
 
 A tree here is nested dicts, tuples and lists whose leaves are tensors or
 numpy arrays.  bfloat16 has no numpy dtype: the JAX package's bfloat16
@@ -26,7 +31,7 @@ import json
 import os
 import shutil
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 
@@ -141,18 +146,34 @@ def restore_checkpoint(directory: str, step: int, tree_like):
 
 
 class CheckpointManager:
-    """Periodic save + retention + resume (the trainer's FT backbone)."""
+    """Periodic save + retention + resume (the trainer's FT backbone).
+    On a mesh of ranks only the ``writer`` writes, and every rank calls
+    ``barrier`` after a save."""
 
-    def __init__(self, directory: str, *, every: int = 50, keep: int = 3):
+    def __init__(self, directory: str, *, every: int = 50, keep: int = 3,
+                 writer: bool = True,
+                 barrier: Optional[Callable[[], Any]] = None):
         self.directory = directory
         self.every = every
         self.keep = keep
+        self.writer = writer
+        self.barrier = barrier
 
     def maybe_save(self, step: int, tree, *, extra=None, force=False):
+        """Save ``tree`` (or what the function ``tree`` returns, called
+        only when a checkpoint is due) as step ``step`` every ``every``
+        steps, or now with ``force``; returns the path (``None`` when
+        nothing was written here)."""
         if not force and (step == 0 or step % self.every != 0):
             return None
-        path = save_checkpoint(self.directory, step, tree, extra=extra)
-        self._retain()
+        if callable(tree):
+            tree = tree()
+        path = None
+        if self.writer:
+            path = save_checkpoint(self.directory, step, tree, extra=extra)
+            self._retain()
+        if self.barrier is not None:
+            self.barrier()
         return path
 
     def _retain(self):

@@ -63,6 +63,33 @@ def test_planning_layer_is_scanned():
             "launch/refresh_costs.py", "launch/roofline.py"} <= names
 
 
+def test_mesh_training_is_scanned():
+    """The multi-device half of training (ranks and the host mesh,
+    placement by the sharding rules, the sharded batch, the compressed
+    all-reduce, the mesh trainer, the elastic checkpoint, the launcher,
+    the MoE's dispatch of a rank's rows) lives in files that are scanned for
+    JAX imports and hold no ``try``."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh, train
+    from repro_torch.models import moe, sharding
+    from repro_torch.train import checkpoint, optimizer, trainer
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES
+             if PORT in p.parents}
+    files = {"launch/mesh.py", "models/sharding.py", "data/pipeline.py",
+             "train/optimizer.py", "train/trainer.py",
+             "train/checkpoint.py", "launch/train.py", "models/moe.py"}
+    assert files <= names and files <= set(NO_TRY)
+    for module, fns in ((mesh, ("init_ranks", "make_host_mesh")),
+                        (sharding, ("shard_index", "shard", "gather")),
+                        (pipeline, ("make_global_batch",)),
+                        (optimizer, ("compressed_psum",)),
+                        (moe, ("RowShare",))):
+        assert set(fns) <= set(module.__all__), module.__name__
+    assert "mesh" in trainer.Trainer.__init__.__code__.co_varnames
+    assert "barrier" in checkpoint.CheckpointManager.__init__.__code__.co_varnames
+    assert callable(train.main)
+
+
 def test_runtime_is_scanned():
     """The serving runtime and the heterogeneous engine are among the
     files scanned for JAX imports."""
@@ -550,3 +577,33 @@ def test_chip_smoke_dryrun_phase_rehearses_on_cpu(monkeypatch):
     assert not (REPO / "build" / "chip_smoke_dryrun").exists()
     assert set(chip_smoke.DRYRUN_MEASURED) <= set(dryrun_cells())
     assert set(chip_smoke.DRYRUN_NO_FIT) <= set(chip_smoke.DRYRUN_MEASURED)
+
+
+def test_chip_smoke_mesh_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 25 (training on a mesh of 4 ranks) on the
+    CPU: four ``gloo`` ranks, ``compressed_psum``, the SMOKE parity of
+    every layout (an MoE config at its own capacity factor too), resume
+    and elastic restore, and the full-width part at
+    the registered SMOKE widths and a short sequence (the ranks take the
+    settings of this process); the card run's shapes are llama3.2-3b's
+    published widths, 2 periods, global batch 4 x S 2048 on (2, 2)."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    assert (chip_smoke.MESH_FULL_BATCH, chip_smoke.MESH_FULL_SEQ,
+            chip_smoke.MESH_FULL_PERIODS) == (4, 2048, 2)
+    for name, value in (("DEVICE", "cpu"), ("LM_WIDTHS", "smoke"),
+                        ("MESH_PSUM_N", 1000), ("MESH_FULL_SEQ", 16),
+                        ("MESH_FULL_TIMED", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.phase_mesh("cpu rehearsal")
+    assert out["backend"] == "gloo" and len(out["ranks"]) == 4
+    for rank in out["ranks"]:
+        assert rank["devices"] == ["cpu"] * 4
+        assert rank["psum"]["err16"] <= 2.0 ** -6
+        assert len(rank["smoke"]) == 3 * 3 + 1
+        full = rank["full"]
+        assert len(full["resumed"]) == 2 and np.isfinite(full["losses"]).all()
+        assert full["gap"] <= chip_smoke.MESH_BF16_TOL
+        assert 10 * full["gap"] <= full["gap_control"]
+        assert all(r["held_o"] == r["want_o"] > 0 for r in full["per_rank"])
+    assert not (REPO / "build" / "chip_smoke_mesh").exists()

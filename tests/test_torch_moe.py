@@ -9,6 +9,12 @@ pick the same experts.  Tolerance: max |port - JAX| over max |JAX| 2e-6
 (the same float32 products summed in other orders; the largest seen is
 2.4e-7); the load-balancing loss 1e-6 relative.  A capacity of 1.0 drops
 tokens; both packages must drop the same ones (stable sort by expert).
+
+A batch split into blocks of rows (a trainer's ranks) with
+``rows=RowShare(...)`` gives, block by block, the JAX package's output of
+the whole batch: the same capacity, the same dropped tokens, the same
+load-balancing loss.  The ranks' gather is played here in one process:
+a first pass records each block's statistics, a second returns them all.
 """
 import dataclasses
 
@@ -110,3 +116,54 @@ def test_init_matches_jax_layout(act):
         assert tuple(p[k].shape) == tuple(jp[k].shape), k
     assert p["router"].dtype == torch.float32
     assert p["wi"].dtype == torch.bfloat16
+
+
+def _split_apply(tp, x, cfg, n, act):
+    """``x``'s rows in ``n`` blocks, each through ``moe_apply`` as rank
+    ``r`` of ``n`` (``RowShare``); returns the outputs stacked back and
+    each block's load-balancing loss."""
+    b = x.shape[0] // n
+    seen = [None] * n
+
+    def run(r, gather):
+        return M.moe_apply(tp, x[r * b:(r + 1) * b], cfg, act=act,
+                           rows=M.RowShare(gather=gather, index=r))
+
+    for r in range(n):                  # the statistics of every block
+        def record(t, r=r):
+            seen[r] = t.clone()
+            return t[None].repeat((n,) + (1,) * t.ndim)
+        run(r, record)
+    outs = [run(r, lambda t: torch.stack(seen)) for r in range(n)]
+    return (torch.cat([o for o, _ in outs]),
+            [float(a["load_balance"]) for _, a in outs])
+
+
+@pytest.mark.parametrize("ghost", [True, False])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("cf", [1.0, 1.25])
+def test_split_rows_dispatch_as_the_whole_batch(rng, ghost, n, cf):
+    """Blocks of rows with ``rows`` give the JAX output of the whole
+    batch (tokens are dropped at this capacity: the capacity factor 8
+    output differs); blocks dispatched each on their own do not."""
+    d, f, E, K, B, S = 16, 32, 4, 2, 4, 12
+    jp, tp = _weights(rng, d, f, E, "swiglu")
+    # a direction shared by every token loads some experts more
+    x = (rng.standard_normal((B, S, d))
+         + rng.standard_normal(d)).astype(np.float32)
+    jcfg = JM.MoEConfig(n_experts=E, top_k=K, capacity_factor=cf,
+                        ghost_dispatch=ghost)
+    tcfg = M.MoEConfig(n_experts=E, top_k=K, capacity_factor=cf,
+                       ghost_dispatch=ghost)
+    want, jaux = JM.moe_apply(jp, jnp.asarray(x), jcfg)
+    ample, _ = JM.moe_apply(jp, jnp.asarray(x),
+                            dataclasses.replace(jcfg, capacity_factor=8.0))
+    assert _rel(ample, want) > 1e-2             # the capacity drops tokens
+    got, aux = _split_apply(tp, torch.from_numpy(x), tcfg, n, "swiglu")
+    assert _rel(got, want) <= TOL
+    lb = float(jaux["load_balance"])
+    assert all(abs(a - lb) <= 1e-6 * abs(lb) for a in aux)
+    b = B // n
+    alone = torch.cat([M.moe_apply(tp, torch.from_numpy(x[r * b:(r + 1) * b]),
+                                   tcfg)[0] for r in range(n)])
+    assert _rel(alone, want) > 1e-2
