@@ -71,7 +71,9 @@ the card, holding every kernel against its plain PyTorch version:
     per-iteration estimate beside the measured one;
 15d. the device pool's bandwidths (``runtime/devicepool.py``'s table): a
     2 GiB float64 copy on the card and on the host, pinned copies between
-    them, beside the card's name and power limit and the host CPU model;
+    them, and (with two cards or more) a 2 GiB copy from ``cuda:0`` to
+    ``cuda:1``, beside the card's name and power limit, the card count
+    and the host CPU model;
 15e. slice 7's paper workload, ``mlgeer_like`` (``configs/ghost_spmv.py``:
     n = 1,504,002, band 40, density 0.9, b = 4, f64): the
     ``HeterogeneousEngine``'s distributed SpMV on 1 and 4 card shards and
@@ -90,6 +92,20 @@ the card, holding every kernel against its plain PyTorch version:
     the host), each generation held against the one-device SpMV;
 15h. engine-backed serving: the 4-shard engine in a ``MatrixRegistry``,
     CG requests with and without ``chebyshev:3``, true residuals;
+15i. slice 14: the engine with one shard a card.  The card count, peer
+    access between every pair and ``nvidia-smi topo -m``; with fewer than
+    two cards one line that says the phase did not run.  Else
+    ``mlgeer_like`` with one shard a card (phase 15e's 4-shard matrix
+    moved card by card where there are 4 cards): y and the dots bit-equal
+    to the same shards on one card and within 1e-12 of the one-device
+    plain SpMV, overlap against no overlap and the double-buffered chain
+    bit for bit, B1's launches, ms a matvec in turns against one card,
+    each card's stages timed alone, the copies the profiler saw beside B1
+    on each card, and the bytes a matvec moves between cards (halo, and
+    ``DistOperator``'s split and join); the host + every card plan within
+    1e-12, timed; CG through ``DistOperator`` on laplace3d(160) with the
+    iterations of the same shards on one card, true residuals, B1's
+    launches;
 16. B6 (the selective scan) against its plain version computed in
     float64, over batch, sequence length, d_inner and state size, with dt
     from 0 to large and A <= 0, each output held to a stated error bound
@@ -223,8 +239,9 @@ from repro_torch.configs import (get_config, get_smoke_config,  # noqa: E402
 from repro_torch.core import SpmvOpts, execution, from_coo  # noqa: E402
 from repro_torch.core.spmv import x_rows  # noqa: E402
 from repro_torch.core.distributed import (Staging, fused_epilogue,  # noqa: E402
-                                          halo_pack, halo_unpack,
-                                          local_stage, remote_stage)
+                                          halo_exchange, halo_pack,
+                                          halo_unpack, local_stage,
+                                          remote_stage)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_update  # noqa: E402
 from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
@@ -2372,17 +2389,26 @@ BW_BYTES, PIN_BYTES = 2 << 30, 1 << 30
 DIST_TOL = 1e-12
 
 
-def wall_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Host clock around ``iters`` calls that end in a synchronise: the
-    time of work shared between the card and the host."""
+def wall_ms(fn, warmup: int = 3, iters: int = 20, wait=None) -> float:
+    """Host clock around ``iters`` calls that end in a synchronise (``wait``,
+    default ``sync``): the time of work shared between the card and the
+    host, or between cards (``wait=sync_cards``)."""
+    wait = wait or sync
     for _ in range(warmup):
         fn()
-    sync()
+    wait()
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    sync()
+    wait()
     return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def sync_cards() -> None:
+    """Wait for every card (``sync`` waits for the current one only)."""
+    if DEVICE == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def host_cpu() -> str:
@@ -2410,7 +2436,7 @@ def _card_launches(A) -> int:
 
 
 def _split_line(A) -> str:
-    return ", ".join(f"{s.device.type}:{e - b} rows/{nnz} nnz/halo {s.nhalo}"
+    return ", ".join(f"{s.device} {e - b} rows/{nnz} nnz/halo {s.nhalo}"
                      for s, (b, e), nnz in zip(A.shards, A.row_ranges,
                                                A.shard_nnz))
 
@@ -2444,12 +2470,23 @@ def phase_bandwidths(card):
     d2h = PIN_BYTES / (time_ms(lambda: pinned.copy_(dev, non_blocking=True),
                                2, 10) * 1e-3)
     del pinned, dev
+    p2p = None
+    if torch.cuda.device_count() >= 2:
+        src = torch.ones(n, dtype=torch.float64, device="cuda:0")
+        dst = torch.empty(n, dtype=torch.float64, device="cuda:1")
+        with torch.cuda.device(0):
+            p2p = BW_BYTES / (time_ms(lambda: dst.copy_(src), 2, 10) * 1e-3)
+        del src, dst
     print(f"[bandwidth] card copy {dev_bw / 1e9:.1f} GB/s ({2 * BW_BYTES >> 30}"
           f" GiB read + written); host copy {host_bw / 1e9:.1f} GB/s "
           f"({torch.get_num_threads()} threads, best of 6); pinned host->card"
           f" {h2d / 1e9:.1f} GB/s, card->host {d2h / 1e9:.1f} GB/s "
-          f"({PIN_BYTES >> 30} GiB)  [{card}; host {cpu}]")
-    return dict(card=dev_bw, host=host_bw, h2d=h2d, d2h=d2h, cpu=cpu)
+          f"({PIN_BYTES >> 30} GiB); cuda:0->cuda:1 "
+          + ("not measured (one card)" if p2p is None else
+             f"{p2p / 1e9:.1f} GB/s ({BW_BYTES >> 30} GiB)")
+          + f"  [{card}; host {cpu}; {torch.cuda.device_count()} card(s)]")
+    return dict(card=dev_bw, host=host_bw, h2d=h2d, d2h=d2h, p2p=p2p,
+                cpu=cpu)
 
 
 # ---------------------------------------------------------------- phase 15e
@@ -2541,6 +2578,11 @@ def phase_mlgeer(card):
             out["profile"] = _matvec_profile(eng, xs, wl.nvecs, card)
         if "cpu" in devs:
             out["host_split"] = _host_split(eng, x, wl.nvecs, card)
+        if (label == f"{ENGINE_SHARDS} card shards"
+                and len(_cross_devices()) >= 2):
+            # phase 15i moves these shards onto the cards
+            out["keep"] = dict(eng=eng, x=x, y_ref=y_ref, coo=(r, c, v, n),
+                               kw=kw)
         del eng, A, xs, w, w2, stg
     return out
 
@@ -2605,29 +2647,40 @@ def _remote_timing(A, b, card):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, dev_ms=dev_ms)
 
 
-def _stage_split(A, xs, card):
-    """Where a card-only matvec's time goes: each stage of every shard
-    timed alone with CUDA events (pack, unpack and the epilogue with CG's
-    <x, y> dot are PyTorch; local and remote are B1), summed over the
-    shards."""
-    staging = Staging(A, xs[0].shape[1], A.dtype)
-    stack = staging.stacks[0][A.home]
+def _stage_split(A, xs, card, tag="mlgeer"):
+    """Where a card-shard matvec's time goes: on each card, each stage of
+    its shards timed alone with CUDA events there (pack, the copies into
+    it from other cards, unpack and the epilogue with CG's <x, y> are
+    PyTorch; local and remote are B1), summed over its shards.  Without
+    overlap a matvec takes at least the slowest card's sum."""
+    stacks = Staging(A, xs[0].shape[1], A.dtype).stacks[0]
     opts = SpmvOpts(dot_xy=True)
-    ms = dict.fromkeys(("pack", "unpack", "local B1", "remote B1",
-                        "epilogue"), 0.0)
-    for p in range(A.nshards):
-        halo = halo_unpack(A, p, stack)
-        y_loc = local_stage(A, p, xs[p])
-        ms["pack"] += time_ms(lambda: halo_pack(A, p, xs[p], stack))
-        ms["unpack"] += time_ms(lambda: halo_unpack(A, p, stack))
-        ms["local B1"] += time_ms(lambda: local_stage(A, p, xs[p]))
-        ms["remote B1"] += time_ms(lambda: remote_stage(A, p, halo, y_loc))
-        ms["epilogue"] += time_ms(lambda: fused_epilogue(y_loc, xs[p], opts))
-    print(f"[mlgeer] {A.nshards} card shards, stages timed alone and summed "
-          f"over the shards: " + ", ".join(f"{k} {v:.4f} ms"
-                                           for k, v in ms.items())
-          + f"  [{card}]")
-    return ms
+    per = {}
+    for c in A.cards:
+        mine = [p for p, s in enumerate(A.shards) if s.device == c]
+        stack = stacks[c]
+        ms = dict.fromkeys(("pack", "copies in", "unpack", "local B1",
+                            "remote B1", "epilogue"), 0.0)
+        with torch.cuda.device(c):
+            if any(p in mine for _, p, _, _ in A.copies):
+                ms["copies in"] = time_ms(lambda: [
+                    halo_exchange(A, p, stacks) for p in mine], 5, 20)
+            for p in mine:
+                halo = halo_unpack(A, p, stack)
+                y_loc = local_stage(A, p, xs[p])
+                ms["pack"] += time_ms(lambda: halo_pack(A, p, xs[p], stack))
+                ms["unpack"] += time_ms(lambda: halo_unpack(A, p, stack))
+                ms["local B1"] += time_ms(lambda: local_stage(A, p, xs[p]))
+                ms["remote B1"] += time_ms(
+                    lambda: remote_stage(A, p, halo, y_loc))
+                ms["epilogue"] += time_ms(
+                    lambda: fused_epilogue(y_loc, xs[p], opts))
+        per[str(c)] = ms
+        print(f"[{tag}] {c}: {len(mine)} shard(s), stages timed alone and "
+              f"summed over them: " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f" (sum {sum(ms.values()):.4f} ms)  [{card}]")
+    return per
 
 
 def _matvec_profile(eng, xs, b, card):
@@ -2837,6 +2890,256 @@ def phase_engine_serving(eng, fw, card) -> int:
           f"preconditioner {iters}, drained in {wall:.3f} s, B1 launches "
           f"{got}  [{card}]")
     return got
+
+
+# ---------------------------------------------------------------- phase 15i
+#: a CPU rehearsal of phase 15i: how many host devices stand in for cards
+CROSS_REHEARSAL = ENGINE_SHARDS
+
+
+def _cross_devices():
+    """Phase 15i's devices, one shard each: every card of the machine."""
+    if DEVICE == "cpu":
+        return ["cpu"] * CROSS_REHEARSAL
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+def _between_cards(A, b) -> tuple:
+    """Bytes one matvec moves between two cards: the halo copies, and
+    ``DistOperator``'s split of x and join of y (every shard's slice off
+    the home device, out and back)."""
+    item = A.dtype.itemsize
+    halo = sum(n for q, p, _, n in A.copies
+               if "cuda" == A.devices[q].type == A.devices[p].type)
+    off = sum(s.nrows_pad for s in A.shards if s.device != A.home)
+    return halo * b * item, 2 * off * b * item
+
+
+def _spans(prof, frag):
+    """Per device index, the sorted time intervals (us) of the CUDA events
+    whose name holds ``frag``."""
+    out = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and frag in e.name):
+            out.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    return {dev: sorted(iv) for dev, iv in out.items()}
+
+
+def _cross_overlap(run, calls, card):
+    """Where the copies ran, seen by the profiler over ``calls`` matvecs:
+    per card (the card whose stream issued them), their time, how much
+    of it a B1 kernel ran beside on that card, and how many began before
+    the matvec's first B1 there (on the side stream, ahead of the local
+    SpMV; a copy queued behind the local SpMV begins after it)."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    sync_cards()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        sync_cards()
+    copies, b1 = _spans(prof, "Memcpy"), _spans(prof, "sellcs_spmv")
+    if not copies:
+        print(f"[cross] copies under the profiler: not measured (the "
+              f"profiler saw no copy)  [{card}]")
+        return None
+    out = {}
+    for dev, cs in sorted(copies.items()):
+        ks = b1.get(dev, [])
+        per = max(1, round(len(ks) / calls))      # B1 launches a matvec
+        ahead = sum(sum(e <= a for _, e in ks) % per == 0 for a, _ in cs)
+        beside = sum(max(0.0, min(b, d) - max(a, c))
+                     for a, b in cs for c, d in ks)
+        out[dev] = dict(n=len(cs), ahead=ahead,
+                        ms=sum(b - a for a, b in cs) * 1e-3 / calls,
+                        beside_ms=beside * 1e-3 / calls)
+    print(f"[cross] copies under the profiler, {calls} matvecs: " + "; ".join(
+        f"card {dev} {o['n']} copies, {o['ms']:.4f} ms a matvec, "
+        f"{o['beside_ms']:.4f} of it beside B1, {o['ahead']} began before "
+        f"the matvec's first B1 there" for dev, o in out.items())
+        + f"  [{card}]")
+    return out
+
+
+def phase_cross_cards(mlg, ecg, fw, card):
+    """Slice 14's main path: the engine with one shard a card.
+    ``mlgeer_like`` (phase 15e's partition moved card by card where the
+    card count is ENGINE_SHARDS) against the same shards on one card, bit
+    for bit, and against the one-device plain SpMV; overlap against none;
+    the double-buffered chain; B1's launches; ms a matvec; the stage
+    split and the overlap under the profiler; the bytes between cards;
+    then the host + every card plan, and CG through DistOperator on
+    laplace3d(NX) against phase 15f.  Says so, and checks nothing, where
+    the machine has fewer than two cards."""
+    devs = _cross_devices()
+    k = len(devs)
+    if DEVICE == "cuda":
+        peers = ", ".join(f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+                          for i in range(k) for j in range(k) if i != j)
+        print(f"[cross] torch.cuda.device_count() {k}; "
+              f"can_device_access_peer: {peers or 'no pair'}")
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True, check=False)
+        print("[cross] nvidia-smi topo -m:\n"
+              + (topo.stdout.rstrip() or topo.stderr.rstrip()))
+    if k < 2:
+        print(f"[cross] NOT RUN: the engine across cards needs two cards or"
+              f" more, and this machine has {k}; nothing of phase 15i was "
+              f"checked on this call  [{card}]")
+        return {"ran": False, "launches": 0}
+    keep = mlg["keep"]
+    x, y_ref, b = keep["x"], keep["y_ref"], keep["x"].shape[1]
+    out = {"ran": True, "launches": 0}
+    if k == ENGINE_SHARDS:
+        one = keep["eng"]
+    else:
+        t0 = time.perf_counter()
+        one = HeterogeneousEngine(*keep["coo"], devices=[devs[0]] * k,
+                                  **keep["kw"])
+        print(f"[cross] {k} shards on one card: built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    many = one.on(devs)
+    sync_cards()
+    move_s = time.perf_counter() - t0
+    A = many.A
+    opts = SpmvOpts(dot_yy=True, dot_xy=True, dot_xx=True)
+    y1, d1 = one.spmv(x, opts=opts)
+    execution.reset_launch_counts()
+    y, d = many.spmv(x, opts=opts)
+    sync_cards()
+    got = execution.launch_counts().get(KERNEL, 0)
+    require(got == _card_launches(A), f"cross mlgeer: {got} B1 launches, "
+            f"expected {_card_launches(A)}")
+    out["launches"] += got
+    require(torch.equal(y, y1) and torch.equal(d, d1),
+            "cross mlgeer: y or the dots differ from the same shards on one "
+            "card")
+    err = rel_err(y, y_ref)
+    require(err <= DIST_TOL, f"cross mlgeer: {err:.3e} of max|y| off the "
+            f"plain one-device SpMV")
+    yn, dn = many.spmv(x, opts=opts, overlap=False)
+    require(torch.equal(y, yn) and torch.equal(d, dn),
+            "cross mlgeer: overlap changed bits")
+    xs, xs1 = A.distribute_vec(x), one.A.distribute_vec(x)
+    run_db = many.make_matvec(nvecs=b, double_buffer=True)
+    run_nb = many.make_matvec(nvecs=b)
+    w, w2, stg = xs, xs, None
+    for _ in range(3):
+        w, _, stg = run_db(w, staging=stg)
+        w2, _, _ = run_nb(w2)
+    require(all(torch.equal(a, c) for a, c in zip(w, w2)),
+            "cross mlgeer: double-buffered chain differs")
+    ms = {True: [], False: []}
+    one_ms = []
+    for _ in range(2):
+        one_ms.append(wall_ms(lambda: one.make_matvec(nvecs=b)(xs1),
+                              wait=sync_cards))
+        for ov in (True, False):
+            ms[ov].append(wall_ms(lambda: many.make_matvec(
+                nvecs=b, overlap=ov)(xs), wait=sync_cards))
+    out["ms"], out["one_ms"] = ms, one_ms
+    halo_b, split_b = _between_cards(A, b)
+    out["split_join_bytes"] = split_b
+    op, op1 = many.operator(), one.operator()
+    v = op.to_op_space(x.to(A.home))
+    v1 = op1.to_op_space(x.to(one.A.home))
+    mv_ms, mv1_ms = (wall_ms(lambda: op.mv(v), wait=sync_cards),
+                     wall_ms(lambda: op1.mv(v1), wait=sync_cards))
+    print(f"[cross] {MLGEER} on {k} cards, one shard a card (moved from one"
+          f" card in {move_s:.1f} s): {_split_line(A)}; y and the dots equal"
+          f" the same shards on one card bit for bit, max|dy| {err:.2e} of "
+          f"max|y| against the plain one-device SpMV; overlap == no overlap "
+          f"and the double-buffered chain == unbuffered bit for bit; B1 "
+          f"launches {got}; ms a matvec in turns: on one card "
+          f"{' / '.join(f'{t:.4f}' for t in one_ms)}, across cards with "
+          f"overlap {' / '.join(f'{t:.4f}' for t in ms[True])}, without "
+          f"{' / '.join(f'{t:.4f}' for t in ms[False])}; between cards a "
+          f"matvec: halo copies {halo_b} B, DistOperator's split and join "
+          f"{split_b} B; DistOperator.mv {mv_ms:.4f} ms against "
+          f"{mv1_ms:.4f} on one card  [{card}]")
+    if DEVICE == "cuda":
+        out["stages"] = _stage_split(A, xs, card, "cross")
+        out["overlap"] = _cross_overlap(
+            lambda: many.make_matvec(nvecs=b)(xs), 20, card)
+    del w, w2, stg, xs, xs1, op, op1, v, v1, y1, d1, y, d, yn, dn
+    if k != ENGINE_SHARDS:
+        del one
+    del many, A
+
+    # the host + every card plan: the pool's weights
+    t0 = time.perf_counter()
+    heng = HeterogeneousEngine(*keep["coo"], devices=devs + ["cpu"],
+                               **keep["kw"])
+    sync_cards()
+    build_s = time.perf_counter() - t0
+    execution.reset_launch_counts()
+    yh, _ = heng.spmv(x)
+    sync_cards()
+    got = execution.launch_counts().get(KERNEL, 0)
+    require(got == _card_launches(heng.A), f"cross host + cards: {got} B1 "
+            f"launches, expected {_card_launches(heng.A)}")
+    out["launches"] += got
+    err = rel_err(yh, y_ref)
+    require(err <= DIST_TOL, f"cross host + cards: {err:.3e} of max|y| off")
+    xsh = heng.A.distribute_vec(x)
+    out["host_ms"] = wall_ms(lambda: heng.make_matvec(nvecs=b)(xsh),
+                             wait=sync_cards)
+    print(f"[cross] host + {k} cards: build {build_s:.1f} s; "
+          f"{_split_line(heng.A)}; max|dy| {err:.2e} of max|y|; B1 launches"
+          f" {got}; {out['host_ms']:.4f} ms a matvec  [{card}]")
+    del heng, xsh, yh
+
+    # CG through DistOperator on laplace3d(NX), one shard a card
+    r, c, v_, n = fw["coo"]
+    A64 = fw["A64"]
+    bvec = torch.from_numpy(fw["b_host"]).to(DEVICE)
+    base = ecg[f"{ENGINE_SHARDS} card shards"]
+    if k == ENGINE_SHARDS:
+        eng1, base_iters = base["eng"], base["iters"]
+    else:
+        eng1 = HeterogeneousEngine(r, c, v_, n, devices=[devs[0]] * k,
+                                   C=32, sigma=1024, dtype=np.float64)
+        op1 = eng1.operator()
+        base_iters = int(cg(op1, op1.to_op_space(bvec), tol=ENGINE_TOL,
+                            maxiter=3000).iters)
+    ceng = eng1.on(devs)
+    op = ceng.operator()
+    bop = op.to_op_space(bvec)
+    execution.reset_launch_counts()
+    sync_cards()
+    t0 = time.perf_counter()
+    res = cg(op, bop, tol=ENGINE_TOL, maxiter=3000)
+    sync_cards()
+    secs = time.perf_counter() - t0
+    got = execution.launch_counts().get(KERNEL, 0)
+    want = (res.iters + dropped("cg") + 1) * _card_launches(ceng.A)
+    require(got == want, f"cross CG: {got} B1 launches != (iters + "
+            f"discarded + 1) x per-matvec = {want}")
+    out["launches"] += got
+    rel = _relres_cols(A64, bvec, op.from_op_space(res.x))
+    require(bool(res.converged.all()), "cross CG: not converged")
+    require(bool((rel <= 10 * ENGINE_TOL).all()),
+            f"cross CG: true residuals {rel.tolist()}")
+    require(int(res.iters) == base_iters, f"cross CG: {res.iters} "
+            f"iterations, {base_iters} with the same shards on one card")
+    out["cg_iters"] = int(res.iters)
+    mv_ms = wall_ms(lambda: op.mv_fused(bop, opts=SpmvOpts(dot_xy=True)),
+                    wait=sync_cards)
+    halo_b, split_b = _between_cards(ceng.A, bvec.shape[1])
+    print(f"[cross] CG through DistOperator on laplace3d("
+          f"{round(n ** (1 / 3))}), {k} cards: "
+          f"{res.iters} iterations (the same shards on one card: "
+          f"{base_iters}) in {secs:.3f} s ({1e3 * secs / max(res.iters, 1):.3f}"
+          f" ms/iter), true rel residuals "
+          f"{', '.join(f'{e:.2e}' for e in rel.tolist())} (tol {ENGINE_TOL}),"
+          f" B1 launches {got}; one matvec with <p, Ap> {mv_ms:.4f} ms, "
+          f"moving {halo_b} B of halo and {split_b} B of split and join "
+          f"between cards  [{card}]")
+    out["cg_ms"] = 1e3 * secs / max(res.iters, 1)
+    return out
 
 
 # ----------------------------------------------------------------- phase 16
@@ -4607,6 +4910,7 @@ def main() -> int:
     # here are float32 and float64); stated, not left to the defaults
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = timed("environment", phase_environment)
     timed("build", phase_build)
     timed("spmv grid", phase_grid)
@@ -4639,10 +4943,17 @@ def main() -> int:
           card)
     served = timed("engine serving", phase_engine_serving,
                    ecg[f"{ENGINE_SHARDS} card shards"]["eng"], fw, card)
-    # B1's main paths: column CG, the paper's workload, engine CG, serving
+    cross = timed("engine across cards", phase_cross_cards, mlg, ecg, fw,
+                  card)
+    # B1's main paths: column CG, the paper's workload, engine CG,
+    # serving, the engine across cards
     b1_launches = (fw["launches"] + mlg["launches"] + ecg["launches"]
-                   + served)
-    del ecg
+                   + served + cross["launches"])
+    del ecg, mlg, cross
+    gc.collect()
+    for i in range(torch.cuda.device_count()):
+        with torch.cuda.device(i):
+            torch.cuda.empty_cache()
     for r in rows:
         if r["b"] == 4:
             n = fw["launches"] if r["label"] == "f64" else fw["launches16"]
@@ -4697,6 +5008,7 @@ def main() -> int:
     timed("train", phase_train, card)
     timed("dry run", phase_dryrun, card)
     timed("mesh training", phase_mesh, card)
+    print(f"[phase] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,19 +7,23 @@ into a **local** part (columns the shard owns) and a **remote** part
 whose column indices are *compressed* into a dense halo buffer — the
 paper's remote-column compression.
 
-Where the JAX package runs one SPMD program under ``shard_map``, the port
-runs explicit stages for every shard on that shard's device, in GHOST's
-task-mode order (paper Fig. 5):
+Where the JAX package runs one SPMD program under ``shard_map`` over
+every device of its mesh, the port is one process that runs explicit
+stages for every shard on that shard's device, in GHOST's task-mode
+order (paper Fig. 5).  The shards may lie on any cards and on the host:
 
 * **pack** — gather the owned rows each peer needs into the shard's
   block of its device's *staging stack*, ``stack[q][p]`` = what shard
   ``q`` sends shard ``p`` (``max_msg`` rows each, as the reference pads
   its messages; one zero row closes the stack);
-* **exchange** — ``lax.all_to_all`` becomes block copies
-  ``recv[p][q] = send[q][p]``: between two shards on one device nothing
-  moves (the unpack reads the sender's block in place, an on-card
-  gather); between the card and the host, the block crosses as a
-  ``non_blocking`` copy through pinned host staging;
+* **exchange** — ``lax.all_to_all`` becomes the block copies
+  ``recv[p][q] = send[q][p]`` of :func:`exchange_copies`, only the
+  ``msg_len[q, p]`` rows ``q`` sends ``p``: between two shards on one
+  device nothing moves (the unpack reads the sender's block in place);
+  between two cards the block goes card to card (a peer copy where the
+  cards reach each other, else staged by the CUDA runtime); between a
+  card and the host it crosses as a ``non_blocking`` copy through pinned
+  host staging;
 * **unpack** — gather this shard's dense halo out of its device's stack;
 * **local** / **remote** — kernel B1 on a card shard (the remote part is
   rectangular: its ``x`` is the halo, and it adds the local result as
@@ -29,26 +33,35 @@ task-mode order (paper Fig. 5):
   x-dots on a rectangular part).  ``lax.psum`` becomes the sum of the
   float64 partials on the home device, in shard order.
 
-:func:`spmv_shard_stages` composes the stages for every shard with the
-card's pack, copies and unpack on a side stream and its SpMVs on the
-compute stream; :mod:`repro_torch.runtime.pipeline` builds the engine's
-matvecs on it with double-buffered staging.
+**Streams.**  :func:`spmv_shard_stages` gives every card a side stream
+(kept by :class:`Staging`) and its compute stream.  On each card's side
+stream: wait on an event marking ``xs`` ready on its compute stream,
+pack that card's shards, then the copies; the unpack follows on the
+destination's side stream, and its remote SpMVs wait on its
+"exchanged" event while its local SpMVs run on the compute stream.  A
+copy between two cards runs on the *source* card's current stream with
+a barrier against the destination's current stream (ATen's
+device-to-device copy), so both cards' side streams are made current
+around it; otherwise it would queue behind the source's local SpMV.  A
+copy from the host runs on the destination card's side stream, one to
+the host on the source card's.
 
 **Layout.**  The reference pads every shard to the largest shard's
 ``m_pad`` and stacks them.  Here each shard keeps its own ``nrows_pad``
 and the operator space is the shards' concatenation: ``g2l`` is per
 shard and ``pos_of_global`` is ``offset_p + slot`` where the reference
 has ``p * m_pad + slot``.  ``send_idx``, ``halo_idx``, ``max_msg``,
-``h_max``, ``row_ranges`` and ``shard_nnz`` equal the reference's.  A
-CPU+GPU split gives the host a few per cent of the rows; the reference's
-padding would give its shard as many vector rows as the card's.
-
-The shards may lie on the host and on at most one card; a copy between
-two cards is not written.
+``h_max``, ``row_ranges`` and ``shard_nnz`` equal the reference's: none
+depends on where a shard lives.  A CPU+GPU split gives the host a few
+per cent of the rows; the reference's padding would give its shard as
+many vector rows as the card's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import itertools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -62,7 +75,8 @@ from repro_torch.core.spmv import SpmvOpts, as2d, fused_dots, spmv, x_rows
 
 __all__ = [
     "DistShard", "DistSellCS", "Staging", "dist_from_coo", "dist_spmv",
-    "make_dist_spmv", "halo_pack", "halo_exchange", "halo_unpack",
+    "make_dist_spmv", "exchange_copies", "halo_pack", "halo_exchange",
+    "halo_unpack",
     "local_stage", "remote_stage", "fused_epilogue", "spmv_shard_stages",
     "dist_spmv_shard",
 ]
@@ -143,14 +157,21 @@ class DistSellCS:
         return tuple(s.device for s in self.shards)
 
     @property
-    def card(self) -> Optional[torch.device]:
-        """The one CUDA device among the shards' (None: all on the host)."""
-        return next((d for d in self.devices if d.type == "cuda"), None)
+    def cards(self) -> Tuple[torch.device, ...]:
+        """The shards' distinct CUDA devices, in shard order."""
+        return _cards(self.devices)
 
     @property
     def home(self) -> torch.device:
-        """Where solver vectors live: the card, else the host."""
-        return self.card or torch.device("cpu")
+        """Where solver vectors live: the first card in shard order, else
+        the host."""
+        return _home(self.devices)
+
+    @functools.cached_property
+    def copies(self) -> List[Tuple[int, int, int, int]]:
+        """The halo exchange's block copies on this placement
+        (:func:`exchange_copies` keyed by the shards' devices)."""
+        return exchange_copies(self.msg_len, self.max_msg, self.devices)
 
     @property
     def n(self) -> int:
@@ -176,10 +197,8 @@ class DistSellCS:
             remote=_sellcs_to(s.remote, d), send_idx=s.send_idx.to(d),
             halo_gidx=s.halo_gidx.to(d), g2l=s.g2l.to(d))
             for s, d in zip(self.shards, devs))
-        home = next((d for d in devs if d.type == "cuda"),
-                    torch.device("cpu"))
         return dataclasses.replace(self, shards=shards,
-                                   pos_t=self.pos_t.to(home))
+                                   pos_t=self.pos_t.to(_home(devs)))
 
     # -------------------------------------------------------- vectors
     def distribute_vec(self, x) -> List[torch.Tensor]:
@@ -210,15 +229,19 @@ class DistSellCS:
         return torch.cat([v.to(home) for v in vs])
 
 
+def _cards(devs) -> Tuple[torch.device, ...]:
+    return tuple(dict.fromkeys(d for d in devs if d.type == "cuda"))
+
+
+def _home(devs) -> torch.device:
+    cards = _cards(devs)
+    return cards[0] if cards else torch.device("cpu")
+
+
 def _check_devices(devices, nshards: int) -> Tuple[torch.device, ...]:
     devs = tuple(canonical_device(d) for d in devices)
     if len(devs) != nshards:
         raise ValueError(f"expected {nshards} devices, got {len(devs)}")
-    if len({d for d in devs if d.type == "cuda"}) > 1:
-        raise ValueError(
-            f"shards on more than one card ({sorted(map(str, set(devs)))}): "
-            f"the exchange between two cards is not written; put the "
-            f"shards on one card and the host")
     return devs
 
 
@@ -370,7 +393,7 @@ def dist_from_coo(
             halo_gidx=torch.from_numpy(gidx).to(dev),
             g2l=torch.from_numpy(g2l[p]).to(dev),
             offset=int(offsets[p]), nhalo=len(rcols_all[p])))
-    home = next((d for d in devs if d.type == "cuda"), torch.device("cpu"))
+    home = _home(devs)
     return DistSellCS(
         shards=tuple(shards),
         send_idx=send_idx, halo_idx=halo_idx, msg_len=cnt,
@@ -392,26 +415,31 @@ def dist_from_coo(
 
 class Staging:
     """The halo staging of a chain of SpMVs: ``slots`` staging stacks on
-    every device of ``A``, taken in turn, one per call.
+    every device of ``A``, taken in turn, one per call, and one side
+    stream per card.
 
     A stack is ``(P*P*max_msg + 1, b)``.  When a card and the host share
     the work, the host's stacks are pinned and the copies that read them
     run asynchronously: :meth:`take` waits, on the events the previous
     user of the slot left, until no copy reads the slot any more, so a
     slot is never rewritten while its copy is in flight.  With two slots
-    that wait is for the call before last.
+    that wait is for the call before last.  A card's stack needs no such
+    wait: a copy that reads it runs on that card's side stream, ahead of
+    the next pack there, and a copy into it waits, by the barrier every
+    copy between two cards makes, for what the destination's side stream
+    holds, the unpack that last read those rows included.
     """
 
     def __init__(self, A: DistSellCS, nvecs: int, dtype: torch.dtype,
                  slots: int = 1):
         rows = A.nshards * A.nshards * A.max_msg + 1
-        pin = A.card is not None and any(d.type == "cpu" for d in A.devices)
+        cards = A.cards
+        pin = bool(cards) and any(d.type == "cpu" for d in A.devices)
         self.stacks = [{d: torch.zeros((rows, nvecs), dtype=dtype, device=d,
                                        pin_memory=pin and d.type == "cpu")
                         for d in set(A.devices)} for _ in range(slots)]
         self.read_done: List[list] = [[] for _ in range(slots)]
-        self.side = (None if A.card is None
-                     else torch.cuda.Stream(device=A.card))
+        self.side = {c: torch.cuda.Stream(device=c) for c in cards}
         self.calls = 0
 
     @property
@@ -428,6 +456,21 @@ class Staging:
         return slot
 
 
+def exchange_copies(msg_len, max_msg: int, keys: Sequence
+                    ) -> List[Tuple[int, int, int, int]]:
+    """The block copies of one halo exchange, ``recv[p][q] = send[q][p]``:
+    ``(q, p, at, n)`` moves rows ``at:at + n`` of the stack on shard
+    ``q``'s device into the same rows of the stack on shard ``p``'s, ``n``
+    = ``msg_len[q, p]`` (the rows ``q`` sends ``p``, not the padded
+    ``max_msg``).  ``keys[p]`` names shard ``p``'s device (anything that
+    compares by value); a pair on one device, or with nothing to send,
+    has no copy.  Ordered by destination, then source."""
+    P = len(keys)
+    return [(q, p, (q * P + p) * max_msg, int(msg_len[q, p]))
+            for p in range(P) for q in range(P)
+            if keys[q] != keys[p] and msg_len[q, p] > 0]
+
+
 def halo_pack(A: DistSellCS, q: int, x_local: torch.Tensor,
               stack: torch.Tensor) -> None:
     """Stage 1: gather the owned rows each peer needs into shard ``q``'s
@@ -438,19 +481,26 @@ def halo_pack(A: DistSellCS, q: int, x_local: torch.Tensor,
 
 
 def halo_exchange(A: DistSellCS, p: int,
-                  stacks: Dict[torch.device, torch.Tensor]) -> None:
-    """Stage 2: ``recv[p][q] = send[q][p]`` for every shard ``q`` on
-    another device than ``p`` (only the rows ``q`` sends), as
-    ``non_blocking`` copies on the current stream; shards on ``p``'s
-    device need no copy."""
-    dev = A.shards[p].device
-    for q, sq in enumerate(A.shards):
-        n = int(A.msg_len[q, p])
-        if sq.device == dev or n == 0:
-            continue
-        at = (q * A.nshards + p) * A.max_msg
-        stacks[dev][at:at + n].copy_(stacks[sq.device][at:at + n],
-                                     non_blocking=True)
+                  stacks: Dict[torch.device, torch.Tensor],
+                  side: Optional[Dict[torch.device, torch.cuda.Stream]] = None
+                  ) -> None:
+    """Stage 2: the copies of :attr:`DistSellCS.copies` into shard ``p``,
+    as ``non_blocking`` copies; shards on ``p``'s device need none.
+    ``side`` maps each card to its side stream: the side streams of the
+    cards at both ends are made current around a copy (one between two
+    cards runs on the source's current stream, one from the host on the
+    destination's, one to the host on the source's)."""
+    dst = A.shards[p].device
+    into = [(A.shards[q].device, at, n) for q, to, at, n in A.copies
+            if to == p]
+    for src, group in itertools.groupby(into, key=lambda c: c[0]):
+        with contextlib.ExitStack() as streams:
+            for d in (src, dst):
+                if side and d in side:
+                    streams.enter_context(torch.cuda.stream(side[d]))
+            for _, at, n in group:
+                stacks[dst][at:at + n].copy_(stacks[src][at:at + n],
+                                             non_blocking=True)
 
 
 def halo_unpack(A: DistSellCS, p: int, stack: torch.Tensor) -> torch.Tensor:
@@ -522,34 +572,40 @@ def spmv_shard_stages(
     shard order (None when none is asked for).
 
     ``xs[p]`` is shard ``p``'s ``(nrows_pad_p, b)`` slice on its device.
-    The host packs its shards first.  On the card, the pack, the copies
-    and the unpack go on the staging's side stream, after an event that
-    marks ``xs`` ready on the compute stream; the local SpMVs run on the
-    compute stream meanwhile (``overlap=True``) or after the exchange
-    (``overlap=False``), and the remote SpMVs wait on the exchange's
-    event.  The card's work is enqueued before the host runs its own
-    shards' stages, which wait for the card-to-host copies only before
-    their unpack (or, without overlap, before their local stage).
+    The host packs its shards first.  On each card, the pack, the copies
+    that card's side stream carries (see the module note) and the unpack
+    go on the staging's side stream, after an event that marks ``xs``
+    ready on the compute stream; the copies to the host are enqueued
+    first.  The local SpMVs run on each card's compute stream meanwhile
+    (``overlap=True``) or after its exchange (``overlap=False``), and the
+    remote SpMVs wait on the card's "exchanged" event.  Every card's work
+    is enqueued before the host runs its own shards' stages, which wait
+    for the copies to the host only before their unpack (or, without
+    overlap, before their local stage).
 
     ``times``, when a dict, receives ``"shards"`` (seconds of each
     shard's stages: CUDA events around a card shard's, the host clock
-    around a host shard's) and ``"transfer"`` (seconds of the copies
-    between card and host); the call then waits for the card.
+    around a host shard's) and ``"transfer"`` (seconds from the end of
+    each card's pack to the end of the copies on its side stream, summed
+    over the cards); the call then waits for every card.
     """
     b = xs[0].shape[1]
     if staging is None:
         staging = Staging(A, b, xs[0].dtype)
     slot = staging.take()
     stacks = staging.stacks[slot]
-    card = A.card
-    on_card = [p for p, s in enumerate(A.shards) if s.device == card]
+    side = staging.side
+    cards = A.cards
+    on_card = {c: [p for p, s in enumerate(A.shards) if s.device == c]
+               for c in cards}
     on_host = [p for p, s in enumerate(A.shards) if s.device.type == "cpu"]
     exchange = A.has_halo
     out: List[Optional[torch.Tensor]] = [None] * A.nshards
     dots: List[Optional[torch.Tensor]] = [None] * A.nshards
     y_loc: List[Optional[torch.Tensor]] = [None] * A.nshards
-    card_ev: Dict[int, list] = {p: [] for p in on_card}
-    copy_ev: list = []
+    halos: Dict[int, torch.Tensor] = {}
+    card_ev: Dict[int, list] = {p: [] for c in cards for p in on_card[c]}
+    copy_ev: Dict[torch.device, list] = {c: [] for c in cards}
     host_s = [0.0] * A.nshards
 
     def mark(stream, pairs):
@@ -574,54 +630,63 @@ def spmv_shard_stages(
             t0 = time.perf_counter()
             halo_pack(A, q, xs[q], stacks[xs[q].device])
             host_s[q] += time.perf_counter() - t0
-    d2h_done = None
-    if card is not None:
-        compute = torch.cuda.current_stream(card)
-        side = staging.side
-        halos = {}
-        with torch.cuda.device(card):
-            if exchange:
-                ready = compute.record_event()
-                with torch.cuda.stream(side):
-                    side.wait_event(ready)
-                    for q in on_card:
-                        xs[q].record_stream(side)
-                        halo_pack(A, q, xs[q], stacks[card])
-                    mark(side, copy_ev)
-                    for p in on_host:
-                        halo_exchange(A, p, stacks)
-                    d2h_done = side.record_event()
-                    for p in on_card:
-                        halo_exchange(A, p, stacks)
-                    mark(side, copy_ev)
-                    if on_host:
-                        staging.read_done[slot].append(side.record_event())
-                    for p in on_card:
-                        halos[p] = halo_unpack(A, p, stacks[card])
-                        halos[p].record_stream(compute)
-                    exchanged = side.record_event()
-                if not overlap:
-                    compute.wait_event(exchanged)
-            for p in on_card:
-                mark(compute, card_ev[p])
+    compute = {c: torch.cuda.current_stream(c) for c in cards}
+    d2h_done: list = []
+    exchanged = {}
+    if exchange and cards:
+        for c in cards:
+            ready = compute[c].record_event()
+            with torch.cuda.stream(side[c]):
+                side[c].wait_event(ready)
+                for q in on_card[c]:
+                    xs[q].record_stream(side[c])
+                    halo_pack(A, q, xs[q], stacks[c])
+                mark(side[c], copy_ev[c])
+        # the host's halo rows first: the host waits for nothing else
+        for p in on_host:
+            halo_exchange(A, p, stacks, side)
+        if on_host:
+            d2h_done = [side[c].record_event() for c in cards]
+        for c in cards:
+            with torch.cuda.stream(side[c]):
+                for p in on_card[c]:
+                    halo_exchange(A, p, stacks, side)
+        for c in cards:
+            with torch.cuda.stream(side[c]):
+                mark(side[c], copy_ev[c])
+                if on_host:
+                    staging.read_done[slot].append(side[c].record_event())
+                for p in on_card[c]:
+                    halos[p] = halo_unpack(A, p, stacks[c])
+                    halos[p].record_stream(compute[c])
+                exchanged[c] = side[c].record_event()
+    for c in cards:
+        with torch.cuda.device(c):
+            if exchange and not overlap:
+                compute[c].wait_event(exchanged[c])
+            for p in on_card[c]:
+                mark(compute[c], card_ev[p])
                 y_loc[p] = local_stage(A, p, xs[p], impl=impl)
-                mark(compute, card_ev[p])
+                mark(compute[c], card_ev[p])
+    for c in cards:
+        with torch.cuda.device(c):
             if exchange and overlap:
-                compute.wait_event(exchanged)
-            for p in on_card:
-                mark(compute, card_ev[p])
+                compute[c].wait_event(exchanged[c])
+            for p in on_card[c]:
+                mark(compute[c], card_ev[p])
                 finish(p, halos.get(p))
-                mark(compute, card_ev[p])
-    # the host's shards, while the card works; their halo rows from the
-    # card have landed once d2h_done has
-    if on_host and d2h_done is not None and not overlap:
-        d2h_done.synchronize()
+                mark(compute[c], card_ev[p])
+    # the host's shards, while the cards work; their halo rows from the
+    # cards have landed once every d2h_done event has
+    if on_host and not overlap:
+        for ev in d2h_done:
+            ev.synchronize()
     for p in on_host:
         t0 = time.perf_counter()
         y_loc[p] = local_stage(A, p, xs[p], impl=impl)
         host_s[p] += time.perf_counter() - t0
-    if on_host and d2h_done is not None:
-        d2h_done.synchronize()
+    for ev in d2h_done:
+        ev.synchronize()
     for p in on_host:
         t0 = time.perf_counter()
         halo = (halo_unpack(A, p, stacks[xs[p].device]) if exchange
@@ -635,11 +700,11 @@ def spmv_shard_stages(
             d = d.to(A.home)
             total = d if total is None else total + d
     if times is not None:
-        if card is not None:
-            torch.cuda.synchronize(card)
+        for c in cards:
+            torch.cuda.synchronize(c)
         times["shards"] = [_elapsed(card_ev[p]) if p in card_ev
                            else host_s[p] for p in range(A.nshards)]
-        times["transfer"] = _elapsed(copy_ev)
+        times["transfer"] = sum((_elapsed(copy_ev[c]) for c in cards), 0.0)
     return out, total, staging
 
 

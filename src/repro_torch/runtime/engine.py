@@ -9,9 +9,15 @@ the solvers consume through
 :class:`repro_torch.solvers.operator.DistOperator` unchanged.
 
 Where the reference takes a ``mesh``, the engine takes ``devices``: one
-torch device per shard (default: the pool's devices).  Several shards may
-share a card, and the host takes part only where the caller names
-``"cpu"`` among them; a card shard launches kernel B1 or raises.
+torch device per shard.  The default is the pool's devices, and a
+detected pool's default is every card, one shard a card, as the
+reference's mesh spans ``jax.devices()``.  Shards may lie on any cards,
+several may share one, and the host takes part only where the caller
+names ``"cpu"`` among them (``["cuda:0", ..., "cuda:3", "cpu"]`` is the
+host + 4 cards plan); a card shard launches kernel B1 or raises.  The
+engine stays one process: the halo blocks move card to card on the
+cards' side streams (:mod:`repro_torch.core.distributed`), and solver
+vectors live on the first card (:class:`DistOperator`).
 
 Rebalance loop: ``engine.rebalance(times)`` takes measured per-shard SpMV
 times, performs one hill-climb step on the weights and redistributes the
@@ -21,11 +27,13 @@ making the call idempotent on a perfectly modeled pool.
 Typical use::
 
     eng = HeterogeneousEngine.from_coo(r, c, v, n, devices=["cuda", "cpu"])
+    eng = HeterogeneousEngine.from_coo(r, c, v, n)        # one shard a card
     y, dots = eng.spmv(x, opts=SpmvOpts(dot_xy=True))     # global space
     res = cg(eng.operator(), b_op)                        # solver, unchanged
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -155,6 +163,16 @@ class HeterogeneousEngine:
         if was1d:
             out = out[:, 0]
         return out, dots
+
+    def on(self, devices: Sequence) -> "HeterogeneousEngine":
+        """The same plan and matrix with shard ``p`` on ``devices[p]``
+        (:meth:`DistSellCS.on`: the shards' tensors move, nothing is built
+        again on the host).  The pool stays this engine's."""
+        out = copy.copy(self)
+        out.devices = tuple(canonical_device(d) for d in devices)
+        out.A = self.A.on(out.devices)
+        out._matvec_cache = {}
+        return out
 
     def operator(self, **kw):
         """Solver-facing distributed operator (CG/Lanczos/KPM unchanged)."""

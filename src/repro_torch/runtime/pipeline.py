@@ -3,10 +3,12 @@
 The port of ``repro.runtime.pipeline``.  GHOST hides the halo exchange
 behind the local SpMV by putting the communication in a *task* that runs
 concurrently with the local compute kernel.  Here that task is a CUDA
-side stream: :func:`repro_torch.core.distributed.spmv_shard_stages` packs,
-copies and unpacks the card's halos there while kernel B1 runs the local
-parts on the compute stream, the remote parts wait on the exchange's
-event, and the host runs its own shards' stages meanwhile.
+side stream on every card: :func:`repro_torch.core.distributed.spmv_shard_stages`
+packs, copies and unpacks each card's halos there while kernel B1 runs
+its local parts on its compute stream, the remote parts wait on that
+card's "exchanged" event, and the host runs its own shards' stages
+meanwhile.  A block between two cards goes card to card, on both cards'
+side streams.
 ``overlap=False`` completes the exchange before any local stage is
 enqueued — the paper's "No Overlap" baseline, where the reference puts
 an optimization barrier.
@@ -19,7 +21,10 @@ What this module adds:
   card and host read pinned host memory asynchronously, so the slots are
   load-bearing: a call waits, on the events the call before last left,
   until no copy reads its slot any more.  With one slot
-  (``double_buffer=False``) that wait is for the previous call's copies;
+  (``double_buffer=False``) that wait is for the previous call's copies.
+  A copy between two cards needs no such event: the streams order it
+  against the pack before it and the unpack after it (see
+  :class:`~repro_torch.core.distributed.Staging`);
 * the reference's flags (``with_y``, the dots, ``has_gamma``), fixed
   when the callable is built; the coefficients (alpha, beta, gamma) come
   with each call as a :class:`~repro_torch.core.spmv.SpmvOpts` in place
@@ -44,7 +49,7 @@ __all__ = ["make_pipeline_spmv", "init_staging"]
 
 def init_staging(A: DistSellCS, nvecs: int, dtype) -> Staging:
     """Fresh double-buffer halo staging: two stacks on every device of
-    ``A``."""
+    ``A`` and a side stream on every card."""
     return Staging(A, nvecs, dtype, slots=2)
 
 

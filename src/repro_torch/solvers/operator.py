@@ -6,7 +6,7 @@ hook (section 5.1: "a user can replace this function pointer by a custom
 function that performs the SpMV in any (possibly matrix-free) way");
 ``DistOperator`` runs the matvec on the heterogeneous execution engine
 (:class:`repro_torch.runtime.engine.HeterogeneousEngine`) so the same
-solvers run over shards on the card and the host with task-mode overlap.
+solvers run over shards on the cards and the host with task-mode overlap.
 
 All solver vectors live in the operator's *permuted* space with shape
 ``(n, b)`` (block vectors); use :meth:`to_op_space` / :meth:`from_op_space`
@@ -109,13 +109,16 @@ class MatrixFreeOperator:
 class DistOperator:
     """Distributed operator over a :class:`HeterogeneousEngine`.
 
-    Solver vectors live on the engine's home device (the card, or the
-    host when every shard is there) as the concatenation of the shards'
-    padded slices.  Inputs are masked to the valid (non-padding) slots on
-    entry and the matvec keeps padding at zero, so the solvers' dot
-    products and norms see exactly the original operator embedded in a
-    zero block.  Each matvec stages a host shard's rows to the host and
-    its result back.  Build right-hand sides with :meth:`to_op_space`.
+    Solver vectors live on the engine's home device (the first card in
+    shard order, or the host when every shard is there) as the
+    concatenation of the shards' padded slices, where the JAX package
+    keeps them sharded over the mesh.  Inputs are masked to the valid
+    (non-padding) slots on entry and the matvec keeps padding at zero, so
+    the solvers' dot products and norms see exactly the original operator
+    embedded in a zero block.  Each matvec moves every shard's slice that
+    lies off the home device there (``split``) and its result back
+    (``join``): over k cards, (k - 1) / k of x out and of y back.  Build
+    right-hand sides with :meth:`to_op_space`.
 
     Matrix state is read through the engine on every access, so the
     operator follows ``engine.rebalance()``: the mask is rebuilt for a

@@ -21,6 +21,8 @@ The ``gpu``-marked tests run card shards (kernel B1) against the same
 split on the host, and the double-buffer slots under asynchronous
 copies.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -325,11 +327,18 @@ def test_devices_are_checked(monkeypatch):
     r, c, v, n = matpde(6)
     with pytest.raises(ValueError, match="expected 2 devices"):
         dist_from_coo(r, c, v, n, nshards=2, devices=["cpu"])
-    monkeypatch.setattr(tdist, "canonical_device", torch.device)
-    with pytest.raises(ValueError, match="more than one card"):
-        tdist._check_devices(["cuda:0", "cpu", "cuda:1"], 3)
-    monkeypatch.undo()
     D = dist_from_coo(r, c, v, n, nshards=2, devices=["cpu", "cpu"], C=8)
+    # shards on two cards and the host: allowed, and solver vectors live
+    # on the first card in shard order
+    monkeypatch.setattr(tdist, "canonical_device", torch.device)
+    devs = tdist._check_devices(["cuda:0", "cpu", "cuda:1"], 3)
+    assert devs == tuple(map(torch.device, ["cuda:0", "cpu", "cuda:1"]))
+    monkeypatch.undo()
+    D3 = dist_from_coo(r, c, v, n, nshards=3, devices=["cpu"] * 3, C=8)
+    placed = dataclasses.replace(D3, shards=tuple(
+        dataclasses.replace(s, device=d) for s, d in zip(D3.shards, devs)))
+    assert placed.home == torch.device("cuda:0")
+    assert placed.cards == (torch.device("cuda:0"), torch.device("cuda:1"))
     assert D.on(["cpu", "cpu"]) is D
     run = make_dist_spmv(D, ["cpu", "cpu"])
     assert run.A is D
@@ -489,10 +498,10 @@ def _delay_h2d(monkeypatch, cycles):
     next call comes."""
     real = tdist.halo_exchange
 
-    def slow(A, p, stacks):
+    def slow(A, p, stacks, side=None):
         if A.shards[p].device.type == "cuda":
             torch.cuda._sleep(cycles)
-        real(A, p, stacks)
+        real(A, p, stacks, side)
 
     monkeypatch.setattr(tdist, "halo_exchange", slow)
 
