@@ -49,6 +49,33 @@ the card, holding every kernel against its plain PyTorch version:
     monolithic one, and plain CG on the same right-hand sides beside it;
     the true residual checked again through B5 (its only path: no solver
     calls it, in either package);
+13b. slice 15, complex values on the card: B1 (complex64 and complex128,
+    b = 1, 4, 16, C = 8 and 32, every fusion flag with complex alpha,
+    beta, gamma, delta and eta, and a real x), B2 (conj on and off, with
+    and without Kahan, m, k up to 64), B3 (complex and real X) and B4 (bs
+    8 and 32, complex and real x) against their plain versions, each
+    within a stated bound (the real kernels' error model per part of the
+    complex sum);
+13c. complex Hermitian solves through the normal entry points on the
+    phased matrices (U(1) phases on the off-diagonals, ``phased``): on
+    laplace3d(160), column CG (b = 4) in complex128 at tol 1e-8 and
+    complex64 at 1e-5, block CG and block MINRES at width 16, Lanczos
+    (k = 30, reorthogonalised) against an ``impl="ref"`` operator within
+    1e-10; on anisotropic_laplace2d(1024), block-Jacobi PCG and PMINRES
+    in complex128; the engine (one shard a card where there are several,
+    else 4 card shards): a matvec within 1e-12 of max|y| of the
+    one-device SpMV, then CG through ``DistOperator``.  Every column's
+    true relative residual at most 10 tol (the plain SpMV in complex128),
+    iterations and ms/iter beside the real matrix' iterations, and each
+    kernel's launches equal to what the recurrence makes;
+13d. B1–B4 in complex128 at the main shapes (B1 b = 1, 4, 16 on the
+    phased laplace3d(160); B2 Kahan and B3 with W at 4,096,000 x 16; B4
+    131,072 blocks of 32, b = 4), each first held against its plain
+    version (B1 within 1e-12, B2–B4 within the grid's bound): kernel,
+    plain version, one PyTorch call (a complex128 sparse CSR product,
+    ``V.mH @ W``, ``addmm``, ``bmm``) and the bound at the data sheet's
+    3.35 TB/s (and, as a second figure, at the measured 3032.3 GB/s), on
+    ``[complex]`` lines;
 14. block-Jacobi preconditioned MINRES on the same matrix, and
     Chebyshev-preconditioned CG on anisotropic_laplace2d(1024);
 15. timing of B4 and B5 at the main shapes, and the time split of one
@@ -259,7 +286,7 @@ from repro_torch.kernels.tsmttsm import MAX_DIM, summation_depth  # noqa: E402
 from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
                                   laplace3d, matpde)
 from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E402
-                                 chebfd, kpm_dos_moments,
+                                 chebfd, kpm_dos_moments, lanczos,
                                  lanczos_extrema, make_operator,
                                  make_preconditioner, minres,
                                  minres_finalize, minres_init, minres_step)
@@ -283,12 +310,14 @@ from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.mesh import (init_ranks,  # noqa: E402
                                      make_host_mesh, make_mesh)
+from repro_torch.launch.mesh import HW as MESH_HW  # noqa: E402
 from repro_torch.interop import arrays_from_model, model_from_arrays  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
 from repro_torch.train.optimizer import compressed_psum  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
 from repro_torch.solvers import run_chunk  # noqa: E402
+from repro_torch.solvers.lanczos import tridiag_eigh  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), the bound's denominator
 HBM_BYTES_PER_S = 3.35e12
@@ -468,10 +497,13 @@ def dropped(name: str) -> int:
 
 
 def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in float64 (complex128 for complex
+    operands)."""
     if got is None and want is None:
         return 0.0
-    got = got.double()
-    want = want.double()
+    wide = (torch.complex128 if got.is_complex() or want.is_complex()
+            else torch.float64)
+    got, want = got.to(wide), want.to(wide)
     require(got.shape == want.shape,
             f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     if want.numel() == 0:
@@ -638,6 +670,8 @@ def _compare(A, x, y, z, opts, tol, tag, worst):
     yk, zk, dk = sellcs_spmv(A, x, y, z, opts)
     yr, zr, dr = sellcs_spmv_ref(A, x, y, z, opts)
     sync()
+    require(yk.dtype == yr.dtype and (dk is None or dk.dtype == dr.dtype),
+            f"kernel vs plain {tag}: dtypes {yk.dtype} / {yr.dtype}")
     errs = {"y": rel_err(yk, yr), "z": rel_err(zk, zr),
             "dots": rel_err(dk, dr)}
     for key, lim in (("y", tol["vec"]), ("z", tol["vec"]),
@@ -834,7 +868,7 @@ def _library_csr(A, coo):
     r, c, v, n = coo
     ip = A.iperm.cpu().numpy().astype(np.int64)
     idx = torch.from_numpy(np.stack([ip[r], ip[c]])).cuda()
-    val = torch.from_numpy(np.asarray(v, np.float64)).cuda()
+    val = torch.from_numpy(np.asarray(v)).cuda()
     with warnings.catch_warnings():        # sparse CSR is "beta" in torch
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_coo_tensor(idx, val, (A.nrows_pad, A.nrows_pad)
@@ -1110,7 +1144,7 @@ def phase_block_cg(fw, card):
 
 
 # ------------------------------------------------------------------ phase 9
-def phase_block_minres(fw, card) -> None:
+def phase_block_minres(fw, card) -> int:
     A = fw["A64"]
     op = make_operator(A)
     g = torch.Generator(device=DEVICE).manual_seed(5)
@@ -1141,6 +1175,7 @@ def phase_block_minres(fw, card) -> None:
     want = {"sellcs_spmv": it + 1, "tsmttsm": 4 * it + 1, "tsmm": 9 * it + 1}
     require(launches == want or DEVICE == "cpu",
             f"block MINRES launches {launches} != {want}")
+    return int(res.iters)
 
 
 # ----------------------------------------------------------------- phase 10
@@ -1594,6 +1629,530 @@ def phase_precond_cg(card):
                 plain_iters=plain.iters, plain_secs=plain_secs)
 
 
+# ---------------------------------------------------------------- phase 13b
+#: slice 15: complex values on the card.  The dtypes, B1's chunk heights
+#: and widths, B2/B3's row counts and widths, B4's block sizes, widths and
+#: block counts in the grid; the seed of the U(1) phases; the phased
+#: matrices (phase 6's laplace3d(NX), C=32, sigma=1024; anisotropic_laplace2d
+#: (CX_PRECOND_NX), C=32, sigma=1, block-Jacobi bs 32); the block width,
+#: Lanczos steps and tolerances of the complex solves
+CX_DTYPES = (torch.complex128, torch.complex64)
+CX_REAL = {torch.complex128: torch.float64, torch.complex64: torch.float32}
+CX_GRID_C, CX_GRID_B = (8, 32), (1, 4, 16)
+CX_TSM_NS, CX_TSM_DIMS = (37, 4109, 1 << 18), (1, 5, 16, MAX_DIM)
+CX_TSM_COEFS = ((1.0, 0.0, False), (0.5 - 0.5j, -2.0 + 1.0j, True))
+CX_B4_BS, CX_B4_B, CX_B4_NB = (8, 32), (1, 4, 16), (1, 4096, 32768)
+CX_SEED, CX_PRECOND_NX, CX_WIDTH, CX_LANCZOS_K = 15, 1024, 16, 30
+CX_TOL = {torch.complex128: 1e-8, torch.complex64: 1e-5}
+CX_LANCZOS_TOL, CX_ENGINE_TOL = 1e-10, 1e-12
+#: the H100's measured device-memory rate (``launch/mesh.py:HW``): the
+#: complex rows print their bound at it too, as a second figure beside the
+#: one at :data:`HBM_BYTES_PER_S` that every row is held to
+CX_MEASURED_BYTES_PER_S = MESH_HW["hbm_bw"]
+
+
+def phased(r, c, v, n: int, seed: int) -> np.ndarray:
+    """Complex Hermitian values from a symmetric COO with nonpositive
+    off-diagonals: ``H_ij = L_ij exp(i theta_ij)``, ``theta_ji =
+    -theta_ij``, drawn from ``default_rng(seed)`` over the upper triangle
+    in COO order, ``H_ii = L_ii``.  Then ``x^H H x >= |x|^T L |x|``, so
+    lambda_min(H) >= lambda_min(L) > 0 (Kato's inequality)."""
+    r, c = np.asarray(r, np.int64), np.asarray(c, np.int64)
+    up, lo = r < c, r > c
+    theta_up = np.random.default_rng(seed).uniform(0.0, 2 * np.pi,
+                                                   int(up.sum()))
+    key = r[up] * n + c[up]
+    order = np.argsort(key)
+    want = c[lo] * n + r[lo]
+    at = np.searchsorted(key, want, sorter=order)
+    pos = order[np.minimum(at, order.size - 1)]
+    require(bool(np.all(key[pos] == want)), "phased: the pattern is not "
+            "symmetric")
+    theta = np.zeros(r.size)
+    theta[up] = theta_up
+    theta[lo] = -theta_up[pos]
+    return np.asarray(v, np.float64) * np.exp(1j * theta)
+
+
+def _cx_randn(shape, dt, g):
+    """Complex (or real) normal numbers drawn in float64 and rounded."""
+    wide = torch.complex128 if dt.is_complex else torch.float64
+    return torch.randn(*shape, generator=g, dtype=wide, device=DEVICE).to(dt)
+
+
+def _cx_flag_cases(b: int, rng, np_ct):
+    gam = (rng.standard_normal(b) + 1j * rng.standard_normal(b)).astype(np_ct)
+    return [
+        ("plain", SpmvOpts(), False, False),
+        ("alpha_beta", SpmvOpts(alpha=0.7 - 0.2j, beta=-1.3 + 0.4j), True,
+         False),
+        ("gamma_scalar", SpmvOpts(alpha=1.2 + 0.5j, gamma=0.25 - 0.75j),
+         False, False),
+        ("gamma_column", SpmvOpts(gamma=gam), True, False),
+        ("chain", SpmvOpts(alpha=1.1j, beta=0.5, delta=0.3 - 0.1j,
+                           eta=-0.8 + 0.6j), True, True),
+        ("dots", SpmvOpts(alpha=0.9 + 0.1j, beta=0.4j, dot_yy=True,
+                          dot_xy=True, dot_xx=True), True, False),
+    ]
+
+
+def _cx_check(got, want, scale, dt, depth, n_plain, tag, worst):
+    """A complex result against its plain version in complex128.  Each
+    part of a complex sum of ``d`` products is a real sum of ``2 d``
+    products (with the fused multiply-adds' rounding), and |re| + |im|
+    of the terms is at most sqrt(2) |a| |b|: the real kernels' bound
+    ``(depth + 3) u sum|terms|`` becomes ``sqrt(2) (2 depth + 3) u sum
+    |a||b|`` on the modulus, plus the plain version's own in 2^-53, plus
+    one subnormal spacing near zero."""
+    require(got.shape == want.shape and got.dtype == dt,
+            f"{tag}: got {tuple(got.shape)} {got.dtype}")
+    fi = torch.finfo(CX_REAL[dt])
+    lim = (2.0 ** 0.5 * ((2 * depth + 3) * _ACC_UNIT[CX_REAL[dt]]
+                         + (2 * n_plain + 3) * 2.0 ** -53) * scale
+           + fi.tiny * fi.eps)
+    err = (got.to(torch.complex128) - want).abs()
+    if err.numel() == 0:
+        return 0.0
+    ratio, emax = float((err / lim).max()), float(err.max())
+    require(ratio <= 1.0, f"{tag}: error {emax:.3e} above its bound "
+                          f"({ratio:.2f}x)")
+    if ratio >= worst[0]:
+        worst[:] = [ratio, tag, emax]
+    return emax
+
+
+def phase_complex_grid() -> None:
+    """B1–B4 with complex64 and complex128 operands against their plain
+    versions on the card, each within a stated bound."""
+    rng = np.random.default_rng(15)
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    t0 = time.perf_counter()
+    n_cases = 0
+    for ct in CX_DTYPES:
+        np_ct = np.complex128 if ct == torch.complex128 else np.complex64
+        rt = CX_REAL[ct]
+        tol = TOL[rt]
+        worst = {}
+        for C in CX_GRID_C:
+            n = 16 * C + 5                        # ragged last chunk
+            rows, cols, vals = _grid_coo(n, n, rng)
+            vals = vals + 1j * rng.standard_normal(vals.size)
+            A = from_coo(rows, cols, vals, (n, n), C=C, sigma=4 * C,
+                         dtype=np_ct, device=DEVICE)
+            for b in CX_GRID_B:
+                x, y, z = (_cx_randn((A.nrows_pad, b), ct, g)
+                           for _ in range(3))
+                for name, opts, with_y, with_z in _cx_flag_cases(b, rng,
+                                                                 np_ct):
+                    _compare(A, x, y if with_y else None,
+                                z if with_z else None, opts, tol,
+                                f"{str(ct)[6:]} C={C} b={b} {name}",
+                                worst.setdefault(name, [0.0, ""]))
+                    n_cases += 1
+                # a real x of the values' precision: converted exactly
+                xr = _cx_randn((A.nrows_pad, b), rt, g)
+                opts = SpmvOpts(alpha=0.5 + 1j, dot_xy=True, dot_xx=True,
+                                dot_yy=True)
+                _compare(A, xr, None, None, opts, tol,
+                            f"{str(ct)[6:]} C={C} b={b} real x",
+                            worst.setdefault("real_x", [0.0, ""]))
+                n_cases += 1
+        for name, (err, tag) in worst.items():
+            print(f"[complex grid] B1 {str(ct)[6:]:10s} {name:12s} max rel "
+                  f"err {err:.3e}  (worst: {tag})")
+    print(f"[complex grid] B1: {n_cases} cases within the real kernels' "
+          f"tolerances (complex128 as f64 1e-12; complex64 as f32: vectors "
+          f"1e-5, dots 1e-6): C in {CX_GRID_C}, b in {CX_GRID_B}, every "
+          f"fusion flag with complex alpha/beta/gamma/delta/eta, a real x")
+
+    worst = {}
+    n_tsm = 0
+    for ct in CX_DTYPES:
+        for n in CX_TSM_NS:
+            for m in CX_TSM_DIMS:
+                for k in CX_TSM_DIMS:
+                    V, W, X = (_cx_randn(s, ct, g)
+                               for s in ((n, m), (n, k), (m, k)))
+                    Vd, Wd, Xd = (t.to(torch.complex128) for t in (V, W, X))
+                    vw = Vd.abs().T @ Wd.abs()
+                    d2 = summation_depth(n, m, k)
+                    for alpha, beta, out in CX_TSM_COEFS:
+                        scale = abs(alpha) * vw + abs(beta) * Xd.abs()
+                        for conj in (True, False):
+                            want = tsmttsm_ref(Vd, Wd, Xd if out else None,
+                                               alpha, beta, conj=conj)
+                            for kahan in (False, True):
+                                got = tsmttsm(V, W, X if out else None,
+                                              alpha, beta, kahan=kahan,
+                                              conj=conj)
+                                depth = (kahan_depth(n, m, k, CX_REAL[ct])
+                                         if kahan else d2)
+                                key = (f"B2 {str(ct)[6:]} conj={conj} "
+                                       f"kahan={kahan}")
+                                _cx_check(got, want, scale, ct, depth, n,
+                                          f"{key} n={n} m={m} k={k} "
+                                          f"alpha={alpha}",
+                                          worst.setdefault(key,
+                                                           [0.0, "", 0.0]))
+                                n_tsm += 1
+                    # B3: W = alpha V X + beta W, X complex and real
+                    Xr = _cx_randn((m, k), CX_REAL[ct], g)
+                    Ws = _cx_randn((n, k), ct, g)
+                    Wsd = Ws.to(torch.complex128)
+                    for xlabel, Xs in (("complex X", X), ("real X", Xr)):
+                        Xsd = Xs.to(torch.complex128)
+                        vx = Vd.abs() @ Xsd.abs()
+                        for alpha, beta, out in CX_TSM_COEFS:
+                            want = tsmm_ref(Vd, Xsd, Wsd if out else None,
+                                            alpha, beta)
+                            got = tsmm(V, Xs, Ws if out else None, alpha, beta)
+                            key = f"B3 {str(ct)[6:]} {xlabel}"
+                            _cx_check(got, want,
+                                      abs(alpha) * vx + abs(beta) * Wsd.abs(),
+                                      ct, m, m, f"{key} n={n} m={m} k={k} "
+                                      f"alpha={alpha}",
+                                      worst.setdefault(key, [0.0, "", 0.0]))
+                            n_tsm += 1
+        for bs in CX_B4_BS:
+            for nb in CX_B4_NB:
+                blocks = _cx_randn((nb, bs, bs), ct, g)
+                bd = blocks.to(torch.complex128)
+                for b in CX_B4_B:
+                    for xlabel, xd in (("complex x", ct),
+                                       ("real x", CX_REAL[ct])):
+                        x = _cx_randn((nb * bs, b), xd, g)
+                        xc = x.to(torch.complex128)
+                        got = block_jacobi_apply(blocks, x)
+                        want = block_diag_matmul_ref(bd, xc)
+                        scale = block_diag_matmul_ref(bd.abs(), xc.abs())
+                        key = f"B4 {str(ct)[6:]} {xlabel}"
+                        _cx_check(got, want, scale, ct, bs, bs,
+                                  f"{key} bs={bs} nb={nb} b={b}",
+                                  worst.setdefault(key, [0.0, "", 0.0]))
+                        n_tsm += 1
+    sync()
+    for key, (ratio, tag, err) in worst.items():
+        print(f"[complex grid] {key:36s} worst error {err:.3e} = "
+              f"{ratio:.3f} of its bound  (at {tag})")
+    print(f"[complex grid] B2/B3/B4: {n_tsm} cases within sqrt(2) (2 depth "
+          f"+ 3) u sum|a||b| (the real bound per part): B2 n in "
+          f"{CX_TSM_NS}, m, k in {CX_TSM_DIMS}, conj on and off, with and "
+          f"without Kahan; B3 with complex and real X; B4 bs in {CX_B4_BS}, "
+          f"b in {CX_B4_B}, nblocks in {CX_B4_NB}, complex and real x; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+# ---------------------------------------------------------------- phase 13c
+def _cx_relres(A, b, x) -> torch.Tensor:
+    """True relative residual per column, through the plain SpMV in
+    complex128."""
+    A128 = A if A.dtype == torch.complex128 else dataclasses.replace(
+        A, vals=A.vals.to(torch.complex128))
+    b, x = b.to(torch.complex128), x.to(torch.complex128)
+    Ax, _, _ = sellcs_spmv_ref(A128, x)
+    return (b - Ax).norm(dim=0) / b.norm(dim=0)
+
+
+def _cx_solve(label, run, A, b, tol, real_iters, kernels, want_of, name,
+              card, relres=None):
+    """Run one complex solve, timed (after an untimed run that loads the
+    complex kernels), and hold it to the gates: converged, every column's
+    true relative residual at most 10 tol, and each kernel's launches as
+    the recurrence says (``want_of(iterations + discarded)``)."""
+    run()
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts(kernels)
+    d = dropped(name)
+    rel = (relres or _cx_relres)(A, b, res.x)
+    it = int(res.iters)
+    print(f"[complex solves] {label}: {it} iterations in {secs:.3f} s "
+          f"({1e3 * secs / max(it, 1):.3f} ms/iter; the real matrix "
+          f"{real_iters}), converged={bool(res.converged.all())}, true rel "
+          f"residuals {' '.join(f'{e:.2e}' for e in rel.tolist())} (tol "
+          f"{tol}), launches {launches} ({d} discarded iteration)  [{card}]")
+    require(bool(res.converged.all()), f"complex {label}: not converged")
+    require(float(rel.max()) <= 10 * tol,
+            f"complex {label}: true residual {float(rel.max())} > {10 * tol}")
+    require(d <= 1, f"complex {label}: {d} discarded iterations")
+    want = want_of(it + d)
+    require(launches == want or DEVICE == "cpu",
+            f"complex {label}: launches {launches} != {want}")
+    return dict(iters=it, secs=secs, ms=1e3 * secs / max(it, 1), res=res)
+
+
+def phase_complex_solves(fw, bcg, bminres_iters, card):
+    """Complex Hermitian solves on the phased matrices through the normal
+    entry points, each on the kernels: column CG in complex128 and
+    complex64, block CG and block MINRES, Lanczos against an ``impl="ref"``
+    operator, block-Jacobi PCG and PMINRES, and the engine's matvec and
+    CG through ``DistOperator``."""
+    r, c, v, n = fw["coo"]
+    t0 = time.perf_counter()
+    hv = phased(r, c, v, n, CX_SEED)
+    t_phase = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = from_coo(r, c, hv, (n, n), C=32, sigma=1024, dtype=np.complex128,
+                 device=DEVICE)
+    sync()
+    print(f"[complex solves] phased laplace3d({NX}) n={n} nnz={A.nnz} "
+          f"C=32 sigma=1024 complex128: phases {t_phase:.1f} s, build "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the same matrix rounded to complex64 (from_coo would give the same
+    # arrays: the layout depends on the row lengths alone)
+    A64 = dataclasses.replace(A, vals=A.vals.to(torch.complex64))
+    g = torch.Generator(device=DEVICE).manual_seed(CX_SEED)
+    b = A.permute(_cx_randn((n, 4), torch.complex128, g))
+    out = {"A": A, "coo": (r, c, hv, n)}
+    one = ("sellcs_spmv",)
+    for Ak, tol in ((A, CX_TOL[torch.complex128]),
+                    (A64, CX_TOL[torch.complex64])):
+        op = make_operator(Ak)
+        bk = b.to(Ak.dtype)
+        s = _cx_solve(f"column CG {str(Ak.dtype)[6:]} b=4 tol {tol}",
+                      lambda: cg(op, bk, tol=tol, maxiter=3000), Ak, bk, tol,
+                      fw["iters64"], one, lambda i: {"sellcs_spmv": i + 1},
+                      "cg", card)
+        out[f"cg {str(Ak.dtype)[6:]}"] = s
+    op = make_operator(A)
+    bw = A.permute(_cx_randn((n, CX_WIDTH), torch.complex128, g))
+    tol = CX_TOL[torch.complex128]
+    _cx_solve(f"block CG complex128 width {CX_WIDTH} tol {tol}",
+              lambda: cg(op, bw, tol=tol, maxiter=3000, block=True), A, bw,
+              tol, bcg["iters"], BLOCK_KERNELS,
+              lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 2 * i + 1,
+                         "tsmm": 4 * i + 1}, "block_cg", card)
+    mtol = 1e-6
+    _cx_solve(f"block MINRES complex128 width {CX_WIDTH} tol {mtol}",
+                  lambda: minres(op, bw, tol=mtol, maxiter=3000, block=True),
+                  A, bw, mtol, bminres_iters, BLOCK_KERNELS,
+                  lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 4 * i + 1,
+                             "tsmm": 9 * i + 1}, "block_minres", card)
+
+    # Lanczos with reorthogonalisation, against the same recurrence through
+    # the plain SpMV on the card
+    v0 = A.permute(_cx_randn((n,), torch.complex128, g))
+    execution.reset_launch_counts()
+    t0 = time.perf_counter()
+    lk = lanczos(op, v0, CX_LANCZOS_K, reorth=True)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = execution.launch_counts().get(KERNEL, 0)
+    lr = lanczos(make_operator(A, impl="ref"), v0, CX_LANCZOS_K, reorth=True)
+    ek, _ = tridiag_eigh(lk.alphas, lk.betas)
+    er, _ = tridiag_eigh(lr.alphas, lr.betas)
+    dlo = abs(ek[0] - er[0]) / abs(er[0])
+    dhi = abs(ek[-1] - er[-1]) / abs(er[-1])
+    emin = 6.0 - 6.0 * np.cos(np.pi / (NX + 1))
+    print(f"[complex solves] Lanczos k={CX_LANCZOS_K} reorth complex128: "
+          f"{secs:.3f} s, extremes [{ek[0]:.12f}, {ek[-1]:.12f}], through "
+          f"impl='ref' [{er[0]:.12f}, {er[-1]:.12f}] (relative {dlo:.2e}, "
+          f"{dhi:.2e}); the real matrix' lambda_min {emin:.6f} is a lower "
+          f"bound; B1 launches {launches}  [{card}]")
+    require(max(dlo, dhi) <= CX_LANCZOS_TOL,
+            f"complex Lanczos: extremes {dlo:.2e}, {dhi:.2e} off impl='ref'")
+    require(launches == CX_LANCZOS_K or DEVICE == "cpu",
+            f"complex Lanczos: {launches} B1 launches != {CX_LANCZOS_K}")
+
+    # block-Jacobi PCG and PMINRES on the phased anisotropic Laplacian,
+    # with the real matrix' solves beside them
+    ra, ca, va, na = anisotropic_laplace2d(CX_PRECOND_NX, epsilon=PRECOND_EPS)
+    ha = phased(ra, ca, va, na, CX_SEED + 1)
+    kw = dict(C=PRECOND_C, sigma=1, device=DEVICE)
+    t0 = time.perf_counter()
+    P = from_coo(ra, ca, ha, (na, na), dtype=np.complex128, **kw)
+    M = make_preconditioner("block_jacobi", matrix=P)
+    Pr = from_coo(ra, ca, va, (na, na), dtype=np.float64, **kw)
+    Mr = make_preconditioner("block_jacobi", matrix=Pr)
+    sync()
+    print(f"[complex solves] phased anisotropic_laplace2d({CX_PRECOND_NX}, "
+          f"eps={PRECOND_EPS}) n={na} C={PRECOND_C} sigma=1, bs "
+          f"{M.block_size} ({M.inv_blocks.dtype}): complex and real builds "
+          f"and set-ups {time.perf_counter() - t0:.1f} s")
+    pb = P.permute(_cx_randn((na, PRECOND_WIDTH), torch.complex128, g))
+    pbr = pb.real.contiguous()      # sigma = 1: the same permutation
+    opP, opR = make_operator(P), make_operator(Pr)
+    maxiter = 8 * na
+    real_pcg = cg(opR, pbr, tol=PCG_TOL, maxiter=maxiter, M=Mr)
+    real_pmr = minres(opR, pbr, tol=PMINRES_TOL, maxiter=maxiter, M=Mr)
+    _cx_solve(f"block-Jacobi PCG complex128 b={PRECOND_WIDTH} tol {PCG_TOL}",
+              lambda: cg(opP, pb, tol=PCG_TOL, maxiter=maxiter, M=M), P, pb,
+              PCG_TOL, int(real_pcg.iters), PRECOND_KERNELS,
+              lambda i: {"sellcs_spmv": i + 1, "block_diag_matmul": i + 1},
+              "cg_precond", card)
+    _cx_solve(f"block-Jacobi PMINRES complex128 b={PRECOND_WIDTH} tol "
+              f"{PMINRES_TOL} (M-norm)",
+              lambda: minres(opP, pb, tol=PMINRES_TOL, maxiter=maxiter, M=M),
+              P, pb, PMINRES_TOL, int(real_pmr.iters), PRECOND_KERNELS,
+              lambda i: {"sellcs_spmv": i + 1, "block_diag_matmul": i + 2},
+              "minres_precond", card,
+              relres=lambda A_, b_, x_: _m_relres(M, A_, b_, x_))
+    out["M"] = M
+
+    # the engine: one shard a card where there are several, else
+    # ENGINE_SHARDS card shards on the one card
+    ncards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    devs = None if ncards > 1 else [DEVICE] * ENGINE_SHARDS
+    label = (f"{ncards} cards, a shard each" if devs is None
+             else f"{ENGINE_SHARDS} card shards")
+    t0 = time.perf_counter()
+    eng = HeterogeneousEngine(r, c, hv, n, devices=devs, C=32, sigma=1024,
+                              dtype=np.complex128)
+    sync()
+    build_s = time.perf_counter() - t0
+    xo = _cx_randn((n, 4), torch.complex128, g)
+    execution.reset_launch_counts()
+    y_eng, _ = eng.spmv(xo)
+    sync()
+    got = execution.launch_counts().get(KERNEL, 0)
+    y_one = A.unpermute(sellcs_spmv(A, A.permute(xo))[0])
+    err = rel_err(y_eng.to(y_one.device), y_one)
+    print(f"[complex solves] engine, {label}: build {build_s:.1f} s; one "
+          f"complex128 matvec (b=4) {err:.2e} of max|y| off the one-device "
+          f"SpMV, B1 launches {got}  [{card}]")
+    require(err <= CX_ENGINE_TOL, f"complex engine matvec: {err:.2e} of "
+            f"max|y| off the one-device SpMV")
+    require(got == _card_launches(eng.A) or DEVICE == "cpu",
+            f"complex engine matvec: {got} B1 launches != "
+            f"{_card_launches(eng.A)}")
+    eop = eng.operator()
+    bo = A.unpermute(b)
+    bop = eop.to_op_space(bo.to(eop.device))
+    tol = CX_TOL[torch.complex128]
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cg(eop, bop, tol=tol, maxiter=3000)
+    sync()
+    secs = time.perf_counter() - t0
+    got = execution.launch_counts().get(KERNEL, 0)
+    d = dropped("cg")
+    x_eng = eop.from_op_space(res.x).to(A.device)
+    rel = _cx_relres(A, b, A.permute(x_eng))
+    print(f"[complex solves] engine CG through DistOperator, {label}, b=4 "
+          f"tol {tol}: {res.iters} iterations in {secs:.3f} s "
+          f"({1e3 * secs / max(res.iters, 1):.3f} ms/iter; one device "
+          f"{out['cg complex128']['iters']} at "
+          f"{out['cg complex128']['ms']:.3f} ms/iter), true rel residuals "
+          f"{' '.join(f'{e:.2e}' for e in rel.tolist())}, B1 launches {got} "
+          f"({d} discarded iteration)  [{card}]")
+    require(bool(res.converged.all()), "complex engine CG: not converged")
+    require(float(rel.max()) <= 10 * tol,
+            f"complex engine CG: true residual {float(rel.max())}")
+    want = (res.iters + d + 1) * _card_launches(eng.A)
+    require(got == want or DEVICE == "cpu",
+            f"complex engine CG: {got} B1 launches != {want}")
+    del eng, eop
+    return out
+
+
+# ---------------------------------------------------------------- phase 13d
+def phase_complex_timing(cx, card):
+    """B1–B4 in complex128 at the main shapes: kernel, plain version, one
+    PyTorch call computing the same function, and the bound (the bytes
+    over the data sheet's device-memory rate, as for the real rows, or
+    the operations over the float64 peak, whichever is larger; the bytes
+    over the measured rate printed beside it).  Each result is held
+    against its plain version before it is timed: B1 within 1e-12 of
+    max|y|, B2–B4 by :func:`_cx_check`."""
+    A = cx["A"]
+    csr = _library_csr(A, cx["coo"])
+    g = torch.Generator(device=DEVICE).manual_seed(CX_SEED + 2)
+    f64 = torch.float64
+    rows = {}
+
+    def row(key, label, kern, plain, lib, nbytes, flops, err, slow=False):
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain, warmup=1 if slow else 3,
+                           iters=2 if slow else 20)
+        lib_ms = time_ms(lib)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * flops / PEAK_FLOPS[f64]
+        bound_ms = max(bytes_ms, ops_ms)
+        measured_ms = 1e3 * nbytes / CX_MEASURED_BYTES_PER_S
+        print(f"[complex] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.1f} GB/s; "
+              f"operations {ops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of "
+              f"bound; at the measured {CX_MEASURED_BYTES_PER_S / 1e9:.1f} "
+              f"GB/s the bytes take {measured_ms:.4f} ms "
+              f"({100 * measured_ms / ms:.1f}%); max abs err {err:.3e}  "
+              f"[{card}]")
+        rows[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, err=err,
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations")
+
+    for b in (1, 4, CX_WIDTH):
+        x = _cx_randn((A.nrows_pad, b), torch.complex128, g)
+        opts = SpmvOpts(dot_xy=b < CX_WIDTH)   # as CG / block CG ask
+        yk, _, dk = sellcs_spmv(A, x, opts=opts)
+        yr, _, dr = sellcs_spmv_ref(A, x, opts=opts)
+        require(rel_err(yk, yr) <= 1e-12 and rel_err(dk, dr) <= 1e-12,
+                f"complex timing: B1 b={b} off its plain version")
+        lib_err = rel_err(csr @ x, yk)
+        require(lib_err <= 1e-12, f"complex timing: the library product is "
+                f"{lib_err:.2e} off at b={b}")
+        err = float((yk - yr).abs().max())
+        row(("sellcs_spmv", b),
+            f"sellcs_spmv complex128 b={b} {'<p, Ap>' if opts.dot_xy else 'no dots'}"
+            f" phased laplace3d({NX})",
+            lambda: sellcs_spmv(A, x, opts=opts),
+            lambda: sellcs_spmv_ref(A, x, opts=opts), lambda: csr @ x,
+            _spmv_bytes(A, x, yk, dk), 8.0 * A.nnz * b, err)
+    nt = A.nrows_pad
+    V, W = (_cx_randn((nt, CX_WIDTH), torch.complex128, g) for _ in range(2))
+    X = _cx_randn((CX_WIDTH, CX_WIDTH), torch.complex128, g)
+    flops = 8.0 * nt * CX_WIDTH * CX_WIDTH
+    worst = [0.0, "", 0.0]
+    Va, Wa = V.abs(), W.abs()
+    # B2 as block CG and MINRES call it (the plain sum) and with Kahan
+    want = tsmttsm_ref(V, W)
+    for kahan in (False, True):
+        got = tsmttsm(V, W, kahan=kahan)
+        depth = (kahan_depth(nt, CX_WIDTH, CX_WIDTH, f64) if kahan
+                 else summation_depth(nt, CX_WIDTH, CX_WIDTH))
+        err = _cx_check(got, want, Va.T @ Wa, torch.complex128, depth, nt,
+                        f"B2 kahan={kahan} n={nt}", worst)
+    row(("tsmttsm", "kahan"), f"tsmttsm Kahan complex128 n={nt} m=k={CX_WIDTH}",
+        lambda: tsmttsm(V, W, kahan=True),
+        lambda: tsmttsm_ref(V, W, kahan=True), lambda: V.mH @ W,
+        _nbytes(V, W, got), flops, err, slow=True)
+    got = tsmm(V, X, W, 1.0, 1.0)
+    err = _cx_check(got, tsmm_ref(V, X, W, 1.0, 1.0), Va @ X.abs() + Wa,
+                    torch.complex128, CX_WIDTH, CX_WIDTH,
+                    f"B3 with W n={nt}", worst)
+    row(("tsmm", "with W"), f"tsmm with W complex128 n={nt} m=k={CX_WIDTH}",
+        lambda: tsmm(V, X, W, 1.0, 1.0),
+        lambda: tsmm_ref(V, X, W, 1.0, 1.0),
+        lambda: torch.addmm(W, V, X, beta=1.0, alpha=1.0),
+        _nbytes(V, X, W, got), flops, err)
+    del V, W, Va, Wa
+    nb, bs = PRECOND_NX * PRECOND_NX // PRECOND_C, PRECOND_C
+    B = _cx_randn((nb, bs, bs), torch.complex128, g)
+    x = _cx_randn((nb * bs, PRECOND_WIDTH), torch.complex128, g)
+    got = block_jacobi_apply(B, x)
+    err = _cx_check(got, block_diag_matmul_ref(B, x),
+                    block_diag_matmul_ref(B.abs(), x.abs()),
+                    torch.complex128, bs, bs,
+                    f"B4 nblocks={nb} bs={bs}", worst)
+    Bv, xv = B.view(nb, bs, bs), x.view(nb, bs, PRECOND_WIDTH)
+    row(("block_diag_matmul", bs),
+        f"block_diag_matmul complex128 nblocks={nb} bs={bs} b={PRECOND_WIDTH}",
+        lambda: block_jacobi_apply(B, x), lambda: block_diag_matmul_ref(B, x),
+        lambda: torch.bmm(Bv, xv), _nbytes(B, x, got),
+        8.0 * nb * bs * bs * PRECOND_WIDTH, err)
+    print(f"[complex] B2 (plain sum and Kahan), B3 and B4 at these shapes "
+          f"within sqrt(2) (2 depth + 3) u sum|a||b| of their plain "
+          f"versions: worst {worst[0]:.3f} of the bound (at {worst[1]})  "
+          f"[{card}]")
+    return rows
+
+
 def phase_b5_residual(pcg, card) -> int:
     """B5 on its one path in this script: the true residual of the PCG
     solution, ``r = b - A x`` with ``<r, r>`` and ``<b, b>`` in one sweep,
@@ -1622,10 +2181,13 @@ def phase_b5_residual(pcg, card) -> int:
 
 def _m_relres(M, A, b, x) -> torch.Tensor:
     """True relative residual in the M-norm, sqrt(<r, M r> / <b, M b>):
-    the norm preconditioned MINRES converges in."""
+    the norm preconditioned MINRES converges in (M Hermitian)."""
     Ax, _, _ = sellcs_spmv_ref(A, x)
     r = b - Ax
-    return torch.sqrt((r * M.apply(r)).sum(0) / (b * M.apply(b)).sum(0))
+
+    def mdot(u):
+        return (u.conj() * M.apply(u)).sum(0).real
+    return torch.sqrt(mdot(r) / mdot(b))
 
 
 def phase_precond_minres(pcg, card) -> None:
@@ -4919,7 +5481,7 @@ def main() -> int:
     fw = timed("full width column CG", phase_full_width, card)
     timed("quickstart", phase_quickstart, fw["A64"])
     bcg = timed("block CG", phase_block_cg, fw, card)
-    timed("block MINRES", phase_block_minres, fw, card)
+    bminres = timed("block MINRES", phase_block_minres, fw, card)
     timed("eigensolvers", phase_eigen, fw, card)
     rows = timed("spmv timing", phase_timing, fw, card)
     tsm = timed("tsm timing", phase_tsm_timing, fw, card)
@@ -4927,6 +5489,12 @@ def main() -> int:
     timed("b4 grid", phase_b4_grid)
     timed("b5 grid", phase_b5_grid)
     pcg = timed("preconditioned CG", phase_precond_cg, card)
+    timed("complex grid", phase_complex_grid)
+    cx = timed("complex solves", phase_complex_solves, fw, bcg, bminres, card)
+    timed("complex timing", phase_complex_timing, cx, card)
+    del cx
+    gc.collect()
+    torch.cuda.empty_cache()
     b5_launches = timed("b5 path", phase_b5_residual, pcg, card)
     timed("preconditioned MINRES", phase_precond_minres, pcg, card)
     timed("chebyshev PCG", phase_chebyshev_pcg, card)

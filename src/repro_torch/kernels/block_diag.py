@@ -5,8 +5,9 @@ The CUDA port of ``repro/kernels/block_diag.py:block_diag_matmul_pallas``
 for an ``(nblocks, bs, bs)`` stack and ``x`` of shape ``(nblocks*bs, b)``.
 A thread block stages a few whole diagonal blocks and their rows of ``x``
 in shared memory and one thread forms one output row (see the note at the
-top of the CUDA source).  This wrapper validates the operands, allocates
-the result in ``promote_types(blocks, x)`` and launches on the current
+top of the CUDA source), for real blocks and for complex ones.  This
+wrapper validates the operands, allocates the result in
+``promote_types(blocks, x)`` and launches on the current
 stream without synchronising.  It needs no padding and has no
 ``row_tile``: any ``nblocks`` and ``b`` go through as they are.
 
@@ -61,8 +62,9 @@ def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Run the block-diagonal matmul kernel on the card.
 
     ``blocks`` ``(nblocks, bs, bs)`` with ``bs <= MAX_BS`` and ``x``
-    ``(nblocks*bs, b)`` may have different real dtypes; the result is
-    ``(nblocks*bs, b)`` in ``promote_types(blocks, x)``, summed in its
+    ``(nblocks*bs, b)`` may have different real dtypes; complex blocks take
+    an ``x`` of their dtype or a real one of their precision.  The result
+    is ``(nblocks*bs, b)`` in ``promote_types(blocks, x)``, summed in its
     accumulation dtype (float32 for bfloat16/float16).
     """
     fn = "block_diag_matmul"
@@ -73,13 +75,18 @@ def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for name, t in (("blocks", blocks), ("x", x)):
         if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{fn}: no kernel for {name} of {t.dtype}")
+    if ((blocks.is_complex() or x.is_complex())
+            and torch.promote_types(blocks.dtype, x.dtype) != blocks.dtype):
+        raise TypeError(f"{fn}: complex operands need complex blocks and x "
+                        f"no wider than them, got blocks {blocks.dtype} and "
+                        f"x {x.dtype}")
     check_shapes(fn, blocks, x)
     nb, bs, _ = (int(s) for s in blocks.shape)
     n, b = (int(s) for s in x.shape)
     if not 1 <= bs <= MAX_BS:
         raise ValueError(f"{fn}: bs={bs} outside 1..{MAX_BS}")
     out_dtype = torch.promote_types(blocks.dtype, x.dtype)
-    acc_bytes = torch.finfo(storage_acc_dtype(out_dtype)).bits // 8
+    acc_bytes = storage_acc_dtype(out_dtype).itemsize
     if (bs * (bs + 1) + bs * b) * acc_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"{fn}: one block of bs={bs} with b={b} columns "
                          f"does not fit in shared memory")

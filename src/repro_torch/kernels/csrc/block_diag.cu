@@ -9,7 +9,9 @@
 // shape (nblocks*bs, b), row-major.  B and x may have different real
 // types (float64, float32, bfloat16, float16); y has their promoted type
 // and the sums run in its accumulation type (float32 for the half types,
-// else the type itself).
+// else the type itself).  Complex blocks (complex128, complex64) take x
+// of their type or real x of their precision (staged as complex), and y
+// is complex; each product is then four fused multiply-adds.
 //
 // Bound: memory bandwidth.  The call must read the blocks once,
 // nblocks * bs^2 values, and x and y once, 2 * nblocks * bs * b values, for
@@ -118,7 +120,7 @@ block_diag_rows(const TB* __restrict__ blocks, const TX* __restrict__ x,
         const A bij = brow[j];
         const A* xj = xblk + j * b + c0;
 #pragma unroll
-        for (int q = 0; q < kColTile; ++q) acc[q] += bij * xj[q];
+        for (int q = 0; q < kColTile; ++q) acc[q] = mul_add(bij, xj[q], acc[q]);
       }
 #pragma unroll
       for (int q = 0; q < kColTile; ++q) yrow[c0 + q] = store_as<TO>(acc[q]);
@@ -129,7 +131,7 @@ block_diag_rows(const TB* __restrict__ blocks, const TX* __restrict__ x,
         const A* xj = xblk + j * b + c0;
 #pragma unroll
         for (int q = 0; q < kColTile; ++q)
-          if (q < nc) acc[q] += bij * xj[q];
+          if (q < nc) acc[q] = mul_add(bij, xj[q], acc[q]);
       }
 #pragma unroll
       for (int q = 0; q < kColTile; ++q)
@@ -172,8 +174,10 @@ int launch_x(int x_dtype, const void* blocks, const void* x, void* y,
 
 }  // namespace
 
-// dtype codes: 0 float64, 1 float32, 2 bfloat16, 3 float16.  y has the
-// promoted type of the two (the wrapper allocates it).  Returns the first
+// dtype codes: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
+// 5 complex64; complex blocks take x of their code or of their precision's
+// real code (0 with 4, 1 with 5).  y has the promoted type of the two (the
+// wrapper allocates it).  Returns the first
 // CUDA error of the launch (0 on success).
 extern "C" int block_diag_launch(int blocks_dtype, int x_dtype,
                                  const void* blocks, const void* x, void* y,
@@ -188,6 +192,20 @@ extern "C" int block_diag_launch(int blocks_dtype, int x_dtype,
     case 2: return launch_x<__nv_bfloat16>(x_dtype, blocks, x, y, nblocks, bs,
                                            b, s);
     case 3: return launch_x<__half>(x_dtype, blocks, x, y, nblocks, bs, b, s);
+    case 4:
+      if (x_dtype == 4)
+        return launch<Complex<double>, Complex<double>>(blocks, x, y, nblocks,
+                                                        bs, b, s);
+      if (x_dtype == 0)
+        return launch<Complex<double>, double>(blocks, x, y, nblocks, bs, b, s);
+      return (int)cudaErrorInvalidValue;
+    case 5:
+      if (x_dtype == 5)
+        return launch<Complex<float>, Complex<float>>(blocks, x, y, nblocks,
+                                                      bs, b, s);
+      if (x_dtype == 1)
+        return launch<Complex<float>, float>(blocks, x, y, nblocks, bs, b, s);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

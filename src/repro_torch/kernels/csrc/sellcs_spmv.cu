@@ -7,7 +7,12 @@
 //   z    = delta * z_in + eta * y                     (chained axpby)
 //   part = per-chunk <y,y>, <x,y>, <x,x>              ((nchunks, 3, b), float64)
 //
-// The wrapper (kernels/sellcs_spmv.py) sums `part` over chunks in float64.
+// for real float64/float32 compute (values stored as float64, float32,
+// bfloat16 or float16) and for complex128/complex64 (values stored as
+// the compute type).  For complex types <u,v> = sum conj(u) v, `part` is
+// complex128, and alpha, beta, gamma, delta and eta may be complex.  The
+// wrapper (kernels/sellcs_spmv.py) sums `part` over chunks in float64
+// (complex128).
 //
 // Bound: memory bandwidth.  Each call must stream the stored values and
 // column indices once (vals + cols), gather x and write y; at two flops per
@@ -46,6 +51,12 @@
 //   bit-for-bit reproducible from run to run.
 // * Threads are rounded up to whole warps; rows >= C only feed zeros to
 //   the reductions.
+// * Complex values (Complex<R> of dtypes.cuh) take the same path: a
+//   complex128 value is one 16-byte vector (CPT = 1), a complex64 pair is
+//   one (CPT = 2), and each product is two fused multiply-adds per part.
+//   A complex128 thread keeps kUnroll / 2 slots in flight, so that its
+//   values and gathers (twice the registers of float64) still fit the
+//   64 registers a thread.
 
 #include <cuda_runtime.h>
 
@@ -84,9 +95,44 @@ __device__ __forceinline__ double2 join16(const double* o) {
 __device__ __forceinline__ float4 join16(const float* o) {
   return make_float4(o[0], o[1], o[2], o[3]);
 }
+__device__ __forceinline__ void split16(const float4& t, Complex<float>* o) {
+  o[0] = Complex<float>(t.x, t.y);
+  o[1] = Complex<float>(t.z, t.w);
+}
+__device__ __forceinline__ float4 join16(const Complex<float>* o) {
+  return make_float4(o[0].re, o[0].im, o[1].re, o[1].im);
+}
 template <typename CT> struct Vec16;
 template <> struct Vec16<double> { using type = double2; };
 template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<Complex<float>> { using type = float4; };
+
+// One value through the read-only data cache; a complex value as one
+// 8- or 16-byte vector.
+template <typename T> __device__ __forceinline__ T ldg_val(const T* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ Complex<double> ldg_val(const Complex<double>* p) {
+  const double2 t = __ldg(reinterpret_cast<const double2*>(p));
+  return Complex<double>(t.x, t.y);
+}
+__device__ __forceinline__ Complex<float> ldg_val(const Complex<float>* p) {
+  const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+  return Complex<float>(t.x, t.y);
+}
+
+// The type of the dot partials: float64, or complex128 for complex values;
+// dot_term(u, v) is one term conj(u) v of <u, v> in that type.
+template <typename CT> struct Dot { using type = double; };
+template <typename R> struct Dot<Complex<R>> { using type = Complex<double>; };
+template <typename CT> __device__ __forceinline__ double dot_term(CT u, CT v) {
+  return (double)u * (double)v;
+}
+template <typename R>
+__device__ __forceinline__ Complex<double> dot_term(Complex<R> u,
+                                                    Complex<R> v) {
+  return conj_of(Complex<double>(u.re, u.im)) * Complex<double>(v.re, v.im);
+}
 
 // CPT neighbouring values of the compute type: one value, or one 16-byte
 // vector (double2, float4).
@@ -94,7 +140,7 @@ template <typename CT, int CPT> struct Pack {
   CT v[CPT];
   __device__ __forceinline__ void load(const CT* p) {
     if constexpr (CPT == 1)
-      v[0] = __ldg(p);
+      v[0] = ldg_val(p);
     else
       split16(__ldg(reinterpret_cast<const typename Vec16<CT>::type*>(p)), v);
   }
@@ -113,6 +159,10 @@ __device__ __forceinline__ double rows_sum(double v, int tpr) {
     v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
+__device__ __forceinline__ Complex<double> rows_sum(Complex<double> v,
+                                                    int tpr) {
+  return Complex<double>(rows_sum(v.re, tpr), rows_sum(v.im, tpr));
+}
 
 template <typename VT, typename CT, int CPT>
 __global__ void __launch_bounds__(kMaxThreads, 2)
@@ -121,10 +171,12 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const int* __restrict__ chunk_len, const CT* __restrict__ x,
                   const CT* __restrict__ y_in, const CT* __restrict__ z_in,
                   const CT* __restrict__ gamma, CT* __restrict__ y,
-                  CT* __restrict__ z, double* __restrict__ part, int C, int b,
-                  int bw, int tpr, int gamma_width, CT alpha, CT beta,
-                  CT delta, CT eta, int flags) {
-  __shared__ double warp_part[kMaxWarps][3][kMaxBW];
+                  CT* __restrict__ z, typename Dot<CT>::type* __restrict__ part,
+                  int C, int b, int bw, int tpr, int gamma_width, CT alpha,
+                  CT beta, CT delta, CT eta, int flags) {
+  using DT = typename Dot<CT>::type;
+  constexpr int kU = sizeof(CT) > 8 ? kUnroll / 2 : kUnroll;
+  __shared__ DT warp_part[kMaxWarps][3][kMaxBW];
 
   const int c = blockIdx.x;
   const int sub = threadIdx.x % tpr;
@@ -137,9 +189,9 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
   const long long off = (long long)chunk_off[c] * C;
   const int len = chunk_len[c];
 
-  double d_yy[CPT], d_xy[CPT], d_xx[CPT];
+  DT d_yy[CPT], d_xy[CPT], d_xx[CPT];
 #pragma unroll
-  for (int e = 0; e < CPT; ++e) d_yy[e] = d_xy[e] = d_xx[e] = 0.0;
+  for (int e = 0; e < CPT; ++e) d_yy[e] = d_xy[e] = d_xx[e] = DT(0);
 
   for (int r0 = 0; r0 < C; r0 += rows_per_pass) {
     const int lr = r0 + rip;
@@ -151,22 +203,22 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
 #pragma unroll
     for (int e = 0; e < CPT; ++e) acc[e] = CT(0);
     int j = 0;
-    for (; j + kUnroll <= len; j += kUnroll) {
-      CT a[kUnroll];
-      int col[kUnroll];
+    for (; j + kU <= len; j += kU) {
+      CT a[kU];
+      int col[kU];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const long long s = base + (long long)(j + u) * C;
         a[u] = load_as<CT>(vals[s]);
         col[u] = __ldg(cols + s);
       }
-      Pack<CT, CPT> xv[kUnroll];
+      Pack<CT, CPT> xv[kU];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) xv[u].load(x + (long long)col[u] * b + kk);
+      for (int u = 0; u < kU; ++u) xv[u].load(x + (long long)col[u] * b + kk);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kU; ++u)
 #pragma unroll
-        for (int e = 0; e < CPT; ++e) acc[e] += a[u] * xv[u].v[e];
+        for (int e = 0; e < CPT; ++e) acc[e] = mul_add(a[u], xv[u].v[e], acc[e]);
     }
     for (; j < len; ++j) {
       const long long s = base + (long long)j * C;
@@ -174,7 +226,7 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
       Pack<CT, CPT> xv;
       xv.load(x + (long long)__ldg(cols + s) * b + kk);
 #pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[e] += a * xv.v[e];
+      for (int e = 0; e < CPT; ++e) acc[e] = mul_add(a, xv.v[e], acc[e]);
     }
 
     const long long o = row * b + kk;
@@ -191,9 +243,9 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
       if (flags & kHasYin) yvv += beta * yi.v[e];
       yv.v[e] = yvv;
       if (flags & kChain) zi.v[e] = delta * zi.v[e] + eta * yvv;
-      if (flags & kDotYY) d_yy[e] += (double)yvv * (double)yvv;
-      if (flags & kDotXY) d_xy[e] += (double)xr.v[e] * (double)yvv;
-      if (flags & kDotXX) d_xx[e] += (double)xr.v[e] * (double)xr.v[e];
+      if (flags & kDotYY) d_yy[e] += dot_term(yvv, yvv);
+      if (flags & kDotXY) d_xy[e] += dot_term(xr.v[e], yvv);
+      if (flags & kDotXX) d_xx[e] += dot_term(xr.v[e], xr.v[e]);
     }
     yv.store(y + o);
     if (flags & kChain) zi.store(z + o);
@@ -204,9 +256,9 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
   const int wl = threadIdx.x & 31;
 #pragma unroll
   for (int e = 0; e < CPT; ++e) {
-    const double s_yy = (flags & kDotYY) ? rows_sum(d_yy[e], tpr) : 0.0;
-    const double s_xy = (flags & kDotXY) ? rows_sum(d_xy[e], tpr) : 0.0;
-    const double s_xx = (flags & kDotXX) ? rows_sum(d_xx[e], tpr) : 0.0;
+    const DT s_yy = (flags & kDotYY) ? rows_sum(d_yy[e], tpr) : DT(0);
+    const DT s_xy = (flags & kDotXY) ? rows_sum(d_xy[e], tpr) : DT(0);
+    const DT s_xx = (flags & kDotXX) ? rows_sum(d_xx[e], tpr) : DT(0);
     if (wl < tpr) {
       warp_part[warp][0][sub * CPT + e] = s_yy;
       warp_part[warp][1][sub * CPT + e] = s_xy;
@@ -220,7 +272,7 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
     const int col = t % bw;
     const int k = blockIdx.y * bw + col;
     if (k < b) {
-      double s = 0.0;
+      DT s = DT(0);
       for (int w = 0; w < nwarps; ++w) s += warp_part[w][d][col];
       part[((long long)c * 3 + d) * b + k] = s;
     }
@@ -238,9 +290,10 @@ struct Args {
   const void* gamma;
   void* y;
   void* z;
-  double* part;
+  void* part;
   int nchunks, C, b, bw, tpr, threads, gamma_width, flags;
-  double alpha, beta, delta, eta;
+  double alpha, beta, delta, eta;           // real parts
+  double alpha_im, beta_im, delta_im, eta_im;  // imaginary parts
 };
 
 template <typename VT, typename CT, int CPT>
@@ -250,9 +303,11 @@ void launch(const Args& a, cudaStream_t stream) {
       static_cast<const VT*>(a.vals), a.cols, a.chunk_off, a.chunk_len,
       static_cast<const CT*>(a.x), static_cast<const CT*>(a.y_in),
       static_cast<const CT*>(a.z_in), static_cast<const CT*>(a.gamma),
-      static_cast<CT*>(a.y), static_cast<CT*>(a.z), a.part, a.C, a.b, a.bw,
-      a.tpr, a.gamma_width, (CT)a.alpha, (CT)a.beta, (CT)a.delta, (CT)a.eta,
-      a.flags);
+      static_cast<CT*>(a.y), static_cast<CT*>(a.z),
+      static_cast<typename Dot<CT>::type*>(a.part), a.C, a.b, a.bw, a.tpr,
+      a.gamma_width, make_scalar<CT>(a.alpha, a.alpha_im),
+      make_scalar<CT>(a.beta, a.beta_im), make_scalar<CT>(a.delta, a.delta_im),
+      make_scalar<CT>(a.eta, a.eta_im), a.flags);
 }
 
 // CPT is 1, or one 16-byte vector of the compute type.
@@ -270,9 +325,13 @@ int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// store: 0 float64, 1 float32, 2 bfloat16, 3 float16; compute: 0 float64,
-// 1 float32.  bw (columns per grid.y slice, <= 16), tpr (threads per row),
-// cpt (columns per thread, tpr * cpt == bw) and threads (per block) come
+// store: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
+// 5 complex64; compute: 0 float64, 1 float32, 2 complex128 (store 4),
+// 3 complex64 (store 5).  part holds float64 partials, complex128 for a
+// complex compute type; the coefficients come as real and imaginary
+// parts (the imaginary parts are ignored for a real compute type).  bw
+// (columns per grid.y slice, <= 16), tpr (threads per row), cpt (columns
+// per thread, tpr * cpt == bw) and threads (per block) come
 // from kernels/sellcs_spmv.py:launch_geometry; cpt > 1 needs b % cpt == 0
 // and x, y_in, z_in, y and z on 16-byte boundaries.  Returns
 // cudaGetLastError() after the launch (0 on success).
@@ -282,7 +341,8 @@ extern "C" int sellcs_spmv_launch(
     const void* y_in, const void* z_in, const void* gamma, void* y, void* z,
     void* part, int nchunks, int C, int b, int bw, int tpr, int cpt,
     int threads, int gamma_width, double alpha, double beta, double delta,
-    double eta, int flags, void* stream) {
+    double eta, double alpha_im, double beta_im, double delta_im,
+    double eta_im, int flags, void* stream) {
   if (C < 1 || nchunks < 1 || b < 1 || bw < 1 || bw > kMaxBW || tpr < 1 ||
       cpt < 1 || tpr * cpt != bw || (cpt > 1 && b % cpt) || threads < 32 ||
       threads > kMaxThreads || threads % 32 || 32 % tpr)
@@ -290,8 +350,8 @@ extern "C" int sellcs_spmv_launch(
   const Args a{vals, static_cast<const int*>(cols),
                static_cast<const int*>(chunk_off),
                static_cast<const int*>(chunk_len), x, y_in, z_in, gamma, y, z,
-               static_cast<double*>(part), nchunks, C, b, bw, tpr, threads,
-               gamma_width, flags, alpha, beta, delta, eta};
+               part, nchunks, C, b, bw, tpr, threads, gamma_width, flags,
+               alpha, beta, delta, eta, alpha_im, beta_im, delta_im, eta_im};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (compute == 0) {
@@ -309,6 +369,10 @@ extern "C" int sellcs_spmv_launch(
       case 3: rc = launch_cpt<__half, float>(cpt, a, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
+  } else if (compute == 2 && store == 4) {
+    rc = launch_cpt<Complex<double>, Complex<double>>(cpt, a, s);
+  } else if (compute == 3 && store == 5) {
+    rc = launch_cpt<Complex<float>, Complex<float>>(cpt, a, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -6,7 +6,9 @@
 //   X = alpha * V^T W + beta * X_in        V (n, m), W (n, k) row-major, m, k << n
 //
 // with an optional Kahan compensation (paper section 5.2), for real
-// float64, float32, bfloat16 and float16 inputs.  The sums run in the
+// float64, float32, bfloat16 and float16 inputs and for complex128 and
+// complex64 ones, where V^T becomes V^H when `conj` is set (the plain
+// version's conj=True) and stays V^T otherwise.  The sums run in the
 // accumulation type: float32 for the half types, else the input type.
 //
 // Bound: memory bandwidth.  The call must read V and W once,
@@ -53,6 +55,13 @@
 // * The partition (rows_per_block, number of blocks) is chosen by the
 //   wrapper from n, m and k alone, not from the card, so the summation
 //   order is the same on every card.
+// * Complex values (Complex<R> of dtypes.cuh) take the same path: the
+//   stages hold them as stored, a thread conjugates its TM values of V
+//   as it reads them (conj), each product is four fused multiply-adds,
+//   and Kahan compensates the real and the imaginary parts separately
+//   (its additions are those of each part).  A complex128 thread's three
+//   4 x 4 tiles (sum, compensation, group) take 192 registers, so its
+//   Kahan instances spill a little (the build log says how much).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -150,9 +159,14 @@ __device__ __forceinline__ void load4(const __half* p, A* out) {
   const float2 b = __half22float2(q[1]);
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
 }
+template <typename A, typename R>
+__device__ __forceinline__ void load4(const Complex<R>* p, A* out) {
+  out[0] = p[0]; out[1] = p[1]; out[2] = p[2]; out[3] = p[3];
+}
 
-// Pass 1: part[blk] = sum over the block's rows of V[r]^T W[r] (plus its
-// compensation comp[blk] when KAHAN).  VEC: m and k are multiples of 4.
+// Pass 1: part[blk] = sum over the block's rows of V[r]^T W[r] (V[r]^H
+// with conj; plus its compensation comp[blk] when KAHAN).  VEC: m and k
+// are multiples of 4.
 // `bulk` says the operands' base addresses and the block and stage sizes
 // allow 16-byte bulk copies; each tile checks its own size too.
 template <typename T, bool KAHAN, bool VEC>
@@ -161,7 +175,7 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
                 typename Acc<T>::type* __restrict__ part,
                 typename Acc<T>::type* __restrict__ comp, long long n, int m,
                 int k, long long rows_per_block, int tile_rows,
-                int w_offset, int stage_stride, int bulk) {
+                int w_offset, int stage_stride, int bulk, int conj) {
   using A = typename Acc<T>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kStages];
@@ -277,10 +291,15 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
               for (int b = 0; b < kTN; ++b)
                 wb[b] = (j0 + b < k) ? load_as<A>(sw[lr * k + j0 + b]) : A(0);
             }
+            if (IsComplex<A>::value && conj) {
+#pragma unroll
+              for (int a = 0; a < kTM; ++a) va[a] = conj_of(va[a]);
+            }
 #pragma unroll
             for (int a = 0; a < kTM; ++a)
 #pragma unroll
-              for (int b = 0; b < kTN; ++b) p[a][b] += va[a] * wb[b];
+              for (int b = 0; b < kTN; ++b)
+                p[a][b] = mul_add(va[a], wb[b], p[a][b]);
             hit = true;
           }
         }
@@ -343,13 +362,12 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
 // Pass 2: one thread per result entry sums the block partials in block
 // order and applies alpha, beta and the output type.  The partials are
 // read kChunk at a time ahead of the (sequential) sums.
-template <typename T, bool KAHAN>
+template <typename T, bool KAHAN, typename A = typename Acc<T>::type>
 __global__ void __launch_bounds__(kThreads)
 tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
                const typename Acc<T>::type* __restrict__ comp, int nblocks,
                int mk, const typename Acc<T>::type* __restrict__ x_in,
-               T* __restrict__ x_out, double alpha, double beta, int has_x) {
-  using A = typename Acc<T>::type;
+               T* __restrict__ x_out, A alpha, A beta, int has_x) {
   constexpr int kChunk = 16;
   const int o = blockIdx.x * blockDim.x + threadIdx.x;
   if (o >= mk) return;
@@ -373,8 +391,8 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
       }
     }
   }
-  A res = (A)alpha * S;
-  if (has_x) res += (A)beta * x_in[o];
+  A res = alpha * S;
+  if (has_x) res += beta * x_in[o];
   x_out[o] = store_as<T>(res);
 }
 
@@ -389,8 +407,8 @@ struct Args {
   int nblocks, tile_rows, bulk;
   const void* x_in;
   void* x_out;
-  double alpha, beta;
-  int has_x;
+  double alpha, beta, alpha_im, beta_im;
+  int has_x, conj;
 };
 
 inline int round16(long long bytes) { return (int)((bytes + 15) / 16 * 16); }
@@ -415,7 +433,7 @@ int launch(const Args& a, cudaStream_t stream) {
     kern<<<a.nblocks, kThreads, smem, stream>>>(
         static_cast<const T*>(a.V), static_cast<const T*>(a.W),
         static_cast<A*>(a.part), static_cast<A*>(a.comp), a.n, a.m, a.k,
-        a.rows_per_block, a.tile_rows, w_offset, stride, a.bulk);
+        a.rows_per_block, a.tile_rows, w_offset, stride, a.bulk, a.conj);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -423,7 +441,8 @@ int launch(const Args& a, cudaStream_t stream) {
                              stream>>>(
       static_cast<const A*>(a.part), static_cast<const A*>(a.comp),
       a.nblocks, mk, static_cast<const A*>(a.x_in), static_cast<T*>(a.x_out),
-      a.alpha, a.beta, a.has_x);
+      make_scalar<A>(a.alpha, a.alpha_im), make_scalar<A>(a.beta, a.beta_im),
+      a.has_x);
   return (int)cudaGetLastError();
 }
 
@@ -437,20 +456,24 @@ int launch_t(int kahan, const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 float64, 1 float32, 2 bfloat16, 3 float16.  part and comp hold
+// dtype: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
+// 5 complex64; conj (complex only) gives V^H W.  alpha and beta come as
+// real and imaginary parts (the imaginary parts are ignored for a real
+// dtype).  part and comp hold
 // nblocks * m * k values of the accumulation type (comp only for kahan);
 // x_in holds m * k values of the accumulation type (read when has_x).
 // tile_rows is a multiple of the row lanes (kernels/tsmttsm.py:stage_rows);
 // bulk says V and W start on 16-byte boundaries and rows_per_block and
 // tile_rows rows of each are whole multiples of 16 bytes.
 // Returns the first CUDA error of the launches (0 on success).
-extern "C" int tsmttsm_launch(int dtype, int kahan, const void* V,
+extern "C" int tsmttsm_launch(int dtype, int kahan, int conj, const void* V,
                               const void* W, void* part, void* comp,
                               long long n, int m, int k,
                               long long rows_per_block, int nblocks,
                               int tile_rows, int bulk, const void* x_in,
                               void* x_out, double alpha, double beta,
-                              int has_x, void* stream) {
+                              double alpha_im, double beta_im, int has_x,
+                              void* stream) {
   const int G = ((m + kTM - 1) / kTM) * ((k + kTN - 1) / kTN);
   if (m < 1 || k < 1 || n < 0 || nblocks < 0 || G > kThreads ||
       (nblocks > 0 &&
@@ -458,13 +481,15 @@ extern "C" int tsmttsm_launch(int dtype, int kahan, const void* V,
     return (int)cudaErrorInvalidValue;
   const Args a{V,  W,        part,  comp,  n,    m,     k,
                rows_per_block, nblocks, tile_rows, bulk, x_in, x_out,
-               alpha, beta, has_x};
+               alpha, beta, alpha_im, beta_im, has_x, conj};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_t<double>(kahan, a, s);
     case 1: return launch_t<float>(kahan, a, s);
     case 2: return launch_t<__nv_bfloat16>(kahan, a, s);
     case 3: return launch_t<__half>(kahan, a, s);
+    case 4: return launch_t<Complex<double>>(kahan, a, s);
+    case 5: return launch_t<Complex<float>>(kahan, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

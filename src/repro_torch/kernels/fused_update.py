@@ -95,7 +95,7 @@ def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         raise ValueError(f"fused_axpby_dots_cuda takes CUDA tensors, x is on "
                          f"{device}")
     for name, t in (("x", x), ("y", y)):
-        if t.dtype not in DTYPE_CODES:
+        if t.dtype not in DTYPE_CODES or t.is_complex():
             raise TypeError(f"{fn}: no kernel for {name} of {t.dtype}")
     if x.ndim != 2 or tuple(y.shape) != tuple(x.shape):
         raise ValueError(f"{fn}: y{tuple(y.shape)} must match x"

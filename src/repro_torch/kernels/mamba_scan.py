@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core import execution
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import scan_chunks
 from repro_torch.kernels.sellcs_spmv import check_operand
 
 __all__ = ["mamba_scan_cuda", "exp2_cuda", "MAX_N", "check_shapes",
@@ -123,15 +124,19 @@ def error_bound(dt, xc, Bc, Cc, A) -> torch.Tensor:
     H = torch.zeros((B, di, N), dtype=torch.float64, device=dt.device)
     E = torch.zeros_like(H)
     out = torch.empty((B, S, di), dtype=torch.float64, device=dt.device)
-    for s in range(S):
-        z = dt[:, s, :, None] * A
+    for s0, s1 in scan_chunks(S, H.numel()):    # several steps at once
+        z = dt[:, s0:s1, :, None] * A
         a = torch.exp(z)
-        b = ((dt[:, s] * xc[:, s])[..., None] * Bc[:, s, None, :]).abs()
-        E = (a * E + ((exp_rel + 3.0 * z.abs()) * _U * a + EXP_FLUSH) * H
-             + 3.0 * _U * b + _TINY)
-        H = a * H + b
-        c = Cc[:, s].abs()[:, None, :]
-        out[:, s] = 2.0 * ((c * E).sum(-1) + N * _U * (c * H).sum(-1))
+        b = ((dt[:, s0:s1] * xc[:, s0:s1])[..., None]
+             * Bc[:, s0:s1, None, :]).abs()
+        grow = (exp_rel + 3.0 * z.abs()) * _U * a + EXP_FLUSH
+        fresh = 3.0 * _U * b
+        c = Cc[:, s0:s1].abs()[:, :, None, :]
+        for j in range(s1 - s0):
+            E = a[:, j] * E + grow[:, j] * H + fresh[:, j] + _TINY
+            H = a[:, j] * H + b[:, j]
+            out[:, s0 + j] = 2.0 * ((c[:, j] * E).sum(-1)
+                                    + N * _U * (c[:, j] * H).sum(-1))
     return out
 
 

@@ -21,6 +21,10 @@ because a CUDA kernel cannot run there.
 * ``mamba_scan`` — the selective-SSM scan of the Mamba mixer (kernel B6).
   It has no ``d_tile`` or ``s_blk`` and pads nothing: the CUDA kernel
   takes any shape, with ``N <= MAX_N``, in float32 only.
+
+B1–B4 take complex64 and complex128 operands on the card as they take
+real ones; B5's complex variant is still to port (``ROADMAP.md``), and
+a complex CUDA operand of it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,14 +64,15 @@ def sellcs_spmv(
     """Fused SELL-C-sigma SpM(M)V.  Vectors in permuted space, ``(n,)`` or
     ``(n, b)``.  Returns ``(y, z, dots)`` like ``core.spmv.spmv_ref``.
 
-    Complex dtypes on CUDA raise ``NotImplementedError``: the complex
-    kernel is later work.
+    For complex values a real ``x`` (and ``y``, ``z``) of the values'
+    precision is converted exactly to their dtype before the launch, as
+    the plain version promotes it; any other dtype pair raises
+    ``TypeError``.
     """
     if x.device.type == "cpu":
         return sellcs_spmv_ref(A, x, y, z, opts)
-    if A.vals.is_complex() or x.is_complex():
-        raise NotImplementedError(
-            "sellcs_spmv: complex SpMV has no CUDA kernel yet")
+    if A.dtype.is_complex:
+        x, y, z = (_as_complex(v, A.dtype) for v in (x, y, z))
     x2, was1d = as2d(x)
     if x2.shape[0] != x_rows(A):
         raise ValueError(
@@ -87,10 +92,13 @@ def sellcs_spmv(
     return yk, zk, dots
 
 
-def _no_complex(fn: str, *ts) -> None:
-    if any(t is not None and t.is_complex() for t in ts):
-        raise NotImplementedError(f"{fn}: complex operands have no CUDA "
-                                  f"kernel yet")
+def _as_complex(v: Optional[torch.Tensor], ct: torch.dtype):
+    """A real operand of complex ``ct``'s precision in ``ct`` (exact);
+    anything else as it is (the kernel's wrapper checks dtypes)."""
+    if (v is None or v.is_complex()
+            or torch.promote_types(v.dtype, ct) != ct):
+        return v
+    return v.to(ct)
 
 
 def tsmttsm(
@@ -106,13 +114,12 @@ def tsmttsm(
     """X = alpha V^H W + beta X, ``(m, k)`` in ``promote_types(V, W)``.
 
     ``kahan=True`` compensates the sum (paper section 5.2).  ``conj``
-    matters only for complex V, which runs on the CPU only.
+    matters only for complex V: ``V^H W`` with it, ``V^T W`` without.
     """
     check_beta_needs_out(beta, X, "tsmttsm")
     if V.device.type == "cpu":
         return tsmttsm_ref(V, W, X, alpha, beta, kahan=kahan, conj=conj)
-    _no_complex("tsmttsm", V, W, X)
-    return tsmttsm_cuda(V, W, X, alpha, beta, kahan=kahan)
+    return tsmttsm_cuda(V, W, X, alpha, beta, kahan=kahan, conj=conj)
 
 
 def tsmm(
@@ -126,7 +133,6 @@ def tsmm(
     check_beta_needs_out(beta, W, "tsmm")
     if V.device.type == "cpu":
         return tsmm_ref(V, X, W, alpha, beta)
-    _no_complex("tsmm", V, X, W)
     return tsmm_cuda(V, X, W, alpha, beta)
 
 
@@ -141,15 +147,15 @@ def block_jacobi_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     ``blocks`` is ``(nblocks, bs, bs)``; ``x`` is ``(nblocks*bs,)`` or
     ``(nblocks*bs, b)`` in the matrix' permuted space — the block-Jacobi
-    preconditioner apply.  The result has ``promote_types(blocks, x)``.
-    Complex dtypes on CUDA raise ``NotImplementedError``.
+    preconditioner apply.  The result has ``promote_types(blocks, x)``;
+    complex blocks take a complex ``x`` of their dtype or a real one of
+    their precision.
     """
     x2, was1d = as2d(x)
     check_shapes("block_jacobi_apply", blocks, x2)
     if x2.device.type == "cpu":
         out = block_diag_matmul_ref(blocks, x2)
     else:
-        _no_complex("block_jacobi_apply", blocks, x2)
         out = block_diag_cuda(blocks.contiguous(), x2.contiguous())
     return out[:, 0] if was1d else out
 
@@ -162,7 +168,8 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
     (``(3,)`` for 1-d inputs; rows yy, xy, xx, zeros where not asked) in
     the accumulation dtype, or None when no dot is asked.  The result has
     ``promote_types(x, y)``.  Complex dtypes on CUDA raise
-    ``NotImplementedError``.
+    ``NotImplementedError``: B5's complex variant is still to port
+    (``ROADMAP.md``, queue B).
     """
     x2, was1d = as2d(x)
     y2, _ = as2d(y)
@@ -173,7 +180,11 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         out, dots = fused_axpby_dots_ref(x2, y2, a, b, dot_yy=dot_yy,
                                          dot_xy=dot_xy, dot_xx=dot_xx)
     else:
-        _no_complex("fused_axpby_dots", x2, y2)
+        if x2.is_complex() or y2.is_complex():
+            raise NotImplementedError(
+                "fused_axpby_dots: complex operands have no CUDA kernel; "
+                "B5's complex variant is still to port (ROADMAP.md, "
+                "queue B)")
         out, dots = fused_axpby_dots_cuda(
             x2.contiguous(), y2.contiguous(), a, b, dot_yy=dot_yy,
             dot_xy=dot_xy, dot_xx=dot_xx)

@@ -92,14 +92,32 @@ def mamba_scan_ref(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,
 
     ``dt``, ``xc`` ``(B, S, di)``; ``Bc``, ``Cc`` ``(B, S, N)``; ``A``
     ``(di, N)``.  ``h <- exp(dt A) h + (dt xc) Bc`` from ``h = 0``, and
-    ``y[:, s] = sum_n h Cc[:, s]``; returns ``y`` ``(B, S, di)``.
+    ``y[:, s] = sum_n h Cc[:, s]``; returns ``y`` ``(B, S, di)``.  The
+    factors ``exp(dt A)`` and inputs ``(dt xc) Bc`` of up to
+    ``SCAN_CHUNK`` values are formed for several steps at once, so that
+    the loop over the steps launches few operations.
     """
     B, S, di = dt.shape
     h = torch.zeros((B, di, A.shape[1]), dtype=dt.dtype, device=dt.device)
     y = torch.empty((B, S, di), dtype=dt.dtype, device=dt.device)
-    for s in range(S):
-        dt_s = dt[:, s]
-        h = (torch.exp(dt_s[..., None] * A) * h
-             + (dt_s * xc[:, s])[..., None] * Bc[:, s, None, :])
-        y[:, s] = torch.einsum("bdn,bn->bd", h, Cc[:, s])
+    for s0, s1 in scan_chunks(S, h.numel()):
+        dts = dt[:, s0:s1]
+        decay = torch.exp(dts[..., None] * A)           # (B, steps, di, N)
+        inp = (dts * xc[:, s0:s1])[..., None] * Bc[:, s0:s1, None, :]
+        for j in range(s1 - s0):
+            h = decay[:, j] * h + inp[:, j]
+            y[:, s0 + j] = torch.einsum("bdn,bn->bd", h, Cc[:, s0 + j])
     return y
+
+
+#: values of one operand that a scan's plain loop forms for several steps
+#: at once (32 MB in float64)
+SCAN_CHUNK = 1 << 22
+
+
+def scan_chunks(S: int, per_step: int):
+    """``(start, stop)`` of the runs of steps a scan over ``S`` steps of
+    ``per_step`` values each forms at once: at most ``SCAN_CHUNK`` values,
+    at least one step."""
+    step = max(1, SCAN_CHUNK // max(per_step, 1))
+    return [(s0, min(S, s0 + step)) for s0 in range(0, S, step)]

@@ -5,11 +5,12 @@ One thread block owns one C-row chunk, and :func:`launch_geometry` spreads
 each row over a few threads that own neighbouring columns as 16-byte
 vectors; the kernel computes ``y = alpha (A - gamma I) x + beta y_in``,
 the chained ``z = delta z_in + eta y`` and per-chunk float64 partial dots
-in one sweep (see the note at the top of the CUDA source).  This wrapper
-validates the operands, picks the launch geometry, allocates the outputs,
-launches on the current stream without synchronising, and sums the
-per-chunk dots over chunks in float64 as the JAX wrapper does outside its
-``pallas_call``.
+in one sweep (see the note at the top of the CUDA source), for real and
+for complex64/complex128 values.  This wrapper validates the operands,
+picks the launch geometry, allocates the outputs, launches on the current
+stream without synchronising, and sums the per-chunk dots over chunks in
+float64 (complex128 for complex values) as the JAX wrapper does outside
+its ``pallas_call``.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; the plain version is ``repro_torch.kernels.ref.sellcs_spmv_ref``.
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import execution
+from repro_torch.core.spmv import dot_acc_dtype
 from repro_torch.kernels import _build
 
 __all__ = ["sellcs_spmv_cuda", "check_operand", "launch_geometry",
@@ -36,12 +38,13 @@ MAX_THREADS = 512
 _MAX_BW = 16
 
 _STORE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
-                torch.float16: 3}
-_COMPUTE_CODES = {torch.float64: 0, torch.float32: 1}
+                torch.float16: 3, torch.complex128: 4, torch.complex64: 5}
+_COMPUTE_CODES = {torch.float64: 0, torch.float32: 1, torch.complex128: 2,
+                  torch.complex64: 3}
 _HAS_YIN, _HAS_GAMMA, _CHAIN, _DOT_YY, _DOT_XY, _DOT_XX = 1, 2, 4, 8, 16, 32
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 4 + [_I, _P]
+_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 8 + [_I, _P]
 
 
 class Geometry(NamedTuple):
@@ -58,16 +61,17 @@ def launch_geometry(b: int, C: int, compute_dtype: torch.dtype,
 
     A slice of ``bw`` columns (the smallest power of two >= ``b``, at most
     16) is split over ``tpr`` threads a row, each owning ``cpt``
-    neighbouring columns: one 16-byte vector (2 float64 or 4 float32
-    values) when ``b`` is a multiple of it and ``vectors`` allows (the
-    operands lie on 16-byte boundaries), else one column.  So b=16 in
-    float64 is 8 threads a row, b=4 two, b=1 one.  A block holds the
+    neighbouring columns: one 16-byte vector (2 float64, 4 float32 or 2
+    complex64 values) when ``b`` is a multiple of it and ``vectors``
+    allows (the operands lie on 16-byte boundaries), else one column.  So
+    b=16 in float64 is 8 threads a row, b=4 two, b=1 one; a complex128
+    value is itself one vector, one column a thread.  A block holds the
     chunk's ``C * tpr`` threads, rounded up to whole warps and capped at
     :data:`MAX_THREADS` (then the chunk is walked in passes)."""
     bw = 1
     while bw < min(b, _MAX_BW):
         bw *= 2
-    vec = 128 // torch.finfo(compute_dtype).bits
+    vec = 16 // compute_dtype.itemsize
     cpt = vec if vectors and b % vec == 0 and bw >= vec else 1
     tpr = bw // cpt
     threads = min(-(-C * tpr // 32) * 32, MAX_THREADS)
@@ -104,6 +108,16 @@ def _check(name, t, device, dtype, shape) -> None:
     check_operand("sellcs_spmv", name, t, device, dtype, shape)
 
 
+def coefficient(fn: str, name: str, v, ct: torch.dtype):
+    """``(real, imaginary)`` parts of a number or 0-d tensor coefficient;
+    a real compute dtype takes real coefficients only."""
+    c = complex(v)
+    if c.imag != 0 and not ct.is_complex:
+        raise TypeError(f"{fn}: {name}={v} is complex but the compute dtype "
+                        f"{ct} is real")
+    return c.real, c.imag
+
+
 def sellcs_spmv_cuda(
     vals: torch.Tensor,
     cols: torch.Tensor,
@@ -128,9 +142,12 @@ def sellcs_spmv_cuda(
 
     Returns ``(y, z, dots)``: ``y`` (and ``z`` when ``delta``/``eta`` is
     given) of shape ``(nchunks*C, b)`` in the compute dtype, and ``dots``
-    ``(3, b)`` float64 (rows yy, xy, xx; zeros where not requested) or
-    None.  ``compute_dtype`` is the accumulation dtype (pass
-    ``SellCS.dtype``); ``vals`` may be stored narrower.  ``x`` may have
+    ``(3, b)`` float64, complex128 for complex values (rows yy, xy, xx with
+    ``<u, v> = sum conj(u) v``; zeros where not requested) or None.
+    ``compute_dtype`` is the accumulation dtype (pass ``SellCS.dtype``);
+    real ``vals`` may be stored narrower, complex ones are stored in it.
+    ``alpha``, ``beta``, ``delta``, ``eta`` and ``gamma`` may be complex
+    for a complex compute dtype.  ``x`` may have
     other than ``nchunks*C`` rows (a rectangular part), and then the
     gamma shift and the x-dots raise.
     """
@@ -142,6 +159,9 @@ def sellcs_spmv_cuda(
         raise TypeError(f"sellcs_spmv: no kernel for stored values of {vals.dtype}")
     if ct not in _COMPUTE_CODES:
         raise TypeError(f"sellcs_spmv: no kernel for compute dtype {ct}")
+    if (vals.dtype.is_complex or ct.is_complex) and vals.dtype != ct:
+        raise TypeError(f"sellcs_spmv: complex values are stored in their "
+                        f"compute dtype, got {vals.dtype} for {ct}")
     if torch.finfo(vals.dtype).bits > torch.finfo(ct).bits:
         raise TypeError(f"sellcs_spmv: stored {vals.dtype} is wider than "
                         f"compute {ct}")
@@ -181,8 +201,12 @@ def sellcs_spmv_cuda(
     geo = launch_geometry(b, C, ct, all(
         t.data_ptr() % 16 == 0 for t in (x, y_in, z_in if chain else None)
         if t is not None))
-    part = (torch.empty((nchunks, 3, b), dtype=torch.float64, device=device)
-            if any_dot else None)
+    part = (torch.empty((nchunks, 3, b), dtype=dot_acc_dtype(ct),
+                        device=device) if any_dot else None)
+    coefs = [coefficient("sellcs_spmv", name, v, ct) for name, v in
+             (("alpha", alpha), ("beta", beta),
+              ("delta", 0.0 if delta is None else delta),
+              ("eta", 0.0 if eta is None else eta))]
     if n_pad and b:
         flags = ((_HAS_YIN if y_in is not None else 0)
                  | (_HAS_GAMMA if g is not None else 0)
@@ -199,9 +223,7 @@ def sellcs_spmv_cuda(
                 _ptr(y), _ptr(z), _ptr(part),
                 nchunks, C, b, geo.bw, geo.tpr, geo.cpt, geo.threads,
                 0 if g is None else g.numel(),
-                float(alpha), float(beta),
-                0.0 if delta is None else float(delta),
-                0.0 if eta is None else float(eta),
+                *(re for re, _ in coefs), *(im for _, im in coefs),
                 flags, stream)
         if rc != 0:
             raise RuntimeError(f"sellcs_spmv: kernel launch failed with CUDA "

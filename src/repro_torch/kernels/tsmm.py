@@ -1,10 +1,10 @@
 """Tall-skinny x small GEMM on Hopper: the wrapper of ``csrc/tsmm.cu``.
 
 The CUDA port of ``repro/kernels/tsmm.py:tsmm_pallas`` (B3):
-``W_out = alpha * V X + beta * W`` for real V ``(n, m)``, a small X
-``(m, k)`` kept in shared memory, and W ``(n, k)`` or none.  Each row of V
-and W is read once and each output row written once (see the note at the
-top of the CUDA source).  This wrapper validates the operands, hands X
+``W_out = alpha * V X + beta * W`` for real or complex V ``(n, m)``, a
+small X ``(m, k)`` kept in shared memory, and W ``(n, k)`` or none.  Each
+row of V and W is read once and each output row written once (see the
+note at the top of the CUDA source).  This wrapper validates the operands, hands X
 over in the accumulation dtype, allocates the result and launches on the
 current stream without synchronising.
 
@@ -21,13 +21,13 @@ import torch
 from repro_torch.core import execution
 from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
-from repro_torch.kernels.sellcs_spmv import check_operand
+from repro_torch.kernels.sellcs_spmv import check_operand, coefficient
 from repro_torch.kernels.tsmttsm import DTYPE_CODES, check_dims
 
 __all__ = ["tsmm_cuda"]
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = [_I, _P, _P, _P, _P, _L, _I, _I, _D, _D, _I, _P]
+_ARGTYPES = [_I, _P, _P, _P, _P, _L, _I, _I, _D, _D, _D, _D, _I, _P]
 
 
 def _entry():
@@ -43,9 +43,11 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     """Run the tsmm kernel on the card: ``alpha * V X + beta * W``.
 
     The result is ``(n, k)`` in ``promote_types(V, X)``, which must be V's
-    dtype (X no wider than V); W, when given, has that dtype too.  The
-    products are summed in the accumulation dtype (float32 for
-    bfloat16/float16).  ``alpha``/``beta`` are numbers or 0-d tensors.
+    dtype (X no wider than V: a complex V takes a complex X of its dtype
+    or a real X of its precision, converted exactly); W, when given, has
+    that dtype too.  The products are summed in the accumulation dtype
+    (float32 for bfloat16/float16).  ``alpha``/``beta`` are numbers or 0-d
+    tensors, complex ones for complex V only.
     """
     fn = "tsmm"
     device = V.device
@@ -56,9 +58,9 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     if V.ndim != 2 or X.ndim != 2 or V.shape[1] != X.shape[0]:
         raise ValueError(f"{fn}: inner dims disagree: V{tuple(V.shape)} "
                          f"X{tuple(X.shape)}")
-    if X.is_complex() or torch.promote_types(V.dtype, X.dtype) != V.dtype:
-        raise TypeError(f"{fn}: X ({X.dtype}) must be real and no wider "
-                        f"than V ({V.dtype})")
+    if torch.promote_types(V.dtype, X.dtype) != V.dtype:
+        raise TypeError(f"{fn}: X ({X.dtype}) must be no wider than V "
+                        f"({V.dtype})")
     n, m = (int(s) for s in V.shape)
     k = int(X.shape[1])
     check_dims(fn, m, k)
@@ -71,12 +73,14 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     if n == 0:
         return out
     xs = X.to(storage_acc_dtype(V.dtype)).contiguous()
+    (ar, ai), (br, bi) = (coefficient(fn, "alpha", alpha, V.dtype),
+                          coefficient(fn, "beta", beta, V.dtype))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry()(
             DTYPE_CODES[V.dtype], V.data_ptr(), xs.data_ptr(),
             None if W is None else W.data_ptr(), out.data_ptr(), n, m, k,
-            float(alpha), float(beta), int(W is not None), stream)
+            ar, br, ai, bi, int(W is not None), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch("tsmm")

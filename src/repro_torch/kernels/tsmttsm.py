@@ -2,7 +2,9 @@
 
 The CUDA port of ``repro/kernels/tsmttsm.py:tsmttsm_pallas`` (B2):
 ``X = alpha * V^T W + beta * X`` for real V ``(n, m)`` and W ``(n, k)``,
-row-major, with optional Kahan compensation.  Blocks reduce row ranges
+row-major, and ``alpha * V^H W + beta * X`` (or ``V^T W`` with
+``conj=False``) for complex64/complex128 ones, with optional Kahan
+compensation.  Blocks reduce row ranges
 into ``(m, k)`` partials, streaming their rows through a ring of
 shared-memory stages filled by bulk copies, and a second kernel sums the
 partials in block order (see the note at the top of the CUDA source).
@@ -24,7 +26,7 @@ import torch
 from repro_torch.core import execution
 from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
-from repro_torch.kernels.sellcs_spmv import check_operand
+from repro_torch.kernels.sellcs_spmv import check_operand, coefficient
 
 __all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
            "stage_rows", "bulk_aligned", "DTYPE_CODES"]
@@ -42,11 +44,11 @@ STAGE_BYTES = 32768
 _MAX_LANE_ROWS = 64
 
 DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
-               torch.float16: 3}
+               torch.float16: 3, torch.complex128: 4, torch.complex64: 5}
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = [_I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P, _P, _D,
-             _D, _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P, _P,
+             _D, _D, _D, _D, _I, _P]
 
 
 def _entry():
@@ -120,13 +122,15 @@ def check_dims(fn: str, m: int, k: int) -> None:
 
 def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
                  X: Optional[torch.Tensor] = None, alpha=1.0, beta=0.0, *,
-                 kahan: bool = False) -> torch.Tensor:
-    """Run the tsmttsm kernel on the card: ``alpha * V^T W + beta * X``.
+                 kahan: bool = False, conj: bool = True) -> torch.Tensor:
+    """Run the tsmttsm kernel on the card: ``alpha * V^T W + beta * X``
+    (``V^H W`` for complex V with ``conj``).
 
-    V ``(n, m)`` and W ``(n, k)`` share one real dtype; the result is
-    ``(m, k)`` in that dtype, summed in the accumulation dtype (float32
-    for bfloat16/float16).  ``X`` (any real dtype) is read in the
-    accumulation dtype.  ``alpha``/``beta`` are numbers or 0-d tensors.
+    V ``(n, m)`` and W ``(n, k)`` share one dtype; the result is ``(m, k)``
+    in that dtype, summed in the accumulation dtype (float32 for
+    bfloat16/float16).  ``X`` (a real dtype, or a complex one for complex
+    V) is read in the accumulation dtype.  ``alpha``/``beta`` are numbers
+    or 0-d tensors, complex ones for complex V only.
     """
     fn = "tsmttsm"
     device = V.device
@@ -148,8 +152,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
         if X.device != device or tuple(X.shape) != (m, k):
             raise ValueError(f"{fn}: X must be ({m}, {k}) on {device}, got "
                              f"{tuple(X.shape)} on {X.device}")
-        if X.is_complex():
-            raise TypeError(f"{fn}: X must be real, got {X.dtype}")
+        if X.is_complex() and not V.is_complex():
+            raise TypeError(f"{fn}: X must be real for real V, got {X.dtype}")
         x_in = X.to(acc).contiguous()
     rows, nblocks = row_partition(n, m, k)
     tile_rows = stage_rows(m, k, V.element_size())
@@ -157,14 +161,17 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     part = torch.empty((nblocks, m, k), dtype=acc, device=device)
     comp = torch.empty_like(part) if kahan else None
     out = torch.empty((m, k), dtype=V.dtype, device=device)
+    (ar, ai), (br, bi) = (coefficient(fn, "alpha", alpha, V.dtype),
+                          coefficient(fn, "beta", beta, V.dtype))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry()(
-            DTYPE_CODES[V.dtype], int(kahan), V.data_ptr(), W.data_ptr(),
+            DTYPE_CODES[V.dtype], int(kahan), int(conj and V.is_complex()),
+            V.data_ptr(), W.data_ptr(),
             part.data_ptr(), None if comp is None else comp.data_ptr(),
             n, m, k, rows, nblocks, tile_rows, int(bulk),
             None if x_in is None else x_in.data_ptr(), out.data_ptr(),
-            float(alpha), float(beta), int(x_in is not None), stream)
+            ar, br, ai, bi, int(x_in is not None), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch("tsmttsm")

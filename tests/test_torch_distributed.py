@@ -465,11 +465,24 @@ def test_card_shards_match_host_shards(devices):
     np.testing.assert_allclose(dg.cpu().numpy(), dh.numpy(), rtol=1e-12)
     yn, _ = dist_spmv(G, None, x, opts=opts, overlap=False)
     assert torch.equal(yg, yn)
-    with pytest.raises(NotImplementedError, match="complex"):
-        Gc = dist_from_coo(*banded_random(300, bw=3, seed=1)[:3], 300,
-                           nshards=2, devices=["cuda", "cuda"], C=32,
-                           dtype=np.complex128)
-        dist_spmv(Gc, None, np.ones(300, np.complex128))
+    # complex values on two card shards: B1 on each, against the plain
+    # one-device SpMV of the same matrix
+    r, c, v = banded_random(300, bw=3, seed=1)[:3]
+    cv = v * np.exp(1j * np.random.default_rng(4).uniform(0, 6.3, v.size))
+    Gc = dist_from_coo(r, c, cv, 300, nshards=2, devices=["cuda", "cuda"],
+                       C=32, dtype=np.complex128)
+    A1 = from_coo(r, c, cv, (300, 300), C=32, dtype=np.complex128,
+                  device="cpu")
+    xc = (np.random.default_rng(6).standard_normal((300, 2))
+          + 1j * np.random.default_rng(7).standard_normal((300, 2)))
+    execution.reset_launch_counts()
+    yc, _ = dist_spmv(Gc, None, xc)
+    torch.cuda.synchronize()
+    assert execution.launch_counts()["sellcs_spmv"] == sum(
+        1 + (s.remote.nnz > 0) for s in Gc.shards)
+    y1 = A1.unpermute(spmv_ref(A1, A1.permute(torch.from_numpy(xc)))[0])
+    assert yc.dtype == torch.complex128
+    assert ((yc.cpu() - y1).abs().max() / y1.abs().max()).item() <= 1e-12
 
 
 @pytest.mark.gpu

@@ -237,3 +237,19 @@ def test_kernel_matches_plain_on_card(dt, n, bw, flags):
     dlim = (depth + 6) * u * scale + (n + 6) * 2.0 ** -53 * scale
     assert dots.dtype == acc
     assert bool(((dots.double() - wdots).abs() <= dlim).all())
+
+
+@pytest.mark.gpu
+def test_complex_operands_still_raise_on_card():
+    """B5 has no complex variant yet (``ROADMAP.md``, queue B): complex
+    CUDA operands raise, and nothing runs the plain version instead."""
+    need_card()
+    x = torch.ones(8, 2, dtype=torch.complex64, device="cuda")
+    execution.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        fused_axpby_dots(x, x, 1.0, 2.0, dot_yy=True)
+    with pytest.raises(NotImplementedError, match="complex"):
+        fused_axpby_dots(x.real.contiguous(), x)
+    assert execution.launch_counts().get("fused_axpby_dots", 0) == 0
+    with pytest.raises(TypeError, match="no kernel"):
+        fused_update.fused_axpby_dots_cuda(x, x)

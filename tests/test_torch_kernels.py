@@ -61,6 +61,24 @@ def _matrix(n=300, ncols=None, seed=0, **kw):
                     **kw)
 
 
+def _complex_matrix(np_ct, n=300, seed=0, **kw):
+    """A random ragged matrix with complex values, on the card."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n), rng.integers(0, 20, n))
+    cols = rng.integers(0, n, rows.size)
+    vals = rng.standard_normal(rows.size) + 1j * rng.standard_normal(rows.size)
+    return from_coo(rows, cols, vals, (n, n), dtype=np_ct, device="cuda",
+                    **kw)
+
+
+def complex_rel_err(got, want):
+    """max |got - want| / max |want| in complex128."""
+    got, want = got.to(torch.complex128), want.to(torch.complex128)
+    scale = want.abs().max().item() if want.numel() else 0.0
+    diff = (got - want).abs().max().item() if want.numel() else 0.0
+    return diff / scale if scale else diff
+
+
 def rel_err(got, want):
     if want is None:
         assert got is None
@@ -99,6 +117,99 @@ def test_kernel_matches_plain_on_card(store, np_ct, b, flag):
     assert rel_err(got[0], want[0]) <= vec_tol
     assert rel_err(got[1], want[1]) <= vec_tol
     assert rel_err(got[2], want[2]) <= dot_tol
+
+
+CX_FLAGS = {
+    "plain": (dict(), False, False),
+    "alpha_beta": (dict(alpha=0.7 - 0.2j, beta=-1.3 + 0.4j), True, False),
+    "gamma_scalar": (dict(alpha=1.2 + 0.5j, gamma=0.25 - 0.75j), False,
+                     False),
+    "gamma_column": (dict(gamma="column"), True, False),
+    "chain": (dict(alpha=1.1j, beta=0.5, delta=0.3 - 0.1j, eta=-0.8 + 0.6j),
+              True, True),
+    "dots": (dict(alpha=0.9 + 0.1j, dot_yy=True, dot_xy=True, dot_xx=True),
+             True, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("real_x", [False, True])
+@pytest.mark.parametrize("flag", list(CX_FLAGS))
+@pytest.mark.parametrize("b", [1, 2, 4, 16])
+@pytest.mark.parametrize("np_ct", [np.complex128, np.complex64],
+                         ids=["complex128", "complex64"])
+def test_complex_kernel_matches_plain_on_card(np_ct, b, flag, real_x):
+    """Complex values launch B1 with every fusion flag and complex
+    coefficients (a real x converted exactly), within the real kernels'
+    tolerances of the plain version."""
+    need_card()
+    kw, with_y, with_z = CX_FLAGS[flag]
+    A = _complex_matrix(np_ct, C=32, sigma=128)
+    ct = A.dtype
+    rt = torch.float64 if ct == torch.complex128 else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(b)
+    x = torch.randn(A.nrows_pad, b, dtype=rt if real_x else ct,
+                    device="cuda", generator=g)
+    y, z = (torch.randn(A.nrows_pad, b, dtype=ct, device="cuda",
+                        generator=g) for _ in range(2))
+    kw = dict(kw)
+    if kw.get("gamma") == "column":
+        kw["gamma"] = torch.linspace(-1, 1, b, dtype=rt, device="cuda") * 1j
+    opts = SpmvOpts(**kw)
+    args = (A, x, y if with_y else None, z if with_z else None, opts)
+    execution.reset_launch_counts()
+    got = sellcs_spmv(*args)
+    assert execution.launch_counts()["sellcs_spmv"] == 1
+    want = sellcs_spmv_ref(*args)
+    torch.cuda.synchronize()
+    assert got[0].dtype == ct
+    vec_tol, dot_tol = (1e-12, 1e-12) if ct == torch.complex128 else (1e-5,
+                                                                      1e-6)
+    assert complex_rel_err(got[0], want[0]) <= vec_tol
+    if with_z:
+        assert complex_rel_err(got[1], want[1]) <= vec_tol
+    if want[2] is not None:
+        assert got[2].dtype == torch.complex128
+        assert complex_rel_err(got[2], want[2]) <= dot_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_x", [False, True])
+@pytest.mark.parametrize("kahan", [False, True])
+@pytest.mark.parametrize("conj", [True, False])
+@pytest.mark.parametrize("n,m,k", [(37, 3, 8), (4109, 16, 16),
+                                   (4109, MAX_DIM, MAX_DIM)])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
+                         ids=["complex128", "complex64"])
+def test_complex_tsm_matches_plain_on_card(dtype, n, m, k, conj, kahan,
+                                           with_x):
+    """Complex B2 (V^H W with conj, V^T W without; with and without
+    Kahan) and B3 (complex and real X) against their plain versions in
+    complex128."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(n + m + k)
+    V, W, X = (torch.randn(*s, generator=g, device="cuda",
+                           dtype=torch.complex128).to(dtype)
+               for s in ((n, m), (n, k), (m, k)))
+    Vd, Wd, Xd = (t.to(torch.complex128) for t in (V, W, X))
+    ab = dict(alpha=0.5 - 0.5j, beta=-2.0 + 1.0j) if with_x else dict(
+        alpha=1.5j)
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    execution.reset_launch_counts()
+    got = tsmttsm(V, W, X if with_x else None, kahan=kahan, conj=conj, **ab)
+    assert execution.launch_counts()["tsmttsm"] == 1
+    assert got.dtype == dtype and got.shape == (m, k)
+    want = tsmttsm_ref(Vd, Wd, Xd if with_x else None, conj=conj, **ab)
+    assert complex_rel_err(got, want) <= tol
+    Xs = X if kahan else X.real.contiguous()   # complex and real X for B3
+    W2 = torch.randn(n, k, generator=g, device="cuda",
+                     dtype=torch.complex128).to(dtype)
+    got = tsmm(V, Xs, W2 if with_x else None, **ab)
+    assert execution.launch_counts()["tsmm"] == 1
+    want = tsmm_ref(Vd, Xs.to(torch.complex128),
+                    W2.to(torch.complex128) if with_x else None, **ab)
+    assert got.dtype == dtype
+    assert complex_rel_err(got, want) <= tol
 
 
 @pytest.mark.gpu
@@ -179,8 +290,18 @@ def test_wrapper_refusals_on_card():
     x = torch.randn(A.nrows_pad, 2, device="cuda")
     with pytest.raises(TypeError, match="must be torch.float32"):
         sellcs_spmv(A, x.double())
-    with pytest.raises(NotImplementedError, match="complex"):
+    # a complex x against real values is a dtype pair the kernel does not
+    # take; complex values launch the kernel (held against the plain version)
+    with pytest.raises(TypeError, match="must be torch.float32"):
         sellcs_spmv(A, x.to(torch.complex64))
+    Ac = _complex_matrix(np.complex64, C=32, sigma=32)
+    xc = torch.randn(Ac.nrows_pad, 2, dtype=torch.complex64, device="cuda")
+    execution.reset_launch_counts()
+    got = sellcs_spmv(Ac, xc, opts=SpmvOpts(alpha=0.5j, dot_xy=True))
+    assert execution.launch_counts()["sellcs_spmv"] == 1
+    want = sellcs_spmv_ref(Ac, xc, opts=SpmvOpts(alpha=0.5j, dot_xy=True))
+    assert complex_rel_err(got[0], want[0]) <= 1e-5
+    assert complex_rel_err(got[2], want[2]) <= 1e-6
     with pytest.raises(ValueError, match="on cpu"):
         sellcs_spmv_cuda(A.vals.cpu(), A.cols, A.chunk_off, A.chunk_len, x,
                          C=32)
@@ -387,8 +508,14 @@ def test_tsm_wrapper_refusals_on_card():
         tsmm_cuda(torch.zeros(4, 100, device="cuda").T, X)
     with pytest.raises(TypeError, match="no wider"):
         tsmm_cuda(V, X.double())
-    with pytest.raises(NotImplementedError, match="complex"):
-        tsmttsm(V.to(torch.complex64), W.to(torch.complex64))
+    # complex operands launch B2, held against the plain version
+    Vc = torch.complex(V, torch.roll(V, 1, 0))
+    Wc = torch.complex(W, torch.roll(W, 1, 0))
+    execution.reset_launch_counts()
+    got = tsmttsm(Vc, Wc)
+    assert execution.launch_counts()["tsmttsm"] == 1
+    assert complex_rel_err(got, tsmttsm_ref(Vc.to(torch.complex128),
+                                            Wc.to(torch.complex128))) <= 1e-5
     with pytest.raises(ValueError, match="beta"):
         tsmm(V, X, None, 1.0, 2.0)
 

@@ -66,6 +66,26 @@ def test_wrapper_checks_shapes_and_impl():
         ms.mamba_scan_cuda(dt, xc, Bc, Cc, A)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 22])
+def test_plain_loops_do_not_depend_on_how_many_steps_they_form_at_once(
+        monkeypatch, chunk):
+    """The plain scan and ``error_bound`` form ``exp(dt A)`` and the
+    inputs for up to ``SCAN_CHUNK`` values of steps at once; the values
+    are those of a loop that forms them one step at a time."""
+    import repro_torch.kernels.ref as ref
+    args = inputs(2, 11, 5, 3, seed=4, dt_max=300.0)
+    wide = tuple(a.double() for a in args)
+    monkeypatch.setattr(ref, "SCAN_CHUNK", 1)          # one step at a time
+    want_y, want_bound = mamba_scan_ref(*wide), ms.error_bound(*args)
+    monkeypatch.setattr(ref, "SCAN_CHUNK", chunk)
+    torch.testing.assert_close(mamba_scan_ref(*wide), want_y, rtol=0, atol=0)
+    torch.testing.assert_close(ms.error_bound(*args), want_bound, rtol=0,
+                               atol=0)
+    assert ref.scan_chunks(11, 15) == [(s, min(11, s + max(1, chunk // 15)))
+                                       for s in range(0, 11,
+                                                      max(1, chunk // 15))]
+
+
 def test_error_bound_holds_for_the_plain_float32_version():
     """The plain version in float32 rounds at the places the kernel does
     (though ``torch.exp`` is not CUDA's expf), so the bound must hold for

@@ -609,9 +609,27 @@ def test_block_diag_kernel_refuses_on_card():
         block_jacobi_apply(torch.zeros(1, MAX_BS + 1, MAX_BS + 1,
                                        device="cuda"),
                            torch.zeros(MAX_BS + 1, 1, device="cuda"))
-    with pytest.raises(NotImplementedError, match="complex"):
-        block_jacobi_apply(torch.zeros(1, 2, 2, dtype=torch.complex64,
-                                       device="cuda"),
+    # complex blocks launch B4 (with a complex x, and with a real x of
+    # their precision), held against the plain version in complex128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for cd, rd in ((torch.complex64, torch.float32),
+                   (torch.complex128, torch.float64)):
+        blocks = torch.randn(9, 8, 8, generator=g, dtype=torch.complex128,
+                             device="cuda").to(cd)
+        for x in (torch.randn(72, 3, generator=g, dtype=torch.complex128,
+                              device="cuda").to(cd),
+                  torch.randn(72, 3, generator=g, dtype=rd, device="cuda")):
+            execution.reset_launch_counts()
+            y = block_jacobi_apply(blocks, x)
+            assert execution.launch_counts()["block_diag_matmul"] == 1
+            assert y.dtype == cd
+            want = block_diag_matmul_ref(blocks.to(torch.complex128),
+                                         x.to(torch.complex128))
+            err = (y.to(torch.complex128) - want).abs().max().item()
+            assert err <= (1e-12 if cd == torch.complex128 else 1e-5) * \
+                want.abs().max().item()
+    with pytest.raises(TypeError, match="complex"):
+        block_jacobi_apply(torch.zeros(1, 2, 2, device="cuda"),
                            torch.zeros(2, 1, dtype=torch.complex64,
                                        device="cuda"))
 
