@@ -17,8 +17,10 @@ the card, holding every kernel against its plain PyTorch version:
    windows, store/compute dtypes, block widths and fusion flags;
 4. B2 (tsmttsm, with and without Kahan) and B3 (tsmm, with and without
    the output operand) against their plain versions computed in float64,
-   over row counts, widths, dtypes and alpha/beta pairs, and B2 on views
-   off a 16-byte boundary (its stages then fill by plain loads);
+   over row counts, widths, dtypes and alpha/beta pairs (B3 also at each
+   of its template widths m = k = 1 ... 64), and B2 and B3 on views off a
+   16-byte boundary (B2's stages then fill by plain loads, B3's value by
+   value, bit-equal to aligned copies);
 5. the paper's case study (MATPDE, CG) with B1's launch count;
 6. slice 1's main path at full width: column CG (``block=False``, four
    independent right-hand sides) on laplace3d(160) (4,096,000 rows) in
@@ -36,11 +38,16 @@ the card, holding every kernel against its plain PyTorch version:
 11. timing of every kernel, its plain version and one PyTorch call that
     computes the same function, beside the memory-bandwidth bound (B1 at
     b = 1, 4 and 16), and the time split of one full-width block-CG
-    iteration;
+    iteration, with the eigensolver at its Gram against
+    ``torch.linalg.eigh``;
 12. B4 (block-diagonal matmul, the block-Jacobi apply) and B5 (fused
     axpby + dots) against their plain versions computed in float64, over
     block sizes, widths, block counts, row counts, dtypes, coefficients
-    and dot flags, each held to a stated error bound;
+    and dot flags, each held to a stated error bound; then the port's
+    own eigensolver (``herm_eig``) against ``torch.linalg.eigh`` over
+    dtypes, orders 1–64 and Gram, rank-deficient and repeated-eigenvalue
+    matrices (eigenvalues, ||AU - UW||, ||U^H U - I|| within stated
+    bounds), as a batch, and with no synchronising call;
 13. slice 4's main path at full width: block-Jacobi preconditioned CG
     (``M=make_preconditioner("block_jacobi", ...)``, bs = C = 32) on
     anisotropic_laplace2d(2048, eps=1e-2) (4,194,304 rows, sigma=1),
@@ -52,10 +59,11 @@ the card, holding every kernel against its plain PyTorch version:
 13b. slice 15, complex values on the card: B1 (complex64 and complex128,
     b = 1, 4, 16, C = 8 and 32, every fusion flag with complex alpha,
     beta, gamma, delta and eta, and a real x), B2 (conj on and off, with
-    and without Kahan, m, k up to 64), B3 (complex and real X) and B4 (bs
-    8 and 32, complex and real x) against their plain versions, each
-    within a stated bound (the real kernels' error model per part of the
-    complex sum);
+    and without Kahan, m, k up to 64), B3 (complex and real X, and its
+    template widths), B4 (bs 8 and 32, complex and real x) and B5
+    (slice 16: complex a, b, every width up to 256, a real x) against
+    their plain versions, each within a stated bound (the real kernels'
+    error model per part of the complex sum);
 13c. complex Hermitian solves through the normal entry points on the
     phased matrices (U(1) phases on the off-diagonals, ``phased``): on
     laplace3d(160), column CG (b = 4) in complex128 at tol 1e-8 and
@@ -67,10 +75,16 @@ the card, holding every kernel against its plain PyTorch version:
     one-device SpMV, then CG through ``DistOperator``.  Every column's
     true relative residual at most 10 tol (the plain SpMV in complex128),
     iterations and ms/iter beside the real matrix' iterations, and each
-    kernel's launches equal to what the recurrence makes;
-13d. B1–B4 in complex128 at the main shapes (B1 b = 1, 4, 16 on the
-    phased laplace3d(160); B2 Kahan and B3 with W at 4,096,000 x 16; B4
-    131,072 blocks of 32, b = 4), each first held against its plain
+    kernel's launches equal to what the recurrence makes.  Slice 16:
+    pipelined CG in at most plain CG's count + 2; ChebFD's lowest Ritz
+    value within 1e-8 relative of lambda_min from a 200-step Lanczos;
+    KPM's mu_2, fused and unfused, within four float32 roundings of
+    2 ||A_s v||^2 - ||v||^2 through ``impl="ref"``; the complex CG
+    residual through B5's complex variant;
+13d. B1–B5 in complex128 at the main shapes (B1 b = 1, 4, 16 on the
+    phased laplace3d(160); B2 Kahan and B3 with and without W at
+    4,096,000 x 16; B4 131,072 blocks of 32, b = 4; B5 4,096,000 x 4, and
+    in complex64), each first held against its plain
     version (B1 within 1e-12, B2–B4 within the grid's bound): kernel,
     plain version, one PyTorch call (a complex128 sparse CSR product,
     ``V.mH @ W``, ``addmm``, ``bmm``) and the bound at the data sheet's
@@ -81,9 +95,10 @@ the card, holding every kernel against its plain PyTorch version:
 15. timing of B4 and B5 at the main shapes, and the time split of one
     preconditioned CG iteration;
 15b. ``run_chunk``, which reads the stopping test one iteration late,
-    against a loop that reads it every iteration, on column CG, PCG and
-    block CG at full width: equal states, ms per iteration in turns,
-    synchronising calls per iteration, and a profiler split of the
+    against a loop that reads it every iteration, on column CG, PCG,
+    block CG and block MINRES at full width: equal states, ms per
+    iteration in turns, synchronising calls per iteration (0 required of
+    the block steppers' late read), and a profiler split of the
     iterations by kind of kernel with the time the card sat idle;
 15c. slice 6's main path at full width: the continuous-batching
     ``SolverService`` over a ``MatrixRegistry`` holding laplace3d(160) and
@@ -276,8 +291,9 @@ from repro_torch.kernels.mamba_scan import MAX_N as SCAN_MAX_N  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     EXP_FLUSH, EXP_REL, EXP_ULP, exp2_cuda, error_bound as scan_error_bound)
 from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
-                                     fused_axpby_dots, mamba_scan,
+                                     fused_axpby_dots, herm_eig, mamba_scan,
                                      sellcs_spmv, tsmm, tsmttsm)
+from repro_torch.kernels.herm_eig import herm_eig_cuda  # noqa: E402
 from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
                                      fused_axpby_dots_ref, mamba_scan_ref,
                                      sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
@@ -336,6 +352,11 @@ KERNELS = {
                          "src/repro/kernels/fused_update.py:42"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:57"),
+    # the port's own kernel: no TPU kernel; it stands where the JAX
+    # package's block Krylov calls jnp.linalg.eigh (torch.linalg.eigh
+    # checks its info on the host every call)
+    "herm_eig": ("src/repro_torch/kernels/csrc/herm_eig.cu",
+                 "none: src/repro/solvers/block.py:95,133 (jnp.linalg.eigh)"),
 }
 # max |kernel - plain| / max |plain|, by compute dtype
 TOL = {torch.float64: {"vec": 1e-12, "dots": 1e-12},
@@ -356,6 +377,11 @@ TSM_DIMS = (1, 3, 8, 16, MAX_DIM)
 #: (m, k) of B2's cases on views off a 16-byte boundary (the stages then
 #: fill by plain loads)
 TSM_ODD = ((3, 5), (1, 7), (5, 3), (7, 9))
+#: B3's template widths (m = k) that TSM_DIMS leaves out, checked on their
+#: own; and B3 on views off a 16-byte boundary (value-by-value loads) at
+#: these (m, k)
+TSMM_SQUARES = (2, 4, 32)
+TSMM_ODD = ((16, 16), (5, 13), (1, 1))
 #: B1's timed calls: (width, with CG's <p, Ap> dot) — 1 and 4 as column
 #: CG and PCG call it, 16 as block CG calls it (no dot) and with the dot
 SPMV_TIMED = ((1, True), (4, True), (WIDTH, False), (WIDTH, True))
@@ -1053,19 +1079,62 @@ def phase_tsm_grid() -> None:
                                f"kahan={kahan}",
                                worst.setdefault(key, [0.0, "", 0.0]))
                     n_cases += 1
+        # B3's other template widths, and B3 on views off a 16-byte
+        # boundary (the same bits as on aligned copies)
+        for n in TSM_NS:
+            for w in TSMM_SQUARES:
+                V, W, X = (torch.randn(*shape, generator=g,
+                                       dtype=torch.float64,
+                                       device=DEVICE).to(dt)
+                           for shape in ((n, w), (n, w), (w, w)))
+                Vd, Wd, Xd = (t.double() for t in (V, W, X))
+                for alpha, beta, out in TSM_COEFS:
+                    got = tsmm(V, X, W if out else None, alpha, beta)
+                    _tsm_check(got, tsmm_ref(Vd, Xd, Wd if out else None,
+                                             alpha, beta),
+                               abs(alpha) * (Vd.abs() @ Xd.abs())
+                               + abs(beta) * Wd.abs(), dt, w, w,
+                               f"{str(dt)[6:]} n={n} m=k={w} alpha={alpha}",
+                               worst.setdefault(("tsmm" + (" W" if out
+                                                           else ""),
+                                                 str(dt)[6:]),
+                                                [0.0, "", 0.0]))
+                    n_cases += 1
+            for m, k in TSMM_ODD:
+                V, W = (torch.randn(n * w + 1, generator=g,
+                                    dtype=torch.float64,
+                                    device=DEVICE).to(dt)[1:].view(n, w)
+                        for w in (m, k))
+                X = torch.randn(m, k, generator=g, dtype=torch.float64,
+                                device=DEVICE).to(dt)
+                got = tsmm(V, X, W, 0.5, -2.0)
+                require(torch.equal(got, tsmm(V.clone(), X, W.clone(), 0.5,
+                                              -2.0)),
+                        f"tsmm {dt} n={n} m={m} k={k}: a view off a 16-byte "
+                        f"boundary gives other bits than its aligned copy")
+                Vd, Wd, Xd = V.double(), W.double(), X.double()
+                _tsm_check(got, tsmm_ref(Vd, Xd, Wd, 0.5, -2.0),
+                           0.5 * (Vd.abs() @ Xd.abs()) + 2.0 * Wd.abs(), dt,
+                           m, m, f"{str(dt)[6:]} n={n} m={m} k={k} view",
+                           worst.setdefault(("tsmm view", str(dt)[6:]),
+                                            [0.0, "", 0.0]))
+                n_cases += 1
     for (kern, dt), (ratio, tag, err) in sorted(worst.items()):
         print(f"[tsm grid] {kern:13s} {dt:9s} worst error {err:.3e} = "
               f"{ratio:.3f} of its bound  (at {tag})")
     print(f"[tsm grid] {n_cases} cases within their bounds: n in {TSM_NS}, "
           f"m, k in {TSM_DIMS}, alpha/beta {TSM_COEFS}; tsmttsm on views "
-          f"off a 16-byte boundary at (m, k) in {TSM_ODD}")
+          f"off a 16-byte boundary at (m, k) in {TSM_ODD}; tsmm also at "
+          f"m = k in {TSMM_SQUARES} (its other template widths) and on "
+          f"views off a 16-byte boundary at (m, k) in {TSMM_ODD}, equal "
+          f"to their aligned copies bit for bit")
     print(f"[tsm grid] tsmttsm float32 n={max(TSM_NS)}, all m, k, alpha/beta: "
           + _require_kahan_gain(gain, "tsm grid float32"))
 
 
 
 # ------------------------------------------------------------------ phase 8
-BLOCK_KERNELS = ("sellcs_spmv", "tsmttsm", "tsmm")
+BLOCK_KERNELS = ("sellcs_spmv", "tsmttsm", "tsmm", "herm_eig")
 PRECOND_KERNELS = ("sellcs_spmv", "block_diag_matmul")
 
 
@@ -1105,14 +1174,15 @@ def phase_block_cg(fw, card):
           f"{' '.join(f'{r:.2e}' for r in relres.tolist())}")
     d = dropped("block_cg")
     print(f"[block cg] launches {launches} (per iteration: 1 sellcs_spmv, "
-          f"2 tsmttsm, 4 tsmm; init: 1 each; {d} discarded iteration)")
+          f"2 tsmttsm, 4 tsmm, 2 herm_eig; init: 1 each; {d} discarded "
+          f"iteration)")
     require(bool(res.converged.all()), "block CG: not converged")
     require(float(relres.max()) <= 10 * tol,
             f"block CG: true residual {float(relres.max())} > {10 * tol}")
     require(d <= 1, f"block CG: {d} discarded iterations in one chunk")
     n_it = it + d
     want = {"sellcs_spmv": n_it + 1, "tsmttsm": 2 * n_it + 1,
-            "tsmm": 4 * n_it + 1}
+            "tsmm": 4 * n_it + 1, "herm_eig": 2 * n_it + 1}
     require(launches == want or DEVICE == "cpu",
             f"block CG launches {launches} != {want}")
 
@@ -1165,14 +1235,15 @@ def phase_block_minres(fw, card) -> int:
           f"({1e3 * secs / max(res.iters, 1):.3f} ms/iter), converged="
           f"{bool(res.converged.all())}, max true relative residual "
           f"{float(relres.max()):.3e}, launches {launches} (per iteration: 1 "
-          f"sellcs_spmv, 4 tsmttsm, 9 tsmm; init: 1 each; {d} discarded "
-          f"iteration)  [{card}]")
+          f"sellcs_spmv, 4 tsmttsm, 9 tsmm, 1 herm_eig; init: 1 each; {d} "
+          f"discarded iteration)  [{card}]")
     require(bool(res.converged.all()), "block MINRES: not converged")
     require(float(relres.max()) <= 10 * tol,
             f"block MINRES: true residual {float(relres.max())} > {10 * tol}")
     require(d <= 1, f"block MINRES: {d} discarded iterations in one chunk")
     it = res.iters + d
-    want = {"sellcs_spmv": it + 1, "tsmttsm": 4 * it + 1, "tsmm": 9 * it + 1}
+    want = {"sellcs_spmv": it + 1, "tsmttsm": 4 * it + 1, "tsmm": 9 * it + 1,
+            "herm_eig": it + 1}
     require(launches == want or DEVICE == "cpu",
             f"block MINRES launches {launches} != {want}")
     return int(res.iters)
@@ -1357,6 +1428,26 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
         tr, rho = block.svqb_factors(G, rel_eps=rel)
         return gamma @ st.cmat, rho @ st.cmat, rho.conj().T
 
+    # the eigensolver at this shape against torch.linalg.eigh (its plain
+    # version and the one PyTorch call for the same function)
+    Gs = block._herm(G)
+    worst = [0.0, ""]
+    _eig_check(Gs, f"block CG Gram m={WIDTH}", worst)
+    eig_err = float((herm_eig(Gs)[0] - torch.linalg.eigvalsh(Gs)).abs().max())
+    eig_ms = time_ms(lambda: herm_eig(Gs), warmup=5, iters=50)
+    eigh_ms = time_ms(lambda: torch.linalg.eigh(Gs), warmup=5, iters=50)
+    sweeps = int(herm_eig_cuda(Gs)[2]) if DEVICE == "cuda" else 0
+    mp = WIDTH + WIDTH % 2
+    flops = sweeps * (mp - 1) * (mp // 2) * WIDTH * 18.0
+    bytes_ms = 1e3 * (2 * WIDTH * WIDTH + WIDTH) * 8 / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[torch.float64]
+    print(f"[block cg split] herm_eig f64 m={WIDTH} (the Gram of this "
+          f"iteration): kernel {eig_ms:.4f} ms ({sweeps} sweeps), "
+          f"torch.linalg.eigh {eigh_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms (operations {ops_ms:.6f} ms, bytes "
+          f"{bytes_ms:.6f} ms: a chain of {sweeps * (mp - 1)} dependent "
+          f"rounds bounds it, not a rate); within {worst[0]:.3f} of its "
+          f"bounds against eigh  [{card}]")
     f64 = torch.float64
     parts = [
         ("sellcs_spmv (b=16)", 1, time_ms(lambda: op.mv(P))),
@@ -1373,8 +1464,12 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
         print(f"[block cg split]   {name:20s} {k} x {ms:.4f} ms = "
               f"{k * ms:.4f} ms ({100 * k * ms / total:.1f}%)")
     print(f"[block cg split]   {'rest':20s} {rest:.4f} ms "
-          f"({100 * rest / total:.1f}%): vector arithmetic, launches and "
-          f"the host syncs left in the (b, b) algebra (phase 15b)")
+          f"({100 * rest / total:.1f}%): vector arithmetic and launches "
+          f"(the (b, b) algebra's two herm_eig calls are in its line)")
+    return dict(ms=eig_ms, plain_ms=eigh_ms, library_ms=eigh_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                err=eig_err)
 
 
 # ----------------------------------------------------------------- phase 12
@@ -1640,11 +1735,29 @@ CX_DTYPES = (torch.complex128, torch.complex64)
 CX_REAL = {torch.complex128: torch.float64, torch.complex64: torch.float32}
 CX_GRID_C, CX_GRID_B = (8, 32), (1, 4, 16)
 CX_TSM_NS, CX_TSM_DIMS = (37, 4109, 1 << 18), (1, 5, 16, MAX_DIM)
+#: B3's template widths (m = k) that CX_TSM_DIMS leaves out
+CX_TSMM_SQUARES = (2, 4, 8, 32)
+#: B5's complex grid: widths and dot flags (its row counts are 0, 1 and
+#: CX_TSM_NS)
+CX_B5_BW = (1, 4, 16, 86, 256)
+CX_B5_FLAGS = ((False, False, False), (True, True, True), (False, True, False))
 CX_TSM_COEFS = ((1.0, 0.0, False), (0.5 - 0.5j, -2.0 + 1.0j, True))
 CX_B4_BS, CX_B4_B, CX_B4_NB = (8, 32), (1, 4, 16), (1, 4096, 32768)
 CX_SEED, CX_PRECOND_NX, CX_WIDTH, CX_LANCZOS_K = 15, 1024, 16, 30
 CX_TOL = {torch.complex128: 1e-8, torch.complex64: 1e-5}
 CX_LANCZOS_TOL, CX_ENGINE_TOL = 1e-10, 1e-12
+#: complex ChebFD, KPM and pipelined CG on the phased laplace3d(NX): the
+#: reference lambda_min from an unreorthogonalised Lanczos of this many
+#: steps (k = 30 is 5e-2 off there; 120 with reorthogonalisation and 200
+#: and 300 without agree within 6e-11), ChebFD's window (lambda_min - 0.05,
+#: lambda_min + 0.01) (the next eigenvalue lies 0.022 above), its degree
+#: and sweeps, and the gates: ChebFD's lowest Ritz value within 1e-8
+#: relative of lambda_min; KPM's mu_2 (a float32 moment) within 4 float32
+#: roundings of 2||A_s v||^2 + ||v||^2 of the exact value; pipelined CG
+#: in at most plain CG's count + 2
+CX_REF_LANCZOS_K, CX_CHEB_BELOW, CX_CHEB_ABOVE = 200, 0.05, 0.01
+CX_CHEB_DEGREE, CX_CHEB_SWEEPS, CX_CHEB_TOL = 200, 4, 1e-8
+CX_KPM_MOMENTS, CX_KPM_PROBES = 8, 4
 #: the H100's measured device-memory rate (``launch/mesh.py:HW``): the
 #: complex rows print their bound at it too, as a second figure beside the
 #: one at :data:`HBM_BYTES_PER_S` that every row is held to
@@ -1813,6 +1926,21 @@ def phase_complex_grid() -> None:
                                       f"alpha={alpha}",
                                       worst.setdefault(key, [0.0, "", 0.0]))
                             n_tsm += 1
+        for n in CX_TSM_NS:
+            for w in CX_TSMM_SQUARES:
+                V, W, X = (_cx_randn(sh, ct, g)
+                           for sh in ((n, w), (n, w), (w, w)))
+                Vd, Wd, Xd = (t.to(torch.complex128) for t in (V, W, X))
+                vx = Vd.abs() @ Xd.abs()
+                for alpha, beta, out in CX_TSM_COEFS:
+                    got = tsmm(V, X, W if out else None, alpha, beta)
+                    key = f"B3 {str(ct)[6:]} m=k in {CX_TSMM_SQUARES}"
+                    _cx_check(got, tsmm_ref(Vd, Xd, Wd if out else None,
+                                            alpha, beta),
+                              abs(alpha) * vx + abs(beta) * Wd.abs(), ct,
+                              w, w, f"{key} n={n} m=k={w} alpha={alpha}",
+                              worst.setdefault(key, [0.0, "", 0.0]))
+                    n_tsm += 1
         for bs in CX_B4_BS:
             for nb in CX_B4_NB:
                 blocks = _cx_randn((nb, bs, bs), ct, g)
@@ -1837,9 +1965,182 @@ def phase_complex_grid() -> None:
     print(f"[complex grid] B2/B3/B4: {n_tsm} cases within sqrt(2) (2 depth "
           f"+ 3) u sum|a||b| (the real bound per part): B2 n in "
           f"{CX_TSM_NS}, m, k in {CX_TSM_DIMS}, conj on and off, with and "
-          f"without Kahan; B3 with complex and real X; B4 bs in {CX_B4_BS}, "
-          f"b in {CX_B4_B}, nblocks in {CX_B4_NB}, complex and real x; "
-          f"{time.perf_counter() - t0:.1f} s in all")
+          f"without Kahan; B3 with complex and real X, and at m = k in "
+          f"{CX_TSMM_SQUARES}; B4 bs in {CX_B4_BS}, b in {CX_B4_B}, nblocks "
+          f"in {CX_B4_NB}, complex and real x")
+    n_b5 = 0
+    worst = {}
+    for ct in CX_DTYPES:
+        w = worst.setdefault(str(ct)[6:], [0.0, ""])
+        for n in (0, 1) + tuple(CX_TSM_NS):
+            for bw in CX_B5_BW:
+                x, y = (_cx_randn((n, bw), ct, g) for _ in range(2))
+                for a, b, kind in ((0.75 - 0.5j, -1.25 + 2j, "scalar"),
+                                   (_cx_randn((bw,), ct, g),
+                                    _cx_randn((bw,), ct, g), "per-column")):
+                    for flags in CX_B5_FLAGS:
+                        _b5_cx_check(x, y, a, b, flags,
+                                     f"{str(ct)[6:]} n={n} bw={bw} {kind} "
+                                     f"dots={flags}", w)
+                        n_b5 += 1
+        # a real x of the precision: widened exactly, as the plain version
+        # promotes it
+        xr = _cx_randn((4109, 4), CX_REAL[ct], g)
+        y4 = _cx_randn((4109, 4), ct, g)
+        _b5_cx_check(xr, y4, 0.5 + 1j, -1.0, (True, True, True),
+                     f"{str(ct)[6:]} real x", w)
+        n_b5 += 1
+    sync()
+    for key, (ratio, tag) in worst.items():
+        print(f"[complex grid] B5 {key:10s} worst error = {ratio:.3f} of its "
+              f"bound  (at {tag})")
+    print(f"[complex grid] B5: {n_b5} cases within their bounds (y': 8 u "
+          f"(|a||x| + |b||y|); dots: ((depth + 6) 2^-53 + 8 u) sum|terms| "
+          f"+ u |dot|): n in {(0, 1) + tuple(CX_TSM_NS)}, bw in {CX_B5_BW}, "
+          f"scalar and per-column complex a/b, dots {CX_B5_FLAGS}, a real "
+          f"x; {time.perf_counter() - t0:.1f} s in all")
+
+
+def _b5_cx_check(x, y, a, b, flags, tag, worst):
+    """B5's complex variant against its plain version computed in
+    complex128 from the same inputs (``a``/``b`` as the kernel sees them).
+    Each entry of ``y'`` is a sum of two complex products, each within
+    about 2 sqrt(2) u of its magnitude with fused multiply-adds: 8 u
+    (|a||x| + |b||y|) bounds it.  The dots sum in complex128: (depth + 6)
+    2^-53 of the sum of their terms' magnitudes, plus the terms' own error
+    from y' (8 u of the same sum) and, for complex64, the final rounding
+    (u |dot|)."""
+    ct = torch.promote_types(x.dtype, y.dtype)
+    n, bw = x.shape
+    av = fused_update.coefficients(a, bw, ct, DEVICE).to(torch.complex128)
+    bv = fused_update.coefficients(b, bw, ct, DEVICE).to(torch.complex128)
+    got, dots = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
+                                 dot_xy=flags[1], dot_xx=flags[2])
+    xd, yd = x.to(torch.complex128), y.to(torch.complex128)
+    want, wdots = fused_axpby_dots_ref(xd, yd, av, bv, dot_yy=flags[0],
+                                       dot_xy=flags[1], dot_xx=flags[2])
+    require(got.dtype == ct and got.shape == want.shape,
+            f"B5 {tag}: got {tuple(got.shape)} {got.dtype}")
+    u = 2.0 ** -53 if ct == torch.complex128 else 2.0 ** -24
+    mag = av.abs() * xd.abs() + bv.abs() * yd.abs()
+    lim = 8 * u * mag + 1e-300
+    err = (got.to(torch.complex128) - want).abs()
+    ratio = float((err / lim).max()) if n else 0.0
+    require(ratio <= 1.0, f"B5 {tag}: y' error {ratio:.2f}x its bound")
+    if not any(flags):
+        require(dots is None, f"B5 {tag}: dots without a flag")
+    else:
+        require(dots is not None and dots.dtype == ct
+                and dots.shape == (3, bw), f"B5 {tag}: dots {dots}")
+        depth = fused_update.summation_depth(n, bw)
+        scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
+                             (xd.abs() ** 2).sum(0)])
+        dlim = (((depth + 6) * 2.0 ** -53 + 8 * u) * scale
+                + u * wdots.abs() + 1e-300)
+        derr = (dots.to(torch.complex128) - wdots).abs()
+        r2 = float((derr / dlim).max())
+        require(r2 <= 1.0, f"B5 {tag}: dots error {float(derr.max()):.3e} "
+                           f"{r2:.2f}x their bound")
+        ratio = max(ratio, r2)
+    if ratio >= worst[0]:
+        worst[:] = [ratio, tag]
+
+
+#: the eigensolver's grid: dtypes, orders and kinds of Hermitian matrix
+EIG_DTYPES = (torch.float64, torch.float32, torch.complex128,
+              torch.complex64)
+EIG_MS = (1, 2, 3, 16, 17, MAX_DIM)
+EIG_KINDS = ("gram", "rank deficient", "repeated")
+
+
+def _eig_matrix(kind, m, dt, g):
+    """A Hermitian (m, m) matrix in ``dt`` built in its wide dtype: a
+    random Gram matrix, a Gram of rank m // 2, or two eigenvalues (1 and
+    2) of multiplicity about m / 2."""
+    wide = torch.complex128 if dt.is_complex else torch.float64
+    X = torch.randn(m, m, generator=g, dtype=wide, device=DEVICE)
+    if kind == "gram":
+        A = X @ X.mH
+    elif kind == "rank deficient":
+        A = X[:, :m // 2] @ X[:, :m // 2].mH
+    else:
+        Q, _ = torch.linalg.qr(X)
+        d = torch.where(torch.arange(m, device=DEVICE) < m // 2, 1.0, 2.0)
+        A = (Q * d.to(wide)) @ Q.mH
+    return (0.5 * (A + A.mH)).to(dt)
+
+
+def _eig_check(A, tag, worst):
+    """The eigensolver against ``torch.linalg.eigh`` in the wide dtype on
+    the same matrix: eigenvalues within 4 m eps ||A||_F, ||A U - U W||_F
+    within 16 m eps ||A||_F, ||U^H U - I||_F within 16 m eps (eps the
+    machine epsilon of A's real dtype), the flag set.  U is not compared
+    entry by entry: it is fixed only up to phases and within repeated
+    eigenvalues' spaces.  Returns the largest share of a bound."""
+    m = A.shape[-1]
+    wide = torch.complex128 if A.is_complex() else torch.float64
+    w, U, conv = herm_eig(A)
+    real = A.real.dtype if A.is_complex() else A.dtype
+    require(w.dtype == real and U.dtype == A.dtype and bool(conv),
+            f"herm_eig {tag}: {w.dtype} {U.dtype} converged={bool(conv)}")
+    eps = torch.finfo(real).eps
+    Ad = A.to(wide)
+    norm = float(torch.linalg.norm(Ad)) + 1e-300
+    ref = torch.linalg.eigvalsh(Ad)
+    Ud, wd = U.to(wide), w.to(wide)
+    eye = torch.eye(m, dtype=wide, device=A.device)
+    shares = (float((w.double() - ref).abs().max()) / (4 * m * eps * norm),
+              float(torch.linalg.norm(Ad @ Ud - Ud * wd[None, :]))
+              / (16 * m * eps * norm),
+              float(torch.linalg.norm(Ud.mH @ Ud - eye)) / (16 * m * eps))
+    require(bool(torch.all(w[1:] >= w[:-1])),
+            f"herm_eig {tag}: eigenvalues not ascending")
+    require(max(shares) <= 1.0, f"herm_eig {tag}: eigenvalues, residual, "
+            f"orthogonality at {shares} of their bounds")
+    if max(shares) >= worst[0]:
+        worst[:] = [max(shares), tag]
+    return max(shares)
+
+
+def phase_eig_grid() -> None:
+    """The eigensolver (the port's own kernel, ``csrc/herm_eig.cu``)
+    against ``torch.linalg.eigh`` over dtypes, orders and kinds of
+    matrix, one at a time and as a batch, with no host synchronisation
+    in the call."""
+    g = torch.Generator(device=DEVICE).manual_seed(26)
+    worst, n_cases = {}, 0
+    for dt in EIG_DTYPES:
+        w = worst.setdefault(str(dt)[6:], [0.0, ""])
+        for m in EIG_MS:
+            for kind in EIG_KINDS:
+                _eig_check(_eig_matrix(kind, m, dt, g),
+                           f"{str(dt)[6:]} m={m} {kind}", w)
+                n_cases += 1
+        batch = torch.stack([_eig_matrix("gram", WIDTH, dt, g)
+                             for _ in range(8)])
+        wb, Ub, cb = herm_eig(batch)
+        for i in range(batch.shape[0]):
+            wi, Ui, _ = herm_eig(batch[i])
+            require(torch.equal(wi, wb[i]) and torch.equal(Ui, Ub[i]),
+                    f"herm_eig {dt}: a batch differs from one at a time")
+        n_cases += 1
+    if DEVICE == "cuda":
+        A = _eig_matrix("gram", WIDTH, torch.float64, g)
+        sync()
+        syncs = _syncs(lambda: herm_eig(A))
+        print(f"[eig grid] synchronising calls in one herm_eig call: {syncs}; "
+              f"in one torch.linalg.eigh call: "
+              f"{_syncs(lambda: torch.linalg.eigh(A))}")
+        require(syncs == 0, f"herm_eig: {syncs} synchronising calls")
+    sync()
+    for key, (ratio, tag) in worst.items():
+        print(f"[eig grid] {key:10s} worst = {ratio:.3f} of its bounds  "
+              f"(at {tag})")
+    print(f"[eig grid] {n_cases} cases within their bounds (eigenvalues 4 m "
+          f"eps ||A||_F of eigh's in float64/complex128, ||AU - UW||_F and "
+          f"||U^H U - I||_F 16 m eps): dtypes "
+          f"{[str(d)[6:] for d in EIG_DTYPES]}, m in {EIG_MS}, {EIG_KINDS}, "
+          f"and a batch of 8 at m = {WIDTH} equal to one at a time")
 
 
 # ---------------------------------------------------------------- phase 13c
@@ -1925,13 +2226,15 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
               lambda: cg(op, bw, tol=tol, maxiter=3000, block=True), A, bw,
               tol, bcg["iters"], BLOCK_KERNELS,
               lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 2 * i + 1,
-                         "tsmm": 4 * i + 1}, "block_cg", card)
+                         "tsmm": 4 * i + 1, "herm_eig": 2 * i + 1},
+              "block_cg", card)
     mtol = 1e-6
     _cx_solve(f"block MINRES complex128 width {CX_WIDTH} tol {mtol}",
                   lambda: minres(op, bw, tol=mtol, maxiter=3000, block=True),
                   A, bw, mtol, bminres_iters, BLOCK_KERNELS,
                   lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 4 * i + 1,
-                             "tsmm": 9 * i + 1}, "block_minres", card)
+                             "tsmm": 9 * i + 1, "herm_eig": i + 1},
+                  "block_minres", card)
 
     # Lanczos with reorthogonalisation, against the same recurrence through
     # the plain SpMV on the card
@@ -1957,6 +2260,39 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
             f"complex Lanczos: extremes {dlo:.2e}, {dhi:.2e} off impl='ref'")
     require(launches == CX_LANCZOS_K or DEVICE == "cpu",
             f"complex Lanczos: {launches} B1 launches != {CX_LANCZOS_K}")
+    out.update(_cx_eigen(A, op, v0, card))
+
+    # pipelined CG (its dots conjugated): plain CG's count, within 2
+    tol = CX_TOL[torch.complex128]
+    plain_iters = out["cg complex128"]["iters"]
+    s = _cx_solve(f"pipelined CG complex128 b=4 tol {tol}",
+                  lambda: cg_mod.pipelined_cg(op, b, tol=tol, maxiter=3000),
+                  A, b, tol, plain_iters, ("sellcs_spmv",),
+                  lambda i: {"sellcs_spmv": i + 2}, "pipelined_cg", card)
+    require(s["iters"] <= plain_iters + 2,
+            f"complex pipelined CG: {s['iters']} iterations > plain CG's "
+            f"{plain_iters} + 2")
+    # B5's complex variant on its path here: the true residual of the
+    # complex CG solution, r = b - A x with <r, r> and <b, b> in one sweep
+    x = out["cg complex128"]["res"].x
+    execution.reset_launch_counts()
+    Ax = op.mv(x)
+    _, dots = fused_axpby_dots(b, Ax, 1.0, -1.0, dot_yy=True, dot_xx=True)
+    relres = torch.sqrt(dots[0].real / dots[2].real)
+    sync()
+    b5 = execution.launch_counts().get("fused_axpby_dots", 0)
+    plain = _cx_relres(A, b, x)
+    diff = float(((relres - plain).abs() / plain).max())
+    print(f"[complex solves] complex CG true relative residual through "
+          f"fused_axpby_dots (complex128): "
+          f"{' '.join(f'{v:.6e}' for v in relres.tolist())}; through the "
+          f"plain SpMV: {' '.join(f'{v:.6e}' for v in plain.tolist())}; max "
+          f"relative difference {diff:.2e}; fused_axpby_dots launches {b5}")
+    # |r| ~ 1e-8 |b|: the two SpMVs' summation orders show at ~1e-8 of |r|
+    require(diff <= 1e-4, f"complex B5 residual differs from plain by {diff}")
+    require(b5 == 1 or DEVICE == "cpu",
+            f"complex fused_axpby_dots launches {b5} != 1")
+    out["b5 launches"] = b5
 
     # block-Jacobi PCG and PMINRES on the phased anisotropic Laplacian,
     # with the real matrix' solves beside them
@@ -2050,6 +2386,66 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
     return out
 
 
+def _cx_eigen(A, op, v0, card):
+    """ChebFD and KPM on the phased matrix in complex128: ChebFD's
+    lowest Ritz value against lambda_min from a Lanczos run of
+    CX_REF_LANCZOS_K steps, and KPM's mu_2, fused and unfused, against
+    2 ||A_s v||^2 - ||v||^2 through ``impl="ref"``."""
+    t0 = time.perf_counter()
+    lr = lanczos(op, v0, CX_REF_LANCZOS_K)
+    ev, _ = tridiag_eigh(lr.alphas[:int(lr.nvalid)],
+                         lr.betas[:max(int(lr.nvalid) - 1, 0)])
+    lam, top = float(ev[0]), float(ev[-1])
+    spectrum = (lam - CX_CHEB_BELOW, top + CX_CHEB_BELOW)
+    execution.reset_launch_counts()
+    res = chebfd(op, (lam - CX_CHEB_BELOW, lam + CX_CHEB_ABOVE),
+                 block_size=8, degree=CX_CHEB_DEGREE, sweeps=CX_CHEB_SWEEPS,
+                 spectrum=spectrum)
+    sync()
+    launches = _counts(("sellcs_spmv", "tsmttsm", "tsmm"))
+    rel = abs(res.eigenvalues[0] - lam) / lam
+    print(f"[complex solves] ChebFD complex128 window ({lam:.12f} - "
+          f"{CX_CHEB_BELOW}, + {CX_CHEB_ABOVE}), degree {CX_CHEB_DEGREE}, "
+          f"{CX_CHEB_SWEEPS} sweeps, block 8, spectrum from a Lanczos of "
+          f"{CX_REF_LANCZOS_K} steps ({spectrum[0]:.6f}, {spectrum[1]:.6f}):"
+          f" Ritz values {np.array2string(res.eigenvalues[:4], precision=12)}"
+          f" residual norms {np.array2string(res.residuals[:4], precision=2)};"
+          f" lowest {rel:.2e} relative off Lanczos's lambda_min "
+          f"{lam:.12f}; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    require(rel <= CX_CHEB_TOL, f"complex ChebFD: lowest Ritz value {rel:.2e} "
+            f"relative off lambda_min")
+
+    a, gam = (spectrum[1] - spectrum[0]) / 2, (spectrum[1] + spectrum[0]) / 2
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    bits = torch.rand((A.nrows, CX_KPM_PROBES), generator=gen,
+                      device=DEVICE) < 0.5
+    v = A.permute(torch.where(bits, 1.0, -1.0).to(torch.float32)
+                  / np.sqrt(A.nrows)).to(torch.complex128)
+    Av = (make_operator(A, impl="ref").mv(v) - gam * v) / a
+    n_av = (Av.conj() * Av).real.sum(0)
+    n_v = (v.conj() * v).real.sum(0)
+    want = float((2 * n_av - n_v).mean())
+    lim = 4 * 2.0 ** -24 * float((2 * n_av + n_v).mean())
+    for fused in (True, False):
+        execution.reset_launch_counts()
+        mus = kpm_dos_moments(op, CX_KPM_MOMENTS, n_probes=CX_KPM_PROBES,
+                              spectrum=spectrum, seed=0, fused=fused)
+        sync()
+        mu2 = float(mus[2])
+        print(f"[complex solves] KPM complex128 {CX_KPM_PROBES} probes "
+              f"fused={fused}: mu_2 {mu2:.10f}, 2||A_s v||^2 - ||v||^2 "
+              f"{want:.10f} (through impl='ref'): {abs(mu2 - want):.2e} off "
+              f"(bound {lim:.2e}: the moments are float32); mu_0 "
+              f"{float(mus[0]):.7f}; B1 launches "
+              f"{execution.launch_counts().get(KERNEL, 0)}  [{card}]")
+        require(abs(mu2 - want) <= lim,
+                f"complex KPM fused={fused}: mu_2 {mu2} against {want}")
+        require(abs(float(mus[0]) - 1.0) <= 1e-6,
+                f"complex KPM fused={fused}: mu_0 = {float(mus[0])}")
+    return {"lambda_min": lam}
+
+
 # ---------------------------------------------------------------- phase 13d
 def phase_complex_timing(cx, card):
     """B1–B4 in complex128 at the main shapes: kernel, plain version, one
@@ -2065,17 +2461,19 @@ def phase_complex_timing(cx, card):
     f64 = torch.float64
     rows = {}
 
-    def row(key, label, kern, plain, lib, nbytes, flops, err, slow=False):
+    def row(key, label, kern, plain, lib, nbytes, flops, err, slow=False,
+            peak=PEAK_FLOPS[f64]):
         ms = time_ms(kern)
         plain_ms = time_ms(plain, warmup=1 if slow else 3,
                            iters=2 if slow else 20)
-        lib_ms = time_ms(lib)
+        lib_ms = None if lib is None else time_ms(lib)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * flops / PEAK_FLOPS[f64]
+        ops_ms = 1e3 * flops / peak
         bound_ms = max(bytes_ms, ops_ms)
         measured_ms = 1e3 * nbytes / CX_MEASURED_BYTES_PER_S
+        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"[complex] {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"ms, library {lib_text}, bound {bound_ms:.4f} ms "
               f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.1f} GB/s; "
               f"operations {ops_ms:.4f} ms), {100 * bound_ms / ms:.1f}% of "
               f"bound; at the measured {CX_MEASURED_BYTES_PER_S / 1e9:.1f} "
@@ -2131,7 +2529,38 @@ def phase_complex_timing(cx, card):
         lambda: tsmm_ref(V, X, W, 1.0, 1.0),
         lambda: torch.addmm(W, V, X, beta=1.0, alpha=1.0),
         _nbytes(V, X, W, got), flops, err)
+    got = tsmm(V, X)
+    err = _cx_check(got, tsmm_ref(V, X), Va @ X.abs(), torch.complex128,
+                    CX_WIDTH, CX_WIDTH, f"B3 without W n={nt}", worst)
+    row(("tsmm", "without W"),
+        f"tsmm without W complex128 n={nt} m=k={CX_WIDTH}",
+        lambda: tsmm(V, X), lambda: tsmm_ref(V, X), lambda: torch.mm(V, X),
+        _nbytes(V, X, got), flops, err)
     del V, W, Va, Wa
+    # B5's complex variant at the shape of the real B5 row (n x 4), with
+    # all three dots; no single PyTorch call computes it
+    for ct in CX_DTYPES:
+        x5, y5 = (_cx_randn((nt, PRECOND_WIDTH), ct, g) for _ in range(2))
+        a5, b5 = 0.5 - 1.5j, -1.0 + 0.25j
+        worst5 = [0.0, ""]
+        _b5_cx_check(x5, y5, a5, b5, (True, True, True),
+                     f"{str(ct)[6:]} n={nt}", worst5)
+        got, dots = fused_axpby_dots(x5, y5, a5, b5, dot_yy=True,
+                                     dot_xy=True, dot_xx=True)
+        want, _ = fused_axpby_dots_ref(x5.to(torch.complex128),
+                                       y5.to(torch.complex128), a5, b5)
+        err = float((got.to(torch.complex128) - want).abs().max())
+        row(("fused_axpby_dots", ct),
+            f"fused_axpby_dots {str(ct)[6:]} n={nt} bw={PRECOND_WIDTH} all "
+            f"dots", lambda: fused_axpby_dots(x5, y5, a5, b5, dot_yy=True,
+                                              dot_xy=True, dot_xx=True),
+            lambda: fused_axpby_dots_ref(x5, y5, a5, b5, dot_yy=True,
+                                         dot_xy=True, dot_xx=True),
+            None, _nbytes(x5, y5, got, dots),
+            # two complex products and a sum (14), three dot terms (24)
+            38.0 * nt * PRECOND_WIDTH, err,
+            peak=PEAK_FLOPS[CX_REAL[ct]])
+        del x5, y5, got
     nb, bs = PRECOND_NX * PRECOND_NX // PRECOND_C, PRECOND_C
     B = _cx_randn((nb, bs, bs), torch.complex128, g)
     x = _cx_randn((nb * bs, PRECOND_WIDTH), torch.complex128, g)
@@ -2148,8 +2577,8 @@ def phase_complex_timing(cx, card):
         8.0 * nb * bs * bs * PRECOND_WIDTH, err)
     print(f"[complex] B2 (plain sum and Kahan), B3 and B4 at these shapes "
           f"within sqrt(2) (2 depth + 3) u sum|a||b| of their plain "
-          f"versions: worst {worst[0]:.3f} of the bound (at {worst[1]})  "
-          f"[{card}]")
+          f"versions: worst {worst[0]:.3f} of the bound (at {worst[1]}); B5 "
+          f"within its complex grid bound  [{card}]")
     return rows
 
 
@@ -2374,13 +2803,18 @@ def phase_pcg_split(pcg, card) -> None:
 
 # ---------------------------------------------------------------- phase 15b
 #: iterations of each stepper comparison, and of its profiled window
-STEP_ITERS = {"cg": 200, "cg_precond": 200, "block_cg": 40}
-STEP_PROFILED = {"cg": 50, "cg_precond": 50, "block_cg": 10}
+STEP_ITERS = {"cg": 200, "cg_precond": 200, "block_cg": 40,
+              "block_minres": 40}
+STEP_PROFILED = {"cg": 50, "cg_precond": 50, "block_cg": 10,
+                 "block_minres": 10}
+#: steppers whose late-read iterations must make no synchronising call
+NO_SYNC = ("block_cg", "block_minres")
 #: kernel name fragments -> the category they are counted under (the
 #: rest: cuBLAS/cuSOLVER kernels of the (b, b) algebra and small ops)
 KERNEL_KINDS = (("sellcs_spmv", "B1 sellcs_spmv"),
                 ("block_diag", "B4 block_diag"),
                 ("tsmttsm", "B2 tsmttsm"), ("tsmm", "B3 tsmm"),
+                ("herm_eig", "herm_eig"),
                 ("Memcpy", "copies"), ("elementwise", "vector passes"),
                 ("reduce", "vector passes"))
 
@@ -2436,13 +2870,17 @@ def _device_split(run, iters, kinds_of=KERNEL_KINDS):
 
 def _syncs(run) -> int:
     """Synchronising CUDA calls ``run()`` makes (torch's sync debug
-    mode; the late-read loop's event wait is not one of them)."""
+    mode; the late-read loop's event wait is not one of them).  The
+    notice torch prints the first time the mode is set ("a prototype
+    feature and does not yet detect all synchronizing operations") is no
+    call and is not counted."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         run()
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
 
 
 def phase_stepper(fw, bcg, pcg, card) -> None:
@@ -2465,6 +2903,9 @@ def phase_stepper(fw, bcg, pcg, card) -> None:
         ("block_cg", f"block CG f64 width {WIDTH}", bcg["op"],
          cg_init(bcg["op"], bcg["b"], tol=1e-8, maxiter=3000, block=True),
          block.block_cg_body, ()),
+        ("block_minres", f"block MINRES f64 width {WIDTH}", bcg["op"],
+         minres_init(bcg["op"], bcg["b"], tol=1e-6, maxiter=3000,
+                     block=True), block.block_minres_body, ()),
     ]
     for name, label, op, st0, body, args in cases:
         k = STEP_ITERS[name]
@@ -2496,6 +2937,9 @@ def phase_stepper(fw, bcg, pcg, card) -> None:
         print(f"[stepper] {label}: synchronising calls in 3 iterations "
               f"(torch's sync debug mode): read one late {syncs_late}, read "
               f"every iteration {syncs_every}")
+        require(syncs_late == 0 or name not in NO_SYNC,
+                f"{label}: {syncs_late} synchronising calls in 3 late-read "
+                f"iterations")
         kp = STEP_PROFILED[name]
         split = _device_split(lambda: run_chunk(op, name, kp, st0, body, *args),
                               kp)
@@ -5485,13 +5929,15 @@ def main() -> int:
     timed("eigensolvers", phase_eigen, fw, card)
     rows = timed("spmv timing", phase_timing, fw, card)
     tsm = timed("tsm timing", phase_tsm_timing, fw, card)
-    timed("block CG split", phase_block_split, fw, bcg, tsm, card)
+    eig = timed("block CG split", phase_block_split, fw, bcg, tsm, card)
     timed("b4 grid", phase_b4_grid)
     timed("b5 grid", phase_b5_grid)
+    timed("eigensolver grid", phase_eig_grid)
     pcg = timed("preconditioned CG", phase_precond_cg, card)
     timed("complex grid", phase_complex_grid)
     cx = timed("complex solves", phase_complex_solves, fw, bcg, bminres, card)
-    timed("complex timing", phase_complex_timing, cx, card)
+    cxt = timed("complex timing", phase_complex_timing, cx, card)
+    b5_cx_launches = cx["b5 launches"]
     del cx
     gc.collect()
     torch.cuda.empty_cache()
@@ -5544,9 +5990,15 @@ def main() -> int:
         # B5 has no solver path: its launches are the PCG residual check's
         _kernel_entry("fused_axpby_dots", b5_launches,
                       pre[("fused_axpby_dots", "f64")]),
+        # ... and, complex128, the complex CG residual check's
+        dict(_kernel_entry("fused_axpby_dots", b5_cx_launches,
+                           cxt[("fused_axpby_dots", torch.complex128)]),
+             variant="complex128"),
+        # the port's own kernel, on block CG's path (two calls an iteration)
+        _kernel_entry("herm_eig", bcg["launches"]["herm_eig"], eig),
     ]
     # the LM phases need the card's memory: keep only the numbers above
-    del fw, bcg, pcg, rows, tsm, pre
+    del fw, bcg, pcg, rows, tsm, pre, cxt
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -5,14 +5,20 @@
 // (n, bw), row-major,
 //
 //   y'[r, c] = a[c] * x[r, c] + b[c] * y[r, c]
-//   dots[0, c] = sum_r y'[r, c]^2,  dots[1, c] = sum_r x[r, c] y'[r, c],
-//   dots[2, c] = sum_r x[r, c]^2          (each only when asked; else 0)
+//   dots[0, c] = sum_r conj(y'[r, c]) y'[r, c],
+//   dots[1, c] = sum_r conj(x[r, c]) y'[r, c],
+//   dots[2, c] = sum_r conj(x[r, c]) x[r, c]   (each only when asked; else 0)
 //
 // in one sweep.  x and y may have different real types (float64, float32,
 // bfloat16, float16); y' has their promoted type, and y', the coefficients
 // and the dots live in its accumulation type (float32 for the half types,
 // else the type itself).  The dots are taken of y' before it is rounded to
-// its output type, as the TPU kernel does.
+// its output type, as the TPU kernel does.  Complex x and y (complex128 or
+// complex64, both of one type: the wrapper widens a real or narrower
+// operand exactly) take complex a and b; their dots are conjugate-linear
+// in the first argument and are summed in complex128 (the partials too),
+// then rounded once to the accumulation type.  The JAX package takes its
+// plain path for complex operands, and its sums do not conjugate.
 //
 // Bound: memory bandwidth.  The call must read x and y once and write y'
 // once, 3 * n * bw values, for at most 8 flops per entry; in float64 that
@@ -49,6 +55,43 @@ constexpr int kInFlight = 8;       // entries a thread loads before using any
 constexpr int kWarp = 32;
 constexpr int kDotYY = 1, kDotXY = 2, kDotXX = 4;
 
+// The type the dots are summed in: the accumulation type for real values,
+// complex128 for complex ones.
+template <typename A> struct DotAcc { using type = A; };
+template <typename R> struct DotAcc<Complex<R>> { using type = Complex<double>; };
+
+template <typename D, typename A> __device__ __forceinline__ D widen(A v) {
+  return D(v);
+}
+template <>
+__device__ __forceinline__ Complex<double> widen(Complex<float> v) {
+  return Complex<double>(v.re, v.im);
+}
+
+// One dot term conj(u) v in the dot type.
+template <typename D, typename A>
+__device__ __forceinline__ D dot_term(A u, A v) {
+  return widen<D>(conj_of(u)) * widen<D>(v);
+}
+
+template <typename O, typename D> __device__ __forceinline__ O narrow(D v) {
+  return O(v);
+}
+template <>
+__device__ __forceinline__ Complex<float> narrow(Complex<double> v) {
+  return Complex<float>((float)v.re, (float)v.im);
+}
+
+template <typename D>
+__device__ __forceinline__ D shfl_xor(D v, int w) {
+  return __shfl_xor_sync(0xffffffffu, v, w);
+}
+template <>
+__device__ __forceinline__ Complex<double> shfl_xor(Complex<double> v, int w) {
+  return Complex<double>(__shfl_xor_sync(0xffffffffu, v.re, w),
+                         __shfl_xor_sync(0xffffffffu, v.im, w));
+}
+
 // Pass 1: y' over the block's tiles, and (flags != 0) the block's (3, bw)
 // partial dots part[blk].
 template <typename TX, typename TY>
@@ -57,11 +100,13 @@ axpby_dots_partial(const TX* __restrict__ x, const TY* __restrict__ y,
                    const typename Acc<typename Promote<TX, TY>::type>::type* a,
                    const typename Acc<typename Promote<TX, TY>::type>::type* b,
                    typename Promote<TX, TY>::type* __restrict__ out,
-                   typename Acc<typename Promote<TX, TY>::type>::type* part,
+                   typename DotAcc<typename Acc<
+                       typename Promote<TX, TY>::type>::type>::type* part,
                    long long n, int bw, int flags) {
   using TO = typename Promote<TX, TY>::type;
   using A = typename Acc<TO>::type;
-  __shared__ A sh[3][kThreads];
+  using D = typename DotAcc<A>::type;
+  __shared__ D sh[3][kThreads];
 
   const int lanes = kThreads / bw;
   const int stride = lanes * bw;
@@ -70,7 +115,7 @@ axpby_dots_partial(const TX* __restrict__ x, const TY* __restrict__ y,
   const long long e_end = n * bw;
   const long long tile = (long long)kInFlight * stride;
 
-  A s_yy = A(0), s_xy = A(0), s_xx = A(0);
+  D s_yy = D(0), s_xy = D(0), s_xx = D(0);
   if (t < stride) {
     const A ac = a[c], bc = b[c];
     for (long long e0 = blockIdx.x * tile + t; e0 < e_end;
@@ -88,9 +133,9 @@ axpby_dots_partial(const TX* __restrict__ x, const TY* __restrict__ y,
         if (e < e_end) {
           const A yn = ac * xv[u] + bc * yv[u];
           out[e] = store_as<TO>(yn);
-          s_yy += yn * yn;
-          s_xy += xv[u] * yn;
-          s_xx += xv[u] * xv[u];
+          s_yy += dot_term<D>(yn, yn);
+          s_xy += dot_term<D>(xv[u], yn);
+          s_xx += dot_term<D>(xv[u], xv[u]);
         }
       }
     }
@@ -106,32 +151,32 @@ axpby_dots_partial(const TX* __restrict__ x, const TY* __restrict__ y,
   // takes o = t, t + kThreads, ...
   for (int o = t; o < 3 * bw; o += kThreads) {
     const int d = o / bw, col = o % bw;
-    A s = A(0);
+    D s = D(0);
     for (int l = 0; l < lanes; ++l) s += sh[d][l * bw + col];
     const bool want = (d == 0 && (flags & kDotYY)) ||
                       (d == 1 && (flags & kDotXY)) ||
                       (d == 2 && (flags & kDotXX));
-    part[((long long)blockIdx.x * 3 + d) * bw + col] = want ? s : A(0);
+    part[((long long)blockIdx.x * 3 + d) * bw + col] = want ? s : D(0);
   }
 }
 
 // Pass 2: one warp per (dot, column): lane l sums the partials of blocks
-// l, l + 32, ... in order, then the lanes combine in a fixed butterfly.
-template <typename A>
+// l, l + 32, ... in order, then the lanes combine in a fixed butterfly; the
+// sum is rounded once to the dots' type A.
+template <typename A, typename D>
 __global__ void __launch_bounds__(kThreads)
-axpby_dots_finish(const A* __restrict__ part, int nblocks, int nd,
+axpby_dots_finish(const D* __restrict__ part, int nblocks, int nd,
                   A* __restrict__ dots) {
   const int o = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
   const int lane = threadIdx.x % kWarp;
   if (o >= nd) return;                         // whole warps leave
-  A s = A(0);
+  D s = D(0);
 #pragma unroll 4
   for (int blk = lane; blk < nblocks; blk += kWarp)
     s += part[(long long)blk * nd + o];
 #pragma unroll
-  for (int w = kWarp / 2; w > 0; w /= 2)
-    s += __shfl_xor_sync(0xffffffffu, s, w);
-  if (lane == 0) dots[o] = s;
+  for (int w = kWarp / 2; w > 0; w /= 2) s += shfl_xor(s, w);
+  if (lane == 0) dots[o] = narrow<A>(s);
 }
 
 template <typename TX, typename TY>
@@ -140,19 +185,20 @@ int launch(const void* x, const void* y, const void* a, const void* b,
            int nblocks, int flags, cudaStream_t stream) {
   using TO = typename Promote<TX, TY>::type;
   using A = typename Acc<TO>::type;
+  using D = typename DotAcc<A>::type;
   if (nblocks > 0) {
     axpby_dots_partial<TX, TY><<<nblocks, kThreads, 0, stream>>>(
         static_cast<const TX*>(x), static_cast<const TY*>(y),
         static_cast<const A*>(a), static_cast<const A*>(b),
-        static_cast<TO*>(out), static_cast<A*>(part), n, bw, flags);
+        static_cast<TO*>(out), static_cast<D*>(part), n, bw, flags);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (flags == 0) return 0;
   const int nd = 3 * bw;
-  axpby_dots_finish<A><<<(nd * kWarp + kThreads - 1) / kThreads, kThreads,
-                         0, stream>>>(static_cast<const A*>(part), nblocks,
-                                      nd, static_cast<A*>(dots));
+  axpby_dots_finish<A, D><<<(nd * kWarp + kThreads - 1) / kThreads,
+                            kThreads, 0, stream>>>(
+      static_cast<const D*>(part), nblocks, nd, static_cast<A*>(dots));
   return (int)cudaGetLastError();
 }
 
@@ -175,10 +221,12 @@ int launch_y(int y_dtype, const void* x, const void* y, const void* a,
 
 }  // namespace
 
-// dtype codes: 0 float64, 1 float32, 2 bfloat16, 3 float16.  a and b hold
-// bw coefficients in the accumulation type; part holds nblocks * 3 * bw and
-// dots 3 * bw values of it (read and written only when flags != 0; flags:
-// 1 <y',y'>, 2 <x,y'>, 4 <x,x>).  out has the promoted type of x and y.
+// dtype codes: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
+// 5 complex64 (a complex x takes a y of its own type only).  a and b hold
+// bw coefficients in the accumulation type; dots holds 3 * bw values of it
+// and part nblocks * 3 * bw values of the dot type (complex128 for complex
+// operands; both read and written only when flags != 0; flags: 1 <y',y'>,
+// 2 <x,y'>, 4 <x,x>).  out has the promoted type of x and y.
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int fused_update_launch(int x_dtype, int y_dtype, const void* x,
                                    const void* y, const void* a,
@@ -189,6 +237,8 @@ extern "C" int fused_update_launch(int x_dtype, int y_dtype, const void* x,
       (n > 0 && nblocks < 1) || (flags & ~7) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((x_dtype >= 4 || y_dtype >= 4) && x_dtype != y_dtype)
+    return (int)cudaErrorInvalidValue;
   switch (x_dtype) {
     case 0: return launch_y<double>(y_dtype, x, y, a, b, out, part, dots, n,
                                     bw, nblocks, flags, s);
@@ -198,6 +248,10 @@ extern "C" int fused_update_launch(int x_dtype, int y_dtype, const void* x,
                                            dots, n, bw, nblocks, flags, s);
     case 3: return launch_y<__half>(y_dtype, x, y, a, b, out, part, dots, n,
                                     bw, nblocks, flags, s);
+    case 4: return launch<Complex<double>, Complex<double>>(
+        x, y, a, b, out, part, dots, n, bw, nblocks, flags, s);
+    case 5: return launch<Complex<float>, Complex<float>>(
+        x, y, a, b, out, part, dots, n, bw, nblocks, flags, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

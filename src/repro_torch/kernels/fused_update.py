@@ -3,7 +3,9 @@
 The CUDA port of ``repro/kernels/fused_update.py:fused_axpby_dots_pallas``
 (B5): ``y' = a x + b y`` for ``(n, bw)`` blocks of vectors, with ``a`` and
 ``b`` scalars or one value per column, and optionally the per-column dots
-``<y', y'>``, ``<x, y'>`` and ``<x, x>`` in the same sweep.  Thread blocks
+``<y', y'>``, ``<x, y'>`` and ``<x, x>`` in the same sweep, for real and
+for complex64/complex128 operands (complex dots are conjugate-linear in
+their first argument and summed in complex128 on the card).  Thread blocks
 reduce their tiles of entries into ``(3, bw)`` partials and a second
 kernel sums them in a fixed order (see the note at the top of the CUDA
 source).  This wrapper validates the operands, picks the number of thread
@@ -74,8 +76,8 @@ def summation_depth(n: int, bw: int) -> int:
 def coefficients(c, bw: int, dtype: torch.dtype, device) -> torch.Tensor:
     """A coefficient (a number, a 0-d tensor or ``(bw,)``) as ``(bw,)`` in
     ``dtype``, as the JAX kernel broadcasts it."""
-    return torch.as_tensor(c, dtype=dtype, device=device).broadcast_to(
-        (bw,)).contiguous()
+    return torch.as_tensor(c, dtype=dtype, device=device).resolve_conj(
+    ).broadcast_to((bw,)).contiguous()
 
 
 def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
@@ -83,11 +85,13 @@ def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
                           dot_xx: bool = False):
     """Run the fused AXPBY + dots kernel on the card.
 
-    ``x`` and ``y`` are ``(n, bw)`` with real dtypes that may differ; ``y'``
+    ``x`` and ``y`` are ``(n, bw)`` with dtypes that may differ; ``y'``
     is ``(n, bw)`` in ``promote_types(x, y)`` and the dots ``(3, bw)``
     (rows yy, xy, xx; zeros where not asked) in its accumulation dtype
-    (float32 for bfloat16/float16), or None when no dot is asked.
-    Returns ``(y', dots)``.
+    (float32 for bfloat16/float16), or None when no dot is asked.  Where
+    that dtype is complex, an operand of another dtype is first widened to
+    it (exactly), so the kernel sees one complex dtype; ``a`` and ``b`` may
+    then be complex.  Returns ``(y', dots)``.
     """
     fn = "fused_axpby_dots"
     device = x.device
@@ -95,7 +99,7 @@ def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         raise ValueError(f"fused_axpby_dots_cuda takes CUDA tensors, x is on "
                          f"{device}")
     for name, t in (("x", x), ("y", y)):
-        if t.dtype not in DTYPE_CODES or t.is_complex():
+        if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{fn}: no kernel for {name} of {t.dtype}")
     if x.ndim != 2 or tuple(y.shape) != tuple(x.shape):
         raise ValueError(f"{fn}: y{tuple(y.shape)} must match x"
@@ -106,6 +110,8 @@ def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
     check_operand(fn, "x", x, device, x.dtype, (n, bw))
     check_operand(fn, "y", y, device, y.dtype, (n, bw))
     out_dtype = torch.promote_types(x.dtype, y.dtype)
+    if out_dtype.is_complex:
+        x, y = x.to(out_dtype), y.to(out_dtype)
     acc = storage_acc_dtype(out_dtype)
     av = coefficients(a, bw, acc, device)
     bv = coefficients(b, bw, acc, device)
@@ -115,7 +121,8 @@ def fused_axpby_dots_cuda(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
     out = torch.empty((n, bw), dtype=out_dtype, device=device)
     part = dots = None
     if flags:
-        part = torch.empty((nblocks, 3, bw), dtype=acc, device=device)
+        part_dtype = torch.complex128 if acc.is_complex else acc
+        part = torch.empty((nblocks, 3, bw), dtype=part_dtype, device=device)
         dots = torch.empty((3, bw), dtype=acc, device=device)
     if nblocks == 0 and not flags:
         return out, None

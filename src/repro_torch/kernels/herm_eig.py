@@ -1,0 +1,81 @@
+"""Small Hermitian eigensolver on Hopper: the wrapper of ``csrc/herm_eig.cu``.
+
+Replaces no TPU kernel.  ``torch.linalg.eigh`` on a CUDA tensor checks
+its ``info`` on the host after every call, so each (b, b) eigensolve of
+the block-Krylov iteration (``solvers/block.py``) stalls the host; the
+JAX package's ``jnp.linalg.eigh`` inside a jitted loop does not.  This
+kernel computes the decomposition with the flag left on the device: one
+thread block a matrix, cyclic Jacobi in shared memory (see the note at
+the top of the CUDA source).
+
+``herm_eig_cuda(A)`` takes ``(m, m)`` or ``(batch, m, m)`` CUDA tensors in
+float64, float32, complex128 or complex64 with ``1 <= m <=``
+:data:`MAX_DIM`, reads their lower triangles (as ``torch.linalg.eigh``
+does) and returns ``(w, U, sweeps)``: the eigenvalues ascending in the
+real dtype, the eigenvectors as U's columns, and an int32 tensor on the
+card with the Jacobi sweeps each matrix took, 0 where it did not
+converge within the kernel's sweep limit.  Nothing else runs instead.
+The plain version is ``torch.linalg.eigh``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import execution
+from repro_torch.kernels import _build
+from repro_torch.kernels.tsmttsm import DTYPE_CODES
+
+__all__ = ["herm_eig_cuda", "MAX_DIM", "DTYPES"]
+
+#: largest m the kernel takes (A and U of complex128 in shared memory)
+MAX_DIM = 64
+DTYPES = (torch.float64, torch.float32, torch.complex128, torch.complex64)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _P]
+
+
+def _entry():
+    fn = _build.load("herm_eig").herm_eig_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def herm_eig_cuda(A: torch.Tensor):
+    """Run the eigensolver on the card: ``A = U diag(w) U^H``.
+
+    Returns ``(w, U, sweeps)`` with the shapes of ``torch.linalg.eigh``
+    and ``sweeps`` of A's batch shape (0-d for one matrix).
+    """
+    fn = "herm_eig"
+    device = A.device
+    if device.type != "cuda":
+        raise ValueError(f"herm_eig_cuda takes CUDA tensors, A is on {device}")
+    if A.dtype not in DTYPES:
+        raise TypeError(f"{fn}: no kernel for {A.dtype}")
+    if A.ndim not in (2, 3) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"{fn}: A must be (m, m) or (batch, m, m), got "
+                         f"{tuple(A.shape)}")
+    m = int(A.shape[-1])
+    if not 1 <= m <= MAX_DIM:
+        raise ValueError(f"{fn}: m={m} outside 1..{MAX_DIM}")
+    batch_shape = tuple(A.shape[:-2])
+    A = A.resolve_conj().contiguous()
+    batch = int(A.shape[0]) if A.ndim == 3 else 1
+    real = A.real.dtype if A.is_complex() else A.dtype
+    w = torch.empty(batch_shape + (m,), dtype=real, device=device)
+    U = torch.empty(tuple(A.shape), dtype=A.dtype, device=device)
+    conv = torch.empty(batch_shape, dtype=torch.int32, device=device)
+    if batch == 0:
+        return w, U, conv
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _entry()(DTYPE_CODES[A.dtype], A.data_ptr(), w.data_ptr(),
+                      U.data_ptr(), conv.data_ptr(), batch, m, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    execution.count_launch(fn)
+    return w, U, conv

@@ -3,7 +3,10 @@
 For CUDA tensors a wrapper launches its kernel or raises; there is no
 fallback to the plain version and no switch that turns a kernel off.  For
 CPU tensors it runs the kernel's plain version (``kernels/ref.py``),
-because a CUDA kernel cannot run there.
+because a CUDA kernel cannot run there.  A conjugate view (``t.conj()``,
+which torch keeps as a flag over the unconjugated values, and which
+``contiguous()`` leaves as it is) is resolved before a kernel reads its
+values (``_own``).
 
 * ``sellcs_spmv`` — the fused SELL-C-sigma SpM(M)V (kernel B1).  It
   passes the matrix' compute dtype (``compute_dtype=A.dtype``), so a
@@ -18,13 +21,16 @@ because a CUDA kernel cannot run there.
 * ``fused_axpby_dots`` — ``a x + b y`` and its column dots in one sweep
   (kernel B5).  No solver calls it, in either package; it is the op the
   JAX package exposes.
+* ``herm_eig`` — the eigendecomposition of a small Hermitian matrix
+  (the port's own kernel, which replaces no TPU kernel: on the card
+  ``torch.linalg.eigh`` checks its ``info`` on the host, so the
+  block-Krylov solvers' (b, b) eigensolves go through this one).
 * ``mamba_scan`` — the selective-SSM scan of the Mamba mixer (kernel B6).
   It has no ``d_tile`` or ``s_blk`` and pads nothing: the CUDA kernel
   takes any shape, with ``N <= MAX_N``, in float32 only.
 
-B1–B4 take complex64 and complex128 operands on the card as they take
-real ones; B5's complex variant is still to port (``ROADMAP.md``), and
-a complex CUDA operand of it raises ``NotImplementedError``.
+B1–B5 take complex64 and complex128 operands on the card as they take
+real ones.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, as2d, x_rows
 from repro_torch.kernels.block_diag import block_diag_cuda, check_shapes
 from repro_torch.kernels.fused_update import fused_axpby_dots_cuda
+from repro_torch.kernels.herm_eig import herm_eig_cuda
 from repro_torch.kernels.mamba_scan import check_shapes as scan_shapes
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.ref import (block_diag_matmul_ref,
@@ -47,7 +54,13 @@ from repro_torch.kernels.tsmm import tsmm_cuda
 from repro_torch.kernels.tsmttsm import tsmttsm_cuda
 
 __all__ = ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_inplace",
-           "block_jacobi_apply", "fused_axpby_dots", "mamba_scan"]
+           "block_jacobi_apply", "fused_axpby_dots", "herm_eig",
+           "mamba_scan"]
+
+
+def _own(*ts):
+    """The tensors with their conjugate flags resolved (``None`` kept)."""
+    return tuple(None if t is None else t.resolve_conj() for t in ts)
 
 
 def _col2d(v: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -71,6 +84,7 @@ def sellcs_spmv(
     """
     if x.device.type == "cpu":
         return sellcs_spmv_ref(A, x, y, z, opts)
+    x, y, z = _own(x, y, z)
     if A.dtype.is_complex:
         x, y, z = (_as_complex(v, A.dtype) for v in (x, y, z))
     x2, was1d = as2d(x)
@@ -119,6 +133,7 @@ def tsmttsm(
     check_beta_needs_out(beta, X, "tsmttsm")
     if V.device.type == "cpu":
         return tsmttsm_ref(V, W, X, alpha, beta, kahan=kahan, conj=conj)
+    V, W = _own(V, W)
     return tsmttsm_cuda(V, W, X, alpha, beta, kahan=kahan, conj=conj)
 
 
@@ -133,6 +148,7 @@ def tsmm(
     check_beta_needs_out(beta, W, "tsmm")
     if V.device.type == "cpu":
         return tsmm_ref(V, X, W, alpha, beta)
+    V, W = _own(V, W)
     return tsmm_cuda(V, X, W, alpha, beta)
 
 
@@ -156,6 +172,7 @@ def block_jacobi_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x2.device.type == "cpu":
         out = block_diag_matmul_ref(blocks, x2)
     else:
+        blocks, x2 = _own(blocks, x2)
         out = block_diag_cuda(blocks.contiguous(), x2.contiguous())
     return out[:, 0] if was1d else out
 
@@ -167,9 +184,9 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
     ``(n, bw)``; ``a``/``b`` scalars or ``(bw,)``.  ``dots`` is ``(3, bw)``
     (``(3,)`` for 1-d inputs; rows yy, xy, xx, zeros where not asked) in
     the accumulation dtype, or None when no dot is asked.  The result has
-    ``promote_types(x, y)``.  Complex dtypes on CUDA raise
-    ``NotImplementedError``: B5's complex variant is still to port
-    (``ROADMAP.md``, queue B).
+    ``promote_types(x, y)``.  Complex dots are conjugate-linear in their
+    first argument (``<x, y'> = sum conj(x) y'``), where the JAX package's
+    plain path sums ``x y'`` (a deliberate difference).
     """
     x2, was1d = as2d(x)
     y2, _ = as2d(y)
@@ -180,11 +197,7 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         out, dots = fused_axpby_dots_ref(x2, y2, a, b, dot_yy=dot_yy,
                                          dot_xy=dot_xy, dot_xx=dot_xx)
     else:
-        if x2.is_complex() or y2.is_complex():
-            raise NotImplementedError(
-                "fused_axpby_dots: complex operands have no CUDA kernel; "
-                "B5's complex variant is still to port (ROADMAP.md, "
-                "queue B)")
+        x2, y2 = _own(x2, y2)
         out, dots = fused_axpby_dots_cuda(
             x2.contiguous(), y2.contiguous(), a, b, dot_yy=dot_yy,
             dot_xy=dot_xy, dot_xx=dot_xx)
@@ -192,6 +205,24 @@ def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
         out = out[:, 0]
         dots = None if dots is None else dots[:, 0]
     return out, dots
+
+
+def herm_eig(A: torch.Tensor):
+    """``(w, U, converged)`` with ``A = U diag(w) U^H``, ``w`` ascending,
+    for a Hermitian ``(m, m)`` or ``(batch, m, m)`` ``A`` (its lower
+    triangle is read).  CUDA tensors launch the port's Jacobi kernel
+    (``m <= 64``; ``converged`` is a bool tensor on the card, False where
+    the kernel's sweep limit was reached, and nothing runs instead); CPU
+    tensors take ``torch.linalg.eigh``, which raises where it fails, so
+    ``converged`` is True there.  Eigenvectors are fixed only up to a
+    phase and within a repeated eigenvalue's space, so the two may give
+    different U.
+    """
+    if A.device.type == "cpu":
+        w, U = torch.linalg.eigh(A)
+        return w, U, torch.ones(A.shape[:-2], dtype=torch.bool)
+    w, U, sweeps = herm_eig_cuda(A)
+    return w, U, sweeps > 0
 
 
 def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,

@@ -68,7 +68,10 @@ def fused_axpby_dots_ref(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
     ``(n, bw)`` blocks, with ``a``/``b`` scalars or ``(bw,)``.  ``y'`` and
     the dots are formed in the accumulation dtype of
     ``promote_types(x, y)``; ``y'`` is returned in that promoted dtype, as
-    the Pallas kernel returns it (the JAX reference returns ``x``'s)."""
+    the Pallas kernel returns it (the JAX reference returns ``x``'s).
+    Complex dots are conjugate-linear in their first argument and summed
+    in complex128, then rounded to the accumulation dtype, as the kernel
+    sums them."""
     out_dtype = torch.promote_types(x.dtype, y.dtype)
     acc = storage_acc_dtype(out_dtype)
     xf = x.to(acc)
@@ -76,12 +79,14 @@ def fused_axpby_dots_ref(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,
             + torch.as_tensor(b, dtype=acc, device=x.device) * y.to(acc))
     dots = None
     if dot_yy or dot_xy or dot_xx:
-        zero = torch.zeros(x.shape[1], dtype=acc, device=x.device)
+        dacc = torch.complex128 if acc.is_complex else acc
+        xd, yd = xf.to(dacc), ynew.to(dacc)
+        zero = torch.zeros(x.shape[1], dtype=dacc, device=x.device)
         dots = torch.stack([
-            torch.sum(ynew * ynew, dim=0) if dot_yy else zero,
-            torch.sum(xf * ynew, dim=0) if dot_xy else zero,
-            torch.sum(xf * xf, dim=0) if dot_xx else zero,
-        ])
+            torch.sum(torch.conj(yd) * yd, dim=0) if dot_yy else zero,
+            torch.sum(torch.conj(xd) * yd, dim=0) if dot_xy else zero,
+            torch.sum(torch.conj(xd) * xd, dim=0) if dot_xx else zero,
+        ]).to(acc)
     return ynew.to(out_dtype), dots
 
 

@@ -92,7 +92,9 @@ def _ptr(t: Optional[torch.Tensor]):
 def check_operand(fn: str, name: str, t: torch.Tensor, device: torch.device,
                   dtype: torch.dtype, shape) -> None:
     """Raise unless ``t`` is a contiguous tensor of ``dtype`` and ``shape``
-    on ``device`` (the kernels take nothing else)."""
+    on ``device`` (the kernels take nothing else), holding its own values:
+    a conjugate view (``t.conj()`` of a contiguous complex tensor, which
+    torch keeps as a flag over the unconjugated values) is refused."""
     if t.device != device:
         raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -102,6 +104,9 @@ def check_operand(fn: str, name: str, t: torch.Tensor, device: torch.device,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
+    if t.is_conj():
+        raise ValueError(f"{fn}: {name} is a conjugate view; pass "
+                         f"{name}.resolve_conj()")
 
 
 def _check(name, t, device, dtype, shape) -> None:
@@ -194,7 +199,7 @@ def sellcs_spmv_cuda(
         g = torch.as_tensor(gamma, dtype=ct, device=device).reshape(-1)
         if g.numel() not in (1, b):
             raise ValueError(f"gamma must be scalar or ({b},)")
-        g = g.contiguous()
+        g = g.resolve_conj().contiguous()
 
     y = torch.empty((n_pad, b), dtype=ct, device=device)
     z = torch.empty((n_pad, b), dtype=ct, device=device) if chain else None

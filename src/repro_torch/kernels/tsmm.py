@@ -72,7 +72,7 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     out = torch.empty((n, k), dtype=V.dtype, device=device)
     if n == 0:
         return out
-    xs = X.to(storage_acc_dtype(V.dtype)).contiguous()
+    xs = X.resolve_conj().to(storage_acc_dtype(V.dtype)).contiguous()
     (ar, ai), (br, bi) = (coefficient(fn, "alpha", alpha, V.dtype),
                           coefficient(fn, "beta", beta, V.dtype))
     with torch.cuda.device(device):

@@ -154,7 +154,7 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
                              f"{tuple(X.shape)} on {X.device}")
         if X.is_complex() and not V.is_complex():
             raise TypeError(f"{fn}: X must be real for real V, got {X.dtype}")
-        x_in = X.to(acc).contiguous()
+        x_in = X.resolve_conj().to(acc).contiguous()
     rows, nblocks = row_partition(n, m, k)
     tile_rows = stage_rows(m, k, V.element_size())
     bulk = bulk_aligned(V, W, rows, tile_rows)

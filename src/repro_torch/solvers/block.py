@@ -25,7 +25,12 @@ The Cholesky→eigh fallback picks per call without a host
 synchronisation: ``cholesky_ex``'s ``info == 0`` and a finite solve select
 the Cholesky branch (``torch.linalg.cholesky`` would raise, and
 ``cholesky_ex`` returns a finite, wrong factor when it fails, where JAX
-fills NaN).  ``it``/``maxiter`` are Python ints.
+fills NaN).  The ``(b, b)`` eigendecompositions go through
+:func:`repro_torch.kernels.ops.herm_eig`: on the card the port's Jacobi
+kernel, which leaves its convergence flag on the device, where
+``torch.linalg.eigh`` would check its ``info`` on the host every call; on
+the CPU ``torch.linalg.eigh`` itself.  ``it``/``maxiter`` are Python
+ints.
 
 Entry points are not public API: use ``cg(..., block=True)`` /
 ``minres(..., block=True)``.
@@ -75,7 +80,7 @@ def _herm(G: torch.Tensor) -> torch.Tensor:
 def _eigh_pinv_apply(G, B, *, rel_eps):
     """``G⁺ B`` with eigenvalues below ``rel_eps * λ_max`` clipped to a
     zero inverse — rank-deficient directions receive zero weight."""
-    w, U = torch.linalg.eigh(_herm(G))
+    w, U, _ = ops.herm_eig(_herm(G))
     wmax = torch.clamp_min(torch.max(torch.abs(w)), torch.finfo(w.dtype).tiny)
     inv = torch.where(w > rel_eps * wmax,
                       1.0 / torch.where(w == 0, 1.0, w), 0.0)
@@ -118,7 +123,7 @@ def svqb_factors(G, *, rel_eps):
     ds = torch.where(d <= 0, 1.0, d) ** -0.5      # Jacobi scaling
     dsc = ds.to(G.dtype)
     Gs = _herm(dsc[:, None] * G * dsc[None, :])
-    w, U = torch.linalg.eigh(Gs)
+    w, U, _ = ops.herm_eig(Gs)
     wmax = torch.max(torch.abs(w))
     keep = w > rel_eps * torch.clamp_min(wmax, torch.finfo(w.dtype).tiny)
     inv_sqrt = torch.where(keep, torch.where(w == 0, 1.0, w) ** -0.5, 0.0)

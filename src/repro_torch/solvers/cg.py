@@ -282,8 +282,10 @@ def pipelined_cg_init(op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
 
 def _pcg_body(op, st: PCGState) -> PCGState:
-    gamma = torch.sum(st.r * st.r, dim=0)
-    delta = torch.sum(st.w * st.r, dim=0)
+    # <r, r> and <r, w>, conjugate-linear in the first argument (a no-op
+    # for real values); the JAX package's sums do not conjugate
+    gamma = _inner(st.r, st.r)
+    delta = _inner(st.r, st.w)
     q = op.mv(st.w)                      # independent of the reductions
     # per-column first-step flag: a refilled column starts its own
     # recurrence

@@ -26,6 +26,12 @@ on how the matrix is padded.  The JAX package draws over all ``op.n``
 padded rows, so on a matrix whose row count is no multiple of C its
 moments carry eigenvalue-0 terms from the padding (a deliberate
 difference).
+
+For a complex Hermitian operator every dot is conjugate-linear in its
+first argument and each moment, real in exact arithmetic, enters the
+float32 buffer as its real part.  The JAX package's mu_2 and unfused dots
+do not conjugate (another deliberate difference); for real values the two
+forms are the same.
 """
 from __future__ import annotations
 
@@ -35,20 +41,19 @@ import numpy as np
 import torch
 
 from repro_torch.core.spmv import SpmvOpts
-from repro_torch.solvers.lanczos import lanczos_extrema, op_device
+from repro_torch.solvers.lanczos import lanczos_extrema, op_device, real_rows
 
 __all__ = ["kpm_dos_moments", "jackson_kernel", "kpm_dos"]
 
 
-def _real_rows(op):
-    """``(n, place)``: the operator's number of real rows and the map of
-    a vector over them into the operator space (``to_op_space`` for an
-    operator over a matrix, which zeros the padding; the identity for a
-    matrix-free operator, all of whose ``n`` rows are real)."""
-    A = getattr(op, "A", None)
-    if A is None or not hasattr(op, "to_op_space"):
-        return op.n, lambda v: v
-    return A.nrows, op.to_op_space
+def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-column <u, v>, conjugate-linear in ``u`` (a plain sum for
+    real values)."""
+    return torch.sum(torch.conj(u) * v, 0)
+
+
+def _re(t: torch.Tensor) -> torch.Tensor:
+    return t.real if t.is_complex() else t
 
 
 def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
@@ -68,7 +73,7 @@ def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
     dev = op_device(op)
     g = torch.Generator(device=dev).manual_seed(int(seed))
     # Rademacher probes on the real rows, zero in the padding slots
-    n, place = _real_rows(op)
+    n, place = real_rows(op)
     bits = torch.rand((n, n_probes), generator=g, device=dev) < 0.5
     v0 = place(torch.where(bits, 1.0, -1.0).to(torch.float32) / np.sqrt(n))
 
@@ -81,9 +86,11 @@ def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
     w1, _, d = op.mv_fused(
         w0, opts=SpmvOpts(alpha=1.0 / a, gamma=gamma, dot_xx=True,
                           dot_xy=True))
-    # the dots accumulate in float64; cast back to the moment dtype
-    mus[0] = d[2].to(mus.dtype)                              # <v,v>
-    mus[1] = d[1].to(mus.dtype)                              # <v, As v>
+    # the dots accumulate in float64 (complex128 for a complex operator,
+    # whose moments are real: <v, T_k(As) v> with As Hermitian); the real
+    # part goes into the moment dtype
+    mus[0] = _re(d[2]).to(mus.dtype)                         # <v,v>
+    mus[1] = _re(d[1]).to(mus.dtype)                         # <v, As v>
     mu0, mu1 = mus[0].clone(), mus[1].clone()
     w1_first = w1
 
@@ -94,18 +101,19 @@ def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
                 w1, y=w0,
                 opts=SpmvOpts(alpha=alpha2, beta=-1.0, gamma=gamma,
                               dot_yy=True, dot_xy=True))
-            odds.append(2.0 * dots[1].to(mu1.dtype) - mu1)   # mu_{2m+1}
-            evens.append(2.0 * dots[0].to(mu0.dtype) - mu0)  # mu_{2m+2}
+            odds.append(2.0 * _re(dots[1]).to(mu1.dtype) - mu1)  # mu_{2m+1}
+            evens.append(2.0 * _re(dots[0]).to(mu0.dtype) - mu0)  # mu_{2m+2}
         else:
             Aw = op.mv(w1)
             w2 = alpha2 * (Aw - gamma * w1) - w0
-            odds.append(2.0 * torch.sum(w1 * w2, 0) - mu1)
-            evens.append(2.0 * torch.sum(w2 * w2, 0) - mu0)
+            odds.append(2.0 * _re(_dot(w1, w2)).to(mu1.dtype) - mu1)
+            evens.append(2.0 * _re(_dot(w2, w2)).to(mu0.dtype) - mu0)
         w0, w1 = w1, w2
 
     # mu_2 = 2<w1,w1> - mu_0; step m = 1..half gives mu_{2m+1}, mu_{2m+2}
     # (indices past the buffer are dropped, as JAX's scatter drops them)
-    mus[2] = (2.0 * torch.sum(w1_first * w1_first, 0) - mus[0]).to(mus.dtype)
+    mus[2] = (2.0 * _re(_dot(w1_first, w1_first)).to(mus.dtype)
+              - mus[0])
     for m in range(half):
         for idx, val in ((2 * m + 3, odds[m]), (2 * m + 4, evens[m])):
             if idx < M + 2:

@@ -20,7 +20,7 @@ import torch
 from repro_torch.core.execution import resolve_device
 
 __all__ = ["LanczosResult", "randn", "lanczos", "tridiag_eigh",
-           "lanczos_extrema", "op_device"]
+           "lanczos_extrema", "op_device", "real_rows"]
 
 
 class LanczosResult(NamedTuple):
@@ -34,6 +34,17 @@ class LanczosResult(NamedTuple):
 def op_device(op) -> torch.device:
     """The device an operator's vectors live on (``None``: the card)."""
     return resolve_device(getattr(op, "device", None))
+
+
+def real_rows(op):
+    """``(n, place)``: the operator's number of real rows and the map of
+    a vector over them into the operator space (``to_op_space`` for an
+    operator over a matrix, which zeros the padding; the identity for a
+    matrix-free operator, all of whose ``n`` rows are real)."""
+    A = getattr(op, "A", None)
+    if A is None or not hasattr(op, "to_op_space"):
+        return op.n, lambda v: v
+    return A.nrows, op.to_op_space
 
 
 def randn(seed: int, shape, dtype: torch.dtype, device=None) -> torch.Tensor:

@@ -19,9 +19,11 @@ in complex64 and complex128:
 * ``dist_spmv`` on 2 host shards against the JAX ``dist_spmv`` on 2
   forced host devices (a subprocess).
 
-The JAX side runs complex128 under ``jax.enable_x64``.  Pipelined CG is
-left out: it does not converge on these matrices in either package
-(``ROADMAP.md``, "Facts about the reference").
+The JAX side runs complex128 under ``jax.enable_x64``.  Pipelined CG,
+ChebFD and KPM conjugate in the port and not in the JAX package (a
+deliberate difference): the port's pipelined CG is held to plain CG's
+count and the JAX one to its non-convergence; ChebFD and KPM are held to
+the dense eigendecomposition.
 """
 import contextlib
 import importlib
@@ -272,11 +274,12 @@ def test_solvers_match_jax(dname, case):
     close(x, xj, X_TOL[dtype])
 
 
-def test_pipelined_cg_fails_on_complex_in_both_packages():
-    """Both packages' pipelined CG run to ``maxiter`` without converging
-    on a phased matrix where plain CG takes a few dozen iterations: the
-    port keeps the reference's behaviour, and complex pipelined CG is not
-    on this slice's list (``ROADMAP.md``, "Facts about the reference")."""
+def test_pipelined_cg_converges_on_complex_in_the_port_not_in_jax():
+    """The port's pipelined CG conjugates its two dots (<r, r> and
+    <r, w>) and converges on a phased matrix in plain CG's count (22
+    iterations here); the JAX package's sums do not conjugate, so its
+    pipelined CG runs to ``maxiter`` without converging (a deliberate
+    difference, ``ROADMAP.md``, "Facts about the reference")."""
     r, c, hv, n, _ = phased_laplace3d(8, seed=11)
     kw = dict(C=8, sigma=32, dtype=np.complex128)
     A = from_coo(r, c, hv, (n, n), device="cpu", **kw)
@@ -291,8 +294,14 @@ def test_pipelined_cg_fails_on_complex_in_both_packages():
                               Aj.permute(jnp.asarray(b)), tol=1e-8,
                               maxiter=200)
         pj_iters, pj_conv = int(pj.iters), np.asarray(pj.converged)
-    assert bool(plain.converged.all()) and plain.iters < 50
-    assert not bool(piped.converged.any()) and piped.iters == 200
+    assert bool(plain.converged.all()) and int(plain.iters) == 22
+    assert bool(piped.converged.all())
+    assert int(piped.iters) == int(plain.iters)
+    Ad = dense(r, c, hv, n)
+    x = A.unpermute(piped.x).numpy()
+    rel = (np.linalg.norm(b - Ad @ x, axis=0)
+           / np.linalg.norm(b, axis=0))
+    assert rel.max() <= 10 * 1e-8, rel
     assert not pj_conv.any() and pj_iters == 200
 
 
@@ -313,6 +322,63 @@ def test_lanczos_reorth_matches_jax(dname):
     tol = 1e-10 if dtype == np.complex128 else 1e-4
     np.testing.assert_allclose(res.alphas.numpy(), aj, rtol=tol, atol=tol)
     np.testing.assert_allclose(res.betas.numpy(), bj, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------ ChebFD, KPM
+def test_chebfd_complex_ritz_values_match_eigvalsh():
+    """ChebFD on a phased laplace3d(6) in complex128, aimed at the lowest
+    eigenvalues: every converged Ritz value (residual below 1e-6) lies
+    within 1e-6 of ``numpy.linalg.eigvalsh`` of the dense matrix, the
+    tolerance of the real test in ``test_torch_eigen.py``."""
+    from repro_torch.solvers import chebfd
+    r, c, hv, n, _ = phased_laplace3d(6, seed=5)
+    lam = np.linalg.eigvalsh(dense(r, c, hv, n))
+    A = from_coo(r, c, hv, (n, n), device="cpu", C=8, sigma=32,
+                 dtype=np.complex128)
+    target = (lam[0] - 0.05, 0.5 * (lam[3] + lam[4]))
+    res = chebfd(make_operator(A), target, block_size=8, degree=80,
+                 sweeps=4, spectrum=(lam[0] - 0.1, lam[-1] + 0.1))
+    assert res.eigenvalues.dtype == np.float64
+    conv = res.residuals < 1e-6
+    assert conv.sum() >= 4, res.residuals
+    got = res.eigenvalues[conv]
+    near = lam[np.abs(lam[None, :] - got[:, None]).argmin(1)]
+    np.testing.assert_allclose(got, near, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[:4], lam[:4], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_kpm_complex_moments_match_the_dense_eigendecomposition(fused):
+    """KPM on a phased laplace3d(5) (125 rows, padded to 128) in
+    complex128: the moments lie within 2e-5 of the exact
+    mean_p <v_p, T_k(As) v_p>, built from the dense eigendecomposition and
+    the port's own probes, the tolerance of the real test in
+    ``test_torch_eigen.py``; no cast drops an imaginary part."""
+    import warnings
+    from repro_torch.solvers import kpm_dos_moments
+    r, c, hv, n, _ = phased_laplace3d(5, seed=6)
+    lam, U = np.linalg.eigh(dense(r, c, hv, n))
+    A = from_coo(r, c, hv, (n, n), device="cpu", C=8, sigma=32,
+                 dtype=np.complex128)
+    lo, hi = lam[0] - 0.1, lam[-1] + 0.1
+    M, P, seed = 24, 4, 3
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = kpm_dos_moments(make_operator(A), M, n_probes=P,
+                              spectrum=(lo, hi), seed=seed,
+                              fused=fused).numpy()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bits = (torch.rand((n, P), generator=g) < 0.5).numpy()
+    v = np.where(bits, 1.0, -1.0) / np.sqrt(n)
+    s = (lam - 0.5 * (hi + lo)) / (0.5 * (hi - lo))
+    w = np.abs(U.conj().T @ v) ** 2                  # (n, P)
+    exact = (np.cos(np.arange(M)[:, None] * np.arccos(s)[None, :])
+             @ w).mean(1)
+    assert got.dtype == np.float32 and got.shape == (M,)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=2e-5)
+    mu2 = (2 * np.sum(np.abs((np.diag(s) @ U.conj().T @ v)) ** 2, 0)
+           - np.sum(v * v, 0)).mean()
+    assert abs(got[2] - mu2) <= 2e-5
 
 
 # -------------------------------------------------------------- dist_spmv

@@ -10,8 +10,12 @@ computed elementwise in the same order and agrees to 1e-6), and for
 bfloat16/float16 outputs one unit of the output's last place (2^-7 and
 2^-10 relative), because the two may round a float32 y' on opposite sides.
 
-The ``gpu``-marked tests hold the CUDA kernel against its plain version
-on the card; they skip here.
+Complex operands: the port's plain path against the JAX op's (which
+takes its plain path for complex), with the port's dots conjugated and
+the JAX package's not (a deliberate difference).
+
+The ``gpu``-marked tests hold the CUDA kernel, real and complex, against
+its plain version on the card; they skip here.
 """
 import numpy as np
 import pytest
@@ -239,17 +243,104 @@ def test_kernel_matches_plain_on_card(dt, n, bw, flags):
     assert bool(((dots.double() - wdots).abs() <= dlim).all())
 
 
+CDTYPES = {"complex128": np.complex128, "complex64": np.complex64}
+
+
+def _cinputs(n, bw, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x, y = ((rng.standard_normal((n, bw)) + 1j * rng.standard_normal((n, bw)))
+            .astype(dtype) for _ in range(2))
+    a = (rng.standard_normal(bw) + 1j * rng.standard_normal(bw)).astype(dtype)
+    return x, y, a, 0.5 - 1.25j
+
+
+@pytest.mark.parametrize("dname", sorted(CDTYPES))
+def test_complex_plain_path_matches_jax(dname):
+    """Complex x and y through the port's plain path and the JAX op (which
+    takes its plain path for complex): y' within 1e-13 (complex128) or
+    1e-6 (complex64) of max |y'|.  The port's dots are conjugate-linear in
+    the first argument, summed in complex128; they are held to the
+    conjugated sums of the JAX y', within 1e-13 / 1e-6 of the largest,
+    and the JAX dots to its own unconjugated sums (a deliberate
+    difference)."""
+    dtype = CDTYPES[dname]
+    tol = 1e-13 if dtype == np.complex128 else 1e-6
+    x, y, a, b = _cinputs(301, 5, dtype, seed=4)
+    out, dots = fused_axpby_dots(torch.from_numpy(x), torch.from_numpy(y),
+                                 torch.from_numpy(a), b, dot_yy=True,
+                                 dot_xy=True, dot_xx=True)
+    with jax.enable_x64(dtype == np.complex128):
+        jo, jd = jops.fused_axpby_dots(jnp.asarray(x), jnp.asarray(y),
+                                       jnp.asarray(a), b, dot_yy=True,
+                                       dot_xy=True, dot_xx=True)
+        jo, jd = np.asarray(jo), np.asarray(jd)
+    assert out.dtype == torch.from_numpy(x).dtype == dots.dtype
+    assert str(jo.dtype) == dname
+    yn = jo.astype(np.complex128)
+    xc = x.astype(np.complex128)
+    for got, want in ((out.numpy(), yn),
+                      (dots.numpy(), [np.sum(yn.conj() * yn, 0),
+                                      np.sum(xc.conj() * yn, 0),
+                                      np.sum(xc.conj() * xc, 0)]),
+                      (jd, [np.sum(yn * yn, 0), np.sum(xc * yn, 0),
+                            np.sum(xc * xc, 0)])):
+        want = np.asarray(want)
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    norms = dots.numpy()[[0, 2]]
+    assert np.abs(norms.imag).max() <= tol * np.abs(norms.real).max()
+
+
 @pytest.mark.gpu
-def test_complex_operands_still_raise_on_card():
-    """B5 has no complex variant yet (``ROADMAP.md``, queue B): complex
-    CUDA operands raise, and nothing runs the plain version instead."""
+@pytest.mark.parametrize("flags", [(False, False, False), (True, True, True),
+                                   (False, True, False)],
+                         ids=["none", "all", "xy"])
+@pytest.mark.parametrize("n,bw", [(0, 3), (1, 1), (37, 4), (4109, 3),
+                                  (1 << 18, 16), (4109, 86), (37, 256)])
+@pytest.mark.parametrize("dt", [torch.complex128, torch.complex64])
+def test_complex_kernel_matches_plain_on_card(dt, n, bw, flags):
+    """B5's complex variant against its plain version computed in
+    complex128 from the same inputs, with complex a (per column) and b:
+    y' within 8 units of the accumulation dtype times |a||x| + |b||y|;
+    each dot within (depth + 6) units of complex128 plus 8 units of the
+    accumulation dtype, times the sum of its terms' magnitudes, plus one
+    unit of the dots' dtype (the final rounding of a complex64 dot)."""
     need_card()
-    x = torch.ones(8, 2, dtype=torch.complex64, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(n + bw)
+    x, y = (torch.randn(n, bw, generator=g, dtype=torch.complex128,
+                        device="cuda").to(dt) for _ in range(2))
+    a = torch.randn(bw, generator=g, dtype=torch.complex128,
+                    device="cuda").to(dt)
+    b = -0.5 + 0.25j
     execution.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fused_axpby_dots(x, x, 1.0, 2.0, dot_yy=True)
-    with pytest.raises(NotImplementedError, match="complex"):
-        fused_axpby_dots(x.real.contiguous(), x)
-    assert execution.launch_counts().get("fused_axpby_dots", 0) == 0
-    with pytest.raises(TypeError, match="no kernel"):
-        fused_update.fused_axpby_dots_cuda(x, x)
+    out, dots = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
+                                 dot_xy=flags[1], dot_xx=flags[2])
+    torch.cuda.synchronize()
+    launched = execution.launch_counts().get("fused_axpby_dots", 0)
+    assert launched == (1 if (n or any(flags)) else 0)
+    xd, yd = x.to(torch.complex128), y.to(torch.complex128)
+    want, wdots = fused_axpby_dots_ref(xd, yd, a.to(torch.complex128), b,
+                                       dot_yy=flags[0], dot_xy=flags[1],
+                                       dot_xx=flags[2])
+    u = 2.0 ** -53 if dt == torch.complex128 else 2.0 ** -24
+    mag = a.abs().double() * xd.abs() + abs(b) * yd.abs()
+    assert out.dtype == dt
+    assert bool(((out.to(torch.complex128) - want).abs()
+                 <= 8 * u * mag + 1e-300).all())
+    if not any(flags):
+        assert dots is None
+        return
+    depth = fused_update.summation_depth(n, bw)
+    scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
+                         (xd.abs() ** 2).sum(0)])
+    dlim = ((depth + 6) * 2.0 ** -53 + 8 * u) * scale + u * wdots.abs()
+    assert dots.dtype == dt
+    assert bool(((dots.to(torch.complex128) - wdots).abs() <= dlim).all())
+    # a real operand of the same precision is widened, as the plain
+    # version promotes it
+    xr = x.real.contiguous()
+    out2, _ = fused_axpby_dots(xr, y, a, b)
+    want2, _ = fused_axpby_dots_ref(xr.double(), yd, a.to(torch.complex128),
+                                    b)
+    assert out2.dtype == dt
+    assert bool(((out2.to(torch.complex128) - want2).abs()
+                 <= 8 * u * mag + 1e-300).all())

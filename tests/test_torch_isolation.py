@@ -210,8 +210,9 @@ def test_launch_counters():
 
 
 def test_build_layout_and_missing_compiler(monkeypatch, tmp_path):
-    assert _build.sources() == ["block_diag", "fused_update", "mamba_scan",
-                                "sellcs_spmv", "tsmm", "tsmttsm"]
+    assert _build.sources() == ["block_diag", "fused_update", "herm_eig",
+                                "mamba_scan", "sellcs_spmv", "tsmm",
+                                "tsmttsm"]
     lib = _build._library_path("sellcs_spmv")
     assert lib.parent == REPO / "build" / "repro_torch"
     assert lib.name.startswith("libsellcs_spmv-") and lib.suffix == ".so"
@@ -311,6 +312,17 @@ def test_chip_smoke_block_phases_rehearse_on_cpu(monkeypatch):
     chip_smoke.phase_eigen(fw, "cpu rehearsal")
 
 
+def test_chip_smoke_eig_grid_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's eigensolver grid on the CPU: ``ops.herm_eig`` is
+    ``torch.linalg.eigh`` there, so this checks the matrices, the bounds
+    and the control flow, not the kernel."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "EIG_MS", (1, 3, 17))
+    chip_smoke.phase_eig_grid()
+
+
 def test_chip_smoke_precond_phases_rehearse_on_cpu(monkeypatch):
     """chip_smoke.py's B4 and B5 grids, preconditioned CG (with the B5
     residual check), preconditioned MINRES and Chebyshev PCG, run on the
@@ -342,7 +354,7 @@ def test_chip_smoke_stepper_phase_rehearses_on_cpu(monkeypatch):
     import chip_smoke
     for name, value in (("DEVICE", "cpu"), ("PRECOND_NX", 64),
                         ("STEP_ITERS", {"cg": 7, "cg_precond": 5,
-                                        "block_cg": 3})):
+                                        "block_cg": 3, "block_minres": 3})):
         monkeypatch.setattr(chip_smoke, name, value)
     r, c, v, n = chip_smoke.laplace3d(12)
     fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,

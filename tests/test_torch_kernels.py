@@ -474,25 +474,137 @@ def test_tsmttsm_kahan_beats_plain_sum_on_card():
     assert rms[True] <= 0.5 * rms[False]
 
 
+#: B3's template widths (square m = k), a generic width and others
+TSMM_WIDTHS = [(w, w) for w in (1, 2, 4, 8, 16, 32, MAX_DIM)] + [
+    (5, 13), (3, 8), (8, 3), (16, 4), (1, MAX_DIM), (MAX_DIM, 1)]
+TSMM_TOL = {**TSM_TOL, torch.complex128: 1e-13, torch.complex64: 1e-5}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("with_w", [False, True])
-@pytest.mark.parametrize("n,m,k", [(1, 1, 1), (37, 3, 8), (4109, 16, 16),
-                                   (4109, MAX_DIM, MAX_DIM), (70001, 8, 3)])
-@pytest.mark.parametrize("dtype", list(TSM_TOL),
+@pytest.mark.parametrize("with_w", ["none", "w", "alias"])
+@pytest.mark.parametrize("m,k", TSMM_WIDTHS, ids=lambda w: str(w))
+@pytest.mark.parametrize("n", [0, 1, 37, 4109, 70001])
+@pytest.mark.parametrize("dtype", list(TSMM_TOL),
                          ids=lambda d: str(d).split(".")[-1])
 def test_tsmm_matches_plain_on_card(dtype, n, m, k, with_w):
+    """B3 on every template width (m = k = 1 ... 64), the generic
+    instantiation (other m, k) and ragged n, without W, with W, and with
+    W aliasing V (``tsmm_inplace``, m = k), against its plain version in
+    float64 (complex128) within ``TSMM_TOL`` of alpha |V| |X| + |beta| |W|
+    plus the output's rounding (relative, and at float16's subnormals
+    absolute)."""
     need_card()
-    V, W, _ = _tsm_inputs(n, m, k, dtype, n + k)
-    X = _tsm_inputs(1, m, k, dtype, 7)[2]
-    ab = dict(alpha=0.5, beta=-2.0) if with_w else dict(alpha=1.5)
+    if with_w == "alias" and m != k:
+        pytest.skip("W aliases V only where m = k")
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    g = torch.Generator(device="cuda").manual_seed(n + 3 * m + k)
+    V, W, X = (torch.randn(*shape, generator=g, device="cuda",
+                           dtype=wide).to(dtype)
+               for shape in ((n, m), (n, k), (m, k)))
+    if with_w == "alias":
+        W = V
+    ab = (dict(alpha=1.5) if with_w == "none" else
+          dict(alpha=0.5 - 0.25j, beta=-2.0 + 1j) if dtype.is_complex else
+          dict(alpha=0.5, beta=-2.0))
     execution.reset_launch_counts()
-    got = tsmm(V, X, W if with_w else None, **ab)
-    assert execution.launch_counts()["tsmm"] == 1
+    got = tsmm(V, X, None if with_w == "none" else W, **ab)
+    assert execution.launch_counts().get("tsmm", 0) == (1 if n else 0)
     assert got.dtype == dtype and got.shape == (n, k)
-    Vd, Wd, Xd = V.double(), W.double(), X.double()
-    want = tsmm_ref(Vd, Xd, Wd if with_w else None, **ab)
-    scale = abs(ab["alpha"]) * (Vd.abs() @ Xd.abs()) + 2.0 * Wd.abs()
-    _within(got, want, scale, dtype)
+    Vd, Wd, Xd = V.to(wide), W.to(wide), X.to(wide)
+    want = tsmm_ref(Vd, Xd, None if with_w == "none" else Wd, **ab)
+    scale = abs(ab["alpha"]) * (Vd.abs() @ Xd.abs())
+    if with_w != "none":
+        scale = scale + abs(ab["beta"]) * Wd.abs()
+    fi = torch.finfo(dtype)
+    lim = (TSMM_TOL[dtype] * scale + OUT_EPS.get(dtype, 0.0) * want.abs()
+           + fi.tiny * fi.eps)      # a subnormal output's own rounding
+    assert bool(((got.to(wide) - want).abs() <= lim).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k", [(16, 16), (5, 13), (1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16, torch.complex64],
+                         ids=lambda d: str(d).split(".")[-1])
+def test_tsmm_unaligned_views_give_the_same_bits_on_card(dtype, m, k):
+    """V and W as views one value past a 16-byte boundary take B3's
+    value-by-value loads; each output sums in the same order, so the
+    result equals the aligned copies' to the bit."""
+    need_card()
+    n = 4109
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    V, W = (torch.randn(n * w + 1, generator=g, device="cuda",
+                        dtype=wide).to(dtype)[1:].view(n, w)
+            for w in (m, k))
+    X = torch.randn(m, k, generator=g, device="cuda", dtype=wide).to(dtype)
+    assert V.data_ptr() % 16 and W.data_ptr() % 16
+    got = tsmm(V, X, W, 0.5, -2.0)
+    assert torch.equal(got, tsmm(V.clone(), X, W.clone(), 0.5, -2.0))
+    assert torch.equal(tsmm(V, X), tsmm(V.clone(), X))
+
+
+def test_check_operand_refuses_a_conjugate_view():
+    """``t.conj()`` of a contiguous complex tensor is contiguous and keeps
+    the unconjugated values under a flag: a kernel reading its data would
+    read the wrong values, so the wrappers' check refuses it."""
+    from repro_torch.kernels.sellcs_spmv import check_operand
+    t = torch.zeros(4, 2, dtype=torch.complex128)
+    check_operand("f", "x", t, t.device, t.dtype, (4, 2))
+    with pytest.raises(ValueError, match="conjugate view"):
+        check_operand("f", "x", t.conj(), t.device, t.dtype, (4, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["sellcs_spmv", "tsmttsm", "tsmm", "tsmm_x",
+                                "block_jacobi_apply", "fused_axpby_dots",
+                                "herm_eig"])
+def test_conjugate_views_give_their_values_on_card(op):
+    """A conjugate view (contiguous, flagged) through each op on the card
+    gives what its resolved copy gives: the ops resolve the flag before a
+    kernel reads the data (B3's X once read unconjugated values, which
+    stalled complex block CG once its (b, b) factors came row-major)."""
+    need_card()
+    from repro_torch.kernels.ops import (block_jacobi_apply,
+                                         fused_axpby_dots, herm_eig)
+    g = torch.Generator(device="cuda").manual_seed(26)
+
+    def crandn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.complex128)
+
+    if op == "sellcs_spmv":
+        A = _complex_matrix(np.complex128, n=64, C=8, sigma=1)
+        x = crandn(A.nrows_pad, 4)
+        run = lambda v: sellcs_spmv(A, v)[0]
+    elif op == "tsmttsm":
+        W = crandn(300, 5)
+        x = crandn(300, 3)
+        run = lambda v: tsmttsm(v, W)
+    elif op == "tsmm":
+        X = crandn(16, 16)
+        x = crandn(300, 16)
+        run = lambda v: tsmm(v, X, v, 0.5, -1.0)
+    elif op == "tsmm_x":
+        V = crandn(300, 16)
+        x = crandn(16, 16)
+        run = lambda v: tsmm(V, v)
+    elif op == "block_jacobi_apply":
+        blocks = crandn(10, 8, 8)
+        x = crandn(80, 4)
+        run = lambda v: block_jacobi_apply(blocks, v)
+    elif op == "fused_axpby_dots":
+        y = crandn(300, 4)
+        x = crandn(300, 4)
+        run = lambda v: torch.cat(fused_axpby_dots(v, y, 0.5 + 1j, -1.0,
+                                                   dot_yy=True, dot_xy=True))
+    else:
+        Y = crandn(16, 16)
+        x = Y @ Y.mH
+        run = lambda v: herm_eig(v)[0]
+    view = x.conj()
+    assert view.is_conj() and view.is_contiguous()
+    assert torch.equal(run(view), run(view.resolve_conj()))
 
 
 @pytest.mark.gpu
