@@ -632,17 +632,19 @@ def phase_build() -> None:
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
-                inst = re.search(r"(sellcs_spmv_fused|tsmttsm_partial|"
-                                 r"tsmttsm_finish|tsmm_rows|block_diag_rows|"
-                                 r"axpby_dots_partial|axpby_dots_finish|"
-                                 r"mamba_scan_rows)"
+                inst = re.search(r"(sellcs_spmv_fused|"
+                                 r"tsmttsm_partial|tsmttsm_finish|tsmm_rows|"
+                                 r"block_diag_rows|axpby_dots_partial|"
+                                 r"axpby_dots_finish|mamba_scan_rows)"
                                  r"I(\w+?)EEv",
                                  m.group(1))
                 entry = (f"{inst.group(1)}<{inst.group(2)}>" if inst
                          else m.group(1))
             elif "spill" in line:
                 spill = line.strip()
-                require(not entry.startswith("mamba_scan_rows")
+                # B6 and B2 (every instance, complex ones included) must
+                # not spill
+                require(not entry.startswith(("mamba_scan_rows", "tsmttsm_"))
                         or ("0 bytes spill stores" in spill
                             and "0 bytes spill loads" in spill),
                         f"build: {entry} spills: {spill}")
@@ -893,8 +895,8 @@ def _library_csr(A, coo):
     """The same matrix, permuted, as a torch CSR tensor (yardstick only)."""
     r, c, v, n = coo
     ip = A.iperm.cpu().numpy().astype(np.int64)
-    idx = torch.from_numpy(np.stack([ip[r], ip[c]])).cuda()
-    val = torch.from_numpy(np.asarray(v)).cuda()
+    idx = torch.from_numpy(np.stack([ip[r], ip[c]])).to(DEVICE)
+    val = torch.from_numpy(np.asarray(v)).to(DEVICE)
     with warnings.catch_warnings():        # sparse CSR is "beta" in torch
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_coo_tensor(idx, val, (A.nrows_pad, A.nrows_pad)
@@ -965,12 +967,16 @@ TSM_COEFS = ((1.0, 0.0, False), (0.5, -2.0, True), (-1.0, 1.0, True))
 KAHAN_GAIN = 0.5
 
 
-def kahan_depth(n: int, m: int, k: int, dt) -> float:
+def kahan_depth(n: int, m: int, k: int, dt, values=None) -> float:
     """The depth of the compensated bound of the Kahan kernel: a lane's
     8-row group summed plainly (with the products' rounding), then three
-    compensated levels (the lane's groups, the lanes, the blocks) at
-    ``2u + O(N u^2)`` each, with ``N`` at most the plain depth."""
-    d = summation_depth(n, m, k)
+    compensated levels at ``2u + O(N u^2)`` each, with ``N`` at most the
+    plain depth.  Since the finishing kernel sums the blocks in runs, the
+    kernel has four such levels (the lane's groups, the lanes, a run of
+    blocks, the runs); the check keeps the three levels' bound, the
+    tighter one.  ``dt`` is the accumulation dtype, ``values`` the
+    operands' where they are complex (their tile sets the partition)."""
+    d = summation_depth(n, m, k, values)
     return 8 + 3 * (2 + 2 * d * d * _ACC_UNIT[dt])
 
 
@@ -1733,8 +1739,20 @@ def phase_precond_cg(card):
 #: Lanczos steps and tolerances of the complex solves
 CX_DTYPES = (torch.complex128, torch.complex64)
 CX_REAL = {torch.complex128: torch.float64, torch.complex64: torch.float32}
-CX_GRID_C, CX_GRID_B = (8, 32), (1, 4, 16)
+CX_GRID_C, CX_GRID_B = (8, 32), (1, 2, 4, 8, 16)
+#: a chunk taller than a block's threads (walked in passes; with dots,
+#: complex64 at 512 threads needs more than 48 KB of shared memory)
+CX_GRID_TALL_C, CX_GRID_TALL_B = 256, (4, 16)
 CX_TSM_NS, CX_TSM_DIMS = (37, 4109, 1 << 18), (1, 5, 16, MAX_DIM)
+#: B2 on views one element off the allocation (complex64: off a 16-byte
+#: boundary, so the stages fill by plain loads), held bit for bit to the
+#: same values in a fresh tensor; and the phased laplace3d of the complex
+#: block CG run in cg_step chunks against one monolithic solve
+CX_TSM_VIEWS = ((5, 16), (16, 5), (16, 16), (1, MAX_DIM), (MAX_DIM, 3))
+CX_CHUNK_NX, CX_CHUNK_STEPS = 12, 3
+#: B1's timed complex widths, and those timed with <p, Ap> (column CG and
+#: PCG at 4, Lanczos at 1; ChebFD's block of 8 and block CG's 16 ask none)
+CX_TIMED_B, CX_TIMED_DOTS = (1, 4, 8, 16), (1, 4)
 #: B3's template widths (m = k) that CX_TSM_DIMS leaves out
 CX_TSMM_SQUARES = (2, 4, 8, 32)
 #: B5's complex grid: widths and dot flags (its row counts are 0, 1 and
@@ -1846,21 +1864,27 @@ def phase_complex_grid() -> None:
         rt = CX_REAL[ct]
         tol = TOL[rt]
         worst = {}
-        for C in CX_GRID_C:
+        for C in CX_GRID_C + (CX_GRID_TALL_C,):
             n = 16 * C + 5                        # ragged last chunk
             rows, cols, vals = _grid_coo(n, n, rng)
             vals = vals + 1j * rng.standard_normal(vals.size)
             A = from_coo(rows, cols, vals, (n, n), C=C, sigma=4 * C,
                          dtype=np_ct, device=DEVICE)
-            for b in CX_GRID_B:
+            for b in CX_GRID_B if C in CX_GRID_C else CX_GRID_TALL_B:
                 x, y, z = (_cx_randn((A.nrows_pad, b), ct, g)
                            for _ in range(3))
                 for name, opts, with_y, with_z in _cx_flag_cases(b, rng,
                                                                  np_ct):
-                    _compare(A, x, y if with_y else None,
-                                z if with_z else None, opts, tol,
-                                f"{str(ct)[6:]} C={C} b={b} {name}",
-                                worst.setdefault(name, [0.0, ""]))
+                    args = (A, x, y if with_y else None,
+                            z if with_z else None, opts)
+                    tag = f"{str(ct)[6:]} C={C} b={b} {name}"
+                    _compare(*args, tol, tag, worst.setdefault(name, [0.0, ""]))
+                    # the same call again: the same bits (a fixed order of
+                    # every sum, the dots' included)
+                    one, two = sellcs_spmv(*args), sellcs_spmv(*args)
+                    require(all((u is None and v is None) or torch.equal(u, v)
+                                for u, v in zip(one, two)),
+                            f"complex grid {tag}: two runs differ")
                     n_cases += 1
                 # a real x of the values' precision: converted exactly
                 xr = _cx_randn((A.nrows_pad, b), rt, g)
@@ -1875,8 +1899,10 @@ def phase_complex_grid() -> None:
                   f"err {err:.3e}  (worst: {tag})")
     print(f"[complex grid] B1: {n_cases} cases within the real kernels' "
           f"tolerances (complex128 as f64 1e-12; complex64 as f32: vectors "
-          f"1e-5, dots 1e-6): C in {CX_GRID_C}, b in {CX_GRID_B}, every "
-          f"fusion flag with complex alpha/beta/gamma/delta/eta, a real x")
+          f"1e-5, dots 1e-6): C in {CX_GRID_C}, b in {CX_GRID_B}; C = "
+          f"{CX_GRID_TALL_C}, b in {CX_GRID_TALL_B}; every "
+          f"fusion flag with complex alpha/beta/gamma/delta/eta (each run "
+          f"twice, bit for bit the same), a real x")
 
     worst = {}
     n_tsm = 0
@@ -1888,7 +1914,7 @@ def phase_complex_grid() -> None:
                                for s in ((n, m), (n, k), (m, k)))
                     Vd, Wd, Xd = (t.to(torch.complex128) for t in (V, W, X))
                     vw = Vd.abs().T @ Wd.abs()
-                    d2 = summation_depth(n, m, k)
+                    d2 = summation_depth(n, m, k, ct)
                     for alpha, beta, out in CX_TSM_COEFS:
                         scale = abs(alpha) * vw + abs(beta) * Xd.abs()
                         for conj in (True, False):
@@ -1898,8 +1924,8 @@ def phase_complex_grid() -> None:
                                 got = tsmttsm(V, W, X if out else None,
                                               alpha, beta, kahan=kahan,
                                               conj=conj)
-                                depth = (kahan_depth(n, m, k, CX_REAL[ct])
-                                         if kahan else d2)
+                                depth = (kahan_depth(n, m, k, CX_REAL[ct],
+                                                     ct) if kahan else d2)
                                 key = (f"B2 {str(ct)[6:]} conj={conj} "
                                        f"kahan={kahan}")
                                 _cx_check(got, want, scale, ct, depth, n,
@@ -1958,10 +1984,16 @@ def phase_complex_grid() -> None:
                                   f"{key} bs={bs} nb={nb} b={b}",
                                   worst.setdefault(key, [0.0, "", 0.0]))
                         n_tsm += 1
+    n_views = _cx_tsm_views(g)
     sync()
     for key, (ratio, tag, err) in worst.items():
         print(f"[complex grid] {key:36s} worst error {err:.3e} = "
               f"{ratio:.3f} of its bound  (at {tag})")
+    print(f"[complex grid] B2: {n_views} calls on views one element off "
+          f"their allocation (n in {CX_TSM_NS}, (m, k) in {CX_TSM_VIEWS}, "
+          f"conj on and off, with and without Kahan) bit for bit equal to "
+          f"the same values in fresh tensors")
+    _cx_block_chunked(g)
     print(f"[complex grid] B2/B3/B4: {n_tsm} cases within sqrt(2) (2 depth "
           f"+ 3) u sum|a||b| (the real bound per part): B2 n in "
           f"{CX_TSM_NS}, m, k in {CX_TSM_DIMS}, conj on and off, with and "
@@ -1999,6 +2031,62 @@ def phase_complex_grid() -> None:
           f"+ u |dot|): n in {(0, 1) + tuple(CX_TSM_NS)}, bw in {CX_B5_BW}, "
           f"scalar and per-column complex a/b, dots {CX_B5_FLAGS}, a real "
           f"x; {time.perf_counter() - t0:.1f} s in all")
+
+
+def _cx_tsm_views(g) -> int:
+    """B2 on V and W one element off their allocation against the same
+    values in fresh tensors: the row partition alone fixes the order of
+    the sums, so the bits agree whether the stages fill by bulk copies or
+    by plain loads."""
+    n_calls = 0
+    for ct in CX_DTYPES:
+        for n in CX_TSM_NS:
+            for m, k in CX_TSM_VIEWS:
+                V, W = (_cx_randn(sh, ct, g) for sh in ((n, m), (n, k)))
+                Vo, Wo = (torch.empty(t.numel() + 1, dtype=ct,
+                                      device=DEVICE)[1:].view(t.shape)
+                          for t in (V, W))
+                Vo.copy_(V)
+                Wo.copy_(W)
+                for conj in (True, False):
+                    for kahan in (False, True):
+                        same = torch.equal(
+                            tsmttsm(Vo, Wo, kahan=kahan, conj=conj),
+                            tsmttsm(V, W, kahan=kahan, conj=conj))
+                        require(same, f"complex grid: B2 {str(ct)[6:]} n={n} "
+                                f"m={m} k={k} conj={conj} kahan={kahan} on "
+                                f"views differs from fresh tensors")
+                        n_calls += 2
+    return n_calls
+
+
+def _cx_block_chunked(g) -> None:
+    """Complex block CG (B1, B2, B3 and the eigensolver on its path) in
+    cg_step chunks against one monolithic solve, bit for bit: B2's sums
+    have a fixed order, so a chunked solve is the monolithic one."""
+    r, c, v, n = laplace3d(CX_CHUNK_NX)
+    hv = phased(r, c, v, n, CX_SEED + 3)
+    for ct, tol in ((torch.complex128, 1e-10), (torch.complex64, 1e-5)):
+        A = from_coo(r, c, hv, (n, n), C=32, sigma=64,
+                     dtype=np.complex128 if ct == torch.complex128
+                     else np.complex64, device=DEVICE)
+        op = make_operator(A)
+        b = A.permute(_cx_randn((n, CX_WIDTH), ct, g))
+        res = cg(op, b, tol=tol, maxiter=500, block=True)
+        st = cg_init(op, b, tol=tol, maxiter=500, block=True)
+        while st.it < st.maxiter and not bool(st.done.all()):
+            st = cg_step(op, st, CX_CHUNK_STEPS)
+        ch = cg_finalize(st)
+        same = (ch.iters == res.iters and torch.equal(ch.x, res.x)
+                and torch.equal(ch.resnorm, res.resnorm))
+        print(f"[complex grid] block CG {str(ct)[6:]} on phased laplace3d("
+              f"{CX_CHUNK_NX}), width {CX_WIDTH}: {res.iters} iterations; as "
+              f"cg_step chunks of {CX_CHUNK_STEPS} bit-identical to the "
+              f"monolithic solve: {same}")
+        require(bool(res.converged.all()),
+                f"complex grid: block CG {ct} not converged")
+        require(same, f"complex grid: chunked block CG {ct} differs from "
+                      f"the monolithic one")
 
 
 def _b5_cx_check(x, y, a, b, flags, tag, worst):
@@ -2155,11 +2243,12 @@ def _cx_relres(A, b, x) -> torch.Tensor:
 
 
 def _cx_solve(label, run, A, b, tol, real_iters, kernels, want_of, name,
-              card, relres=None):
+              card, relres=None, tally=None):
     """Run one complex solve, timed (after an untimed run that loads the
     complex kernels), and hold it to the gates: converged, every column's
     true relative residual at most 10 tol, and each kernel's launches as
-    the recurrence says (``want_of(iterations + discarded)``)."""
+    the recurrence says (``want_of(iterations + discarded)``); the
+    launches are added to ``tally``."""
     run()
     execution.reset_launch_counts()
     sync()
@@ -2183,6 +2272,9 @@ def _cx_solve(label, run, A, b, tol, real_iters, kernels, want_of, name,
     want = want_of(it + d)
     require(launches == want or DEVICE == "cpu",
             f"complex {label}: launches {launches} != {want}")
+    for kname, count in launches.items():
+        if tally is not None:
+            tally[kname] = tally.get(kname, 0) + count
     return dict(iters=it, secs=secs, ms=1e3 * secs / max(it, 1), res=res)
 
 
@@ -2208,7 +2300,8 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
     A64 = dataclasses.replace(A, vals=A.vals.to(torch.complex64))
     g = torch.Generator(device=DEVICE).manual_seed(CX_SEED)
     b = A.permute(_cx_randn((n, 4), torch.complex128, g))
-    out = {"A": A, "coo": (r, c, hv, n)}
+    tally = {}   # the complex128 solves' launches, for the kernels line
+    out = {"A": A, "coo": (r, c, hv, n), "launches": tally}
     one = ("sellcs_spmv",)
     for Ak, tol in ((A, CX_TOL[torch.complex128]),
                     (A64, CX_TOL[torch.complex64])):
@@ -2217,7 +2310,8 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
         s = _cx_solve(f"column CG {str(Ak.dtype)[6:]} b=4 tol {tol}",
                       lambda: cg(op, bk, tol=tol, maxiter=3000), Ak, bk, tol,
                       fw["iters64"], one, lambda i: {"sellcs_spmv": i + 1},
-                      "cg", card)
+                      "cg", card,
+                      tally=tally if Ak.dtype == torch.complex128 else None)
         out[f"cg {str(Ak.dtype)[6:]}"] = s
     op = make_operator(A)
     bw = A.permute(_cx_randn((n, CX_WIDTH), torch.complex128, g))
@@ -2227,14 +2321,14 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
               tol, bcg["iters"], BLOCK_KERNELS,
               lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 2 * i + 1,
                          "tsmm": 4 * i + 1, "herm_eig": 2 * i + 1},
-              "block_cg", card)
+              "block_cg", card, tally=tally)
     mtol = 1e-6
     _cx_solve(f"block MINRES complex128 width {CX_WIDTH} tol {mtol}",
                   lambda: minres(op, bw, tol=mtol, maxiter=3000, block=True),
                   A, bw, mtol, bminres_iters, BLOCK_KERNELS,
                   lambda i: {"sellcs_spmv": i + 1, "tsmttsm": 4 * i + 1,
                              "tsmm": 9 * i + 1, "herm_eig": i + 1},
-                  "block_minres", card)
+                  "block_minres", card, tally=tally)
 
     # Lanczos with reorthogonalisation, against the same recurrence through
     # the plain SpMV on the card
@@ -2268,7 +2362,8 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
     s = _cx_solve(f"pipelined CG complex128 b=4 tol {tol}",
                   lambda: cg_mod.pipelined_cg(op, b, tol=tol, maxiter=3000),
                   A, b, tol, plain_iters, ("sellcs_spmv",),
-                  lambda i: {"sellcs_spmv": i + 2}, "pipelined_cg", card)
+                  lambda i: {"sellcs_spmv": i + 2}, "pipelined_cg", card,
+                  tally=tally)
     require(s["iters"] <= plain_iters + 2,
             f"complex pipelined CG: {s['iters']} iterations > plain CG's "
             f"{plain_iters} + 2")
@@ -2319,14 +2414,14 @@ def phase_complex_solves(fw, bcg, bminres_iters, card):
               lambda: cg(opP, pb, tol=PCG_TOL, maxiter=maxiter, M=M), P, pb,
               PCG_TOL, int(real_pcg.iters), PRECOND_KERNELS,
               lambda i: {"sellcs_spmv": i + 1, "block_diag_matmul": i + 1},
-              "cg_precond", card)
+              "cg_precond", card, tally=tally)
     _cx_solve(f"block-Jacobi PMINRES complex128 b={PRECOND_WIDTH} tol "
               f"{PMINRES_TOL} (M-norm)",
               lambda: minres(opP, pb, tol=PMINRES_TOL, maxiter=maxiter, M=M),
               P, pb, PMINRES_TOL, int(real_pmr.iters), PRECOND_KERNELS,
               lambda i: {"sellcs_spmv": i + 1, "block_diag_matmul": i + 2},
               "minres_precond", card,
-              relres=lambda A_, b_, x_: _m_relres(M, A_, b_, x_))
+              relres=lambda A_, b_, x_: _m_relres(M, A_, b_, x_), tally=tally)
     out["M"] = M
 
     # the engine: one shard a card where there are several, else
@@ -2448,13 +2543,15 @@ def _cx_eigen(A, op, v0, card):
 
 # ---------------------------------------------------------------- phase 13d
 def phase_complex_timing(cx, card):
-    """B1–B4 in complex128 at the main shapes: kernel, plain version, one
-    PyTorch call computing the same function, and the bound (the bytes
-    over the data sheet's device-memory rate, as for the real rows, or
-    the operations over the float64 peak, whichever is larger; the bytes
-    over the measured rate printed beside it).  Each result is held
-    against its plain version before it is timed: B1 within 1e-12 of
-    max|y|, B2–B4 by :func:`_cx_check`."""
+    """B1–B5 with complex values at the main shapes (B1 and B2 in
+    complex128 and complex64, B3 and B4 in complex128): kernel, plain
+    version, one PyTorch call computing the same function, and the bound
+    (the bytes over the data sheet's device-memory rate, as for the real
+    rows, or the operations over the peak of the parts' type, whichever is
+    larger; the bytes over the measured rate printed beside it).  Each
+    result is held against its plain version before it is timed: B1
+    within the real kernels' tolerances of max|y|, B2–B4 by
+    :func:`_cx_check`."""
     A = cx["A"]
     csr = _library_csr(A, cx["coo"])
     g = torch.Generator(device=DEVICE).manual_seed(CX_SEED + 2)
@@ -2485,41 +2582,62 @@ def phase_complex_timing(cx, card):
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations")
 
-    for b in (1, 4, CX_WIDTH):
-        x = _cx_randn((A.nrows_pad, b), torch.complex128, g)
-        opts = SpmvOpts(dot_xy=b < CX_WIDTH)   # as CG / block CG ask
-        yk, _, dk = sellcs_spmv(A, x, opts=opts)
-        yr, _, dr = sellcs_spmv_ref(A, x, opts=opts)
-        require(rel_err(yk, yr) <= 1e-12 and rel_err(dk, dr) <= 1e-12,
-                f"complex timing: B1 b={b} off its plain version")
-        lib_err = rel_err(csr @ x, yk)
-        require(lib_err <= 1e-12, f"complex timing: the library product is "
-                f"{lib_err:.2e} off at b={b}")
-        err = float((yk - yr).abs().max())
-        row(("sellcs_spmv", b),
-            f"sellcs_spmv complex128 b={b} {'<p, Ap>' if opts.dot_xy else 'no dots'}"
-            f" phased laplace3d({NX})",
-            lambda: sellcs_spmv(A, x, opts=opts),
-            lambda: sellcs_spmv_ref(A, x, opts=opts), lambda: csr @ x,
-            _spmv_bytes(A, x, yk, dk), 8.0 * A.nnz * b, err)
+    for ct in CX_DTYPES:
+        Ac = A if ct == torch.complex128 else dataclasses.replace(
+            A, vals=A.vals.to(ct))
+        r, c, hv, n = cx["coo"]
+        csr_c = csr if ct == torch.complex128 else _library_csr(
+            A, (r, c, np.asarray(hv, np.complex64), n))
+        tol = TOL[CX_REAL[ct]]
+        for b in CX_TIMED_B:
+            x = _cx_randn((A.nrows_pad, b), ct, g)
+            opts = SpmvOpts(dot_xy=b in CX_TIMED_DOTS)   # as the solvers ask
+            yk, _, dk = sellcs_spmv(Ac, x, opts=opts)
+            yr, _, dr = sellcs_spmv_ref(Ac, x, opts=opts)
+            require(rel_err(yk, yr) <= tol["vec"]
+                    and rel_err(dk, dr) <= tol["dots"],
+                    f"complex timing: B1 {ct} b={b} off its plain version")
+            lib_err = rel_err(csr_c @ x, yk)
+            require(lib_err <= tol["vec"], f"complex timing: the library "
+                    f"product is {lib_err:.2e} off at {ct} b={b}")
+            err = float((yk.to(torch.complex128) - yr).abs().max())
+            row(("sellcs_spmv", ct, b),
+                f"sellcs_spmv {str(ct)[6:]} b={b} "
+                f"{'<p, Ap>' if opts.dot_xy else 'no dots'} phased "
+                f"laplace3d({NX})",
+                lambda: sellcs_spmv(Ac, x, opts=opts),
+                lambda: sellcs_spmv_ref(Ac, x, opts=opts), lambda: csr_c @ x,
+                _spmv_bytes(Ac, x, yk, dk), 8.0 * A.nnz * b, err,
+                peak=PEAK_FLOPS[CX_REAL[ct]])
+            del x, yk, yr
+        del Ac, csr_c
     nt = A.nrows_pad
-    V, W = (_cx_randn((nt, CX_WIDTH), torch.complex128, g) for _ in range(2))
-    X = _cx_randn((CX_WIDTH, CX_WIDTH), torch.complex128, g)
     flops = 8.0 * nt * CX_WIDTH * CX_WIDTH
     worst = [0.0, "", 0.0]
+    # B2 as block CG and block MINRES (Kahan) and ChebFD (the plain sum)
+    # call it, in both complex types
+    for ct in CX_DTYPES:
+        V, W = (_cx_randn((nt, CX_WIDTH), ct, g) for _ in range(2))
+        Vd, Wd = V.to(torch.complex128), W.to(torch.complex128)
+        scale = Vd.abs().T @ Wd.abs()
+        for kahan in (True, False):
+            want = tsmttsm_ref(Vd, Wd, kahan=kahan)
+            got = tsmttsm(V, W, kahan=kahan)
+            depth = (kahan_depth(nt, CX_WIDTH, CX_WIDTH, CX_REAL[ct], ct)
+                     if kahan else summation_depth(nt, CX_WIDTH, CX_WIDTH, ct))
+            err = _cx_check(got, want, scale, ct, depth, nt,
+                            f"B2 {str(ct)[6:]} kahan={kahan} n={nt}", worst)
+            row(("tsmttsm", ct, kahan),
+                f"tsmttsm {'Kahan' if kahan else 'plain sum'} {str(ct)[6:]} "
+                f"n={nt} m=k={CX_WIDTH}",
+                lambda: tsmttsm(V, W, kahan=kahan),
+                lambda: tsmttsm_ref(V, W, kahan=kahan), lambda: V.mH @ W,
+                _nbytes(V, W, got), flops, err, slow=kahan,
+                peak=PEAK_FLOPS[CX_REAL[ct]])
+        del V, W, Vd, Wd, scale
+    V, W = (_cx_randn((nt, CX_WIDTH), torch.complex128, g) for _ in range(2))
+    X = _cx_randn((CX_WIDTH, CX_WIDTH), torch.complex128, g)
     Va, Wa = V.abs(), W.abs()
-    # B2 as block CG and MINRES call it (the plain sum) and with Kahan
-    want = tsmttsm_ref(V, W)
-    for kahan in (False, True):
-        got = tsmttsm(V, W, kahan=kahan)
-        depth = (kahan_depth(nt, CX_WIDTH, CX_WIDTH, f64) if kahan
-                 else summation_depth(nt, CX_WIDTH, CX_WIDTH))
-        err = _cx_check(got, want, Va.T @ Wa, torch.complex128, depth, nt,
-                        f"B2 kahan={kahan} n={nt}", worst)
-    row(("tsmttsm", "kahan"), f"tsmttsm Kahan complex128 n={nt} m=k={CX_WIDTH}",
-        lambda: tsmttsm(V, W, kahan=True),
-        lambda: tsmttsm_ref(V, W, kahan=True), lambda: V.mH @ W,
-        _nbytes(V, W, got), flops, err, slow=True)
     got = tsmm(V, X, W, 1.0, 1.0)
     err = _cx_check(got, tsmm_ref(V, X, W, 1.0, 1.0), Va @ X.abs() + Wa,
                     torch.complex128, CX_WIDTH, CX_WIDTH,
@@ -5938,6 +6056,7 @@ def main() -> int:
     cx = timed("complex solves", phase_complex_solves, fw, bcg, bminres, card)
     cxt = timed("complex timing", phase_complex_timing, cx, card)
     b5_cx_launches = cx["b5 launches"]
+    cx_launches = cx["launches"]
     del cx
     gc.collect()
     torch.cuda.empty_cache()
@@ -5994,6 +6113,15 @@ def main() -> int:
         dict(_kernel_entry("fused_axpby_dots", b5_cx_launches,
                            cxt[("fused_axpby_dots", torch.complex128)]),
              variant="complex128"),
+        # B1 and B2 on complex128 values: the launches of phase 13c's
+        # complex128 solves (column CG, block CG, block MINRES, pipelined
+        # CG, PCG, PMINRES), the times at column CG's and block CG's widths
+        dict(_kernel_entry(KERNEL, cx_launches.get(KERNEL, 0),
+                           cxt[(KERNEL, torch.complex128, 4)]),
+             variant="complex128"),
+        dict(_kernel_entry("tsmttsm", cx_launches.get("tsmttsm", 0),
+                           cxt[("tsmttsm", torch.complex128, True)]),
+             variant="complex128"),
         # the port's own kernel, on block CG's path (two calls an iteration)
         _kernel_entry("herm_eig", bcg["launches"]["herm_eig"], eig),
     ]
@@ -6029,6 +6157,9 @@ def main() -> int:
     timed("dry run", phase_dryrun, card)
     timed("mesh training", phase_mesh, card)
     print(f"[phase] all phases: {time.perf_counter() - t_start:.1f} s")
+    for e in entries:
+        require(e["launches"] > 0, f"{e['name']} {e.get('variant', '')}: no "
+                f"launch on its main path")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

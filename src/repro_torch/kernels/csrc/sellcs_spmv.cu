@@ -5,13 +5,13 @@
 //
 //   y    = alpha * (A - gamma I) x + beta * y_in     (gamma scalar or per column)
 //   z    = delta * z_in + eta * y                     (chained axpby)
-//   part = per-chunk <y,y>, <x,y>, <x,x>              ((nchunks, 3, b), float64)
+//   part = per-block <y,y>, <x,y>, <x,x>              ((nblocks, 3, b), float64)
 //
 // for real float64/float32 compute (values stored as float64, float32,
 // bfloat16 or float16) and for complex128/complex64 (values stored as
 // the compute type).  For complex types <u,v> = sum conj(u) v, `part` is
 // complex128, and alpha, beta, gamma, delta and eta may be complex.  The
-// wrapper (kernels/sellcs_spmv.py) sums `part` over chunks in float64
+// wrapper (kernels/sellcs_spmv.py) sums `part` over blocks in float64
 // (complex128).
 //
 // Bound: memory bandwidth.  Each call must stream the stored values and
@@ -19,44 +19,54 @@
 // stored slot and column the kernel sits far below the card's ridge point.
 //
 // Design:
-// * One thread block owns one C-row chunk (one slice of up to 16 columns
-//   along grid.y).  Each row is spread over TPR neighbouring threads, and
-//   each thread owns CPT neighbouring columns of it, loaded and stored as
-//   one 16-byte vector (double2 or float4) where the columns allow
-//   (kernels/sellcs_spmv.py:launch_geometry picks TPR and CPT).  At b = 16
-//   in float64 that is 8 threads a row and 4 rows a warp: one warp load of
-//   x reads 4 whole 128-byte rows, and the y and z stores are contiguous.
-//   At b = 1 it is one thread a row, as a plain SELL-C kernel.
+// * One kernel for real and complex values.  A thread block owns one
+//   C-row chunk (one slice of up to 16 columns along grid.y), or with
+//   dots kDotChunks consecutive chunks.  Each row is spread over TPR
+//   neighbouring threads, and each thread owns CPT neighbouring columns
+//   of it, loaded and stored as one 16-byte vector (double2 or float4;
+//   two complex64 values, or one complex128 value) where the columns
+//   allow (kernels/sellcs_spmv.py:launch_geometry picks TPR and CPT).  At
+//   b = 16 in float64 that is 8 threads a row and 4 rows a warp: one warp
+//   load of x reads 4 whole 128-byte rows, and the y and z stores are
+//   contiguous.  At b = 1 it is one thread a row, as a plain SELL-C kernel.
+//   Complex values without dots take 32 bytes of columns a thread (2
+//   complex128 or 4 complex64 values, two vectors), so half the threads
+//   of a row, and half the loads of each value and index.
 // * The TPR threads of a row read the same vals[s] and cols[s]; the
 //   chunk-column-major layout puts the slots of a chunk's neighbouring
 //   rows next to each other, so those loads are broadcasts from one
 //   sector and the value and index streams stay coalesced.
-// * Occupancy, not the chain of loads of one row, decides the speed: the
-//   kernel is held to 64 registers a thread (__launch_bounds__ with two
-//   512-thread blocks), so an SM holds four 256-thread chunks at b = 16.
-//   Rows of kUnroll slots or more take them kUnroll at a time, values,
-//   indices and gathers in flight together; the products are added in
-//   slot order either way (y is the same as one slot at a time).  On the
-//   H100, more registers for deeper unrolling or for prefetching the
-//   row's own operands, two vectors a thread, and persistent blocks that
-//   walk ranges of chunks with the next chunk's indices in flight were
-//   all slower (PERF.md section 6).
+// * Gathers in flight set the pace.  A row's slots go kU at a time (8 for
+//   real values, 6 for complex, 4 at 32 bytes a thread) and its last,
+//   shorter group at its own length (one code path per length), values,
+//   indices and gathers of a group in flight together: a 7-slot row is
+//   one group, where a loop over the remainder slots one at a time left
+//   each waiting for its index and then its gather.  The products are
+//   added in slot order either way.  The kernel is held to 64 registers a
+//   thread (__launch_bounds__ with two 512-thread blocks).
+// * Dots are a template parameter: the instance without them keeps no dot
+//   registers.  With dots a thread's running sums live in shared memory,
+//   updated once a row, and a block walks kDotChunks chunks before its
+//   one reduction (shuffles, a barrier, the warps' sums: at b = 4 the
+//   128,000 per-chunk reductions of laplace3d(160) were as much as a
+//   fifth of the call).  The wrapper sums one partial a block
+//   (kernels/sellcs_spmv.py:dot_parts).  Complex64 and float32 at 512
+//   threads need more than the default 48 KB of shared memory.
 // * A block has at most kMaxThreads threads; a chunk whose C * TPR is
 //   larger is walked in passes of blockDim / TPR rows.
 // * Narrow stored values (bf16, f16, or f32 under f64 compute) are upcast in
 //   registers, so the value stream moves at the storage width.
-// * The dots asked for are reduced in a fixed order (each thread over its
-//   rows in pass order, warp shuffles over the rows of a warp, then warps
-//   in order through shared memory) without atomics, so results are
+// * The dots are reduced in a fixed order (each thread over its rows in
+//   chunk and pass order, warp shuffles over the rows of a warp, then
+//   warps in order through shared memory) without atomics, so results are
 //   bit-for-bit reproducible from run to run.
 // * Threads are rounded up to whole warps; rows >= C only feed zeros to
 //   the reductions.
-// * Complex values (Complex<R> of dtypes.cuh) take the same path: a
-//   complex128 value is one 16-byte vector (CPT = 1), a complex64 pair is
-//   one (CPT = 2), and each product is two fused multiply-adds per part.
-//   A complex128 thread keeps kUnroll / 2 slots in flight, so that its
-//   values and gathers (twice the registers of float64) still fit the
-//   64 registers a thread.
+// * Each complex product is two fused multiply-adds per part.  On the
+//   H100, more registers for deeper unrolling or for prefetching, two
+//   vectors a thread for real values, persistent blocks, staging a
+//   chunk's values and indices in shared memory and keeping its
+//   neighbouring x rows there were all slower (PERF.md section 6).
 
 #include <cuda_runtime.h>
 
@@ -65,9 +75,12 @@
 namespace {
 
 constexpr int kMaxThreads = 512;  // kernels/sellcs_spmv.py:MAX_THREADS
-constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxBW = 16;        // columns of one grid.y slice
 constexpr int kUnroll = 8;        // slots in flight per thread, long rows
+constexpr int kUnrollCx = 6;      // slots in flight per thread, complex
+constexpr int kUnrollCxWide = 4;  // ... with 32 bytes of columns a thread
+constexpr int kDotChunks = 4;     // chunks of a block with dots
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory
 
 enum Flags {
   kHasYin = 1,
@@ -134,21 +147,34 @@ __device__ __forceinline__ Complex<double> dot_term(Complex<R> u,
   return conj_of(Complex<double>(u.re, u.im)) * Complex<double>(v.re, v.im);
 }
 
-// CPT neighbouring values of the compute type: one value, or one 16-byte
-// vector (double2, float4).
+// CPT neighbouring values of the compute type: one value, or one or two
+// 16-byte vectors (double2, float4; two complex64 values a vector; a
+// complex128 value is one vector itself).
 template <typename CT, int CPT> struct Pack {
+  static constexpr int kPer = 16 / (int)sizeof(CT);  // values a vector
   CT v[CPT];
   __device__ __forceinline__ void load(const CT* p) {
-    if constexpr (CPT == 1)
-      v[0] = ldg_val(p);
-    else
-      split16(__ldg(reinterpret_cast<const typename Vec16<CT>::type*>(p)), v);
+    if constexpr (CPT == 1 || kPer == 1) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) v[e] = ldg_val(p + e);
+    } else {
+#pragma unroll
+      for (int h = 0; h < CPT / kPer; ++h)
+        split16(__ldg(reinterpret_cast<const typename Vec16<CT>::type*>(
+                    p + h * kPer)),
+                v + h * kPer);
+    }
   }
   __device__ __forceinline__ void store(CT* p) const {
-    if constexpr (CPT == 1)
-      p[0] = v[0];
-    else
-      *reinterpret_cast<typename Vec16<CT>::type*>(p) = join16(v);
+    if constexpr (CPT == 1 || kPer == 1) {
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) p[e] = v[e];
+    } else {
+#pragma unroll
+      for (int h = 0; h < CPT / kPer; ++h)
+        *reinterpret_cast<typename Vec16<CT>::type*>(p + h * kPer) =
+            join16(v + h * kPer);
+    }
   }
 };
 
@@ -164,7 +190,148 @@ __device__ __forceinline__ Complex<double> rows_sum(Complex<double> v,
   return Complex<double>(rows_sum(v.re, tpr), rows_sum(v.im, tpr));
 }
 
-template <typename VT, typename CT, int CPT>
+// The dots of a thread's columns, summed over its rows, dot k (yy, xy,
+// xx) of column e, in shared memory (slot (k, e) of thread t at
+// (k * CPT + e) * nt + t); NoDots takes none.
+struct NoDots {
+  template <typename DT> __device__ __forceinline__ void add(int, int, DT) {}
+};
+template <typename CT, int CPT> struct SharedDots {
+  using DT = typename Dot<CT>::type;
+  DT* p;
+  int nt;
+  __device__ __forceinline__ DT& at(int k, int e) const {
+    return p[(k * CPT + e) * nt + threadIdx.x];
+  }
+  __device__ __forceinline__ void zero() const {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int e = 0; e < CPT; ++e) at(k, e) = DT(0);
+  }
+  __device__ __forceinline__ void add(int k, int e, DT t) const {
+    at(k, e) += t;
+  }
+  __device__ __forceinline__ DT get(int k, int e) const { return at(k, e); }
+};
+
+// A row's sums acc (CPT columns from kk, at o = row * b + kk) through the
+// shift, alpha, beta and the chain into y and z, and into the dots d.
+template <typename CT, int CPT, typename Dots>
+__device__ __forceinline__ void finish_row(
+    const CT (&acc)[CPT], long long o, int kk, const CT* __restrict__ x,
+    const CT* __restrict__ y_in, const CT* __restrict__ z_in,
+    const CT* __restrict__ gamma, CT* __restrict__ y, CT* __restrict__ z,
+    int gamma_width, CT alpha, CT beta, CT delta, CT eta, int flags,
+    bool need_xrow, Dots& d) {
+  Pack<CT, CPT> xr, yv, yi, zi;
+  if (need_xrow) xr.load(x + o);
+  if (flags & kHasYin) yi.load(y_in + o);
+  if (flags & kChain) zi.load(z_in + o);
+#pragma unroll
+  for (int e = 0; e < CPT; ++e) {
+    CT av = acc[e];
+    if (flags & kHasGamma)
+      av -= gamma[gamma_width == 1 ? 0 : kk + e] * xr.v[e];
+    CT yvv = alpha * av;
+    if (flags & kHasYin) yvv += beta * yi.v[e];
+    yv.v[e] = yvv;
+    if (flags & kChain) zi.v[e] = delta * zi.v[e] + eta * yvv;
+    if (flags & kDotYY) d.add(0, e, dot_term(yvv, yvv));
+    if (flags & kDotXY) d.add(1, e, dot_term(xr.v[e], yvv));
+    if (flags & kDotXX) d.add(2, e, dot_term(xr.v[e], xr.v[e]));
+  }
+  yv.store(y + o);
+  if (flags & kChain) zi.store(z + o);
+}
+
+// The block's dots in a fixed order (each thread's rows in chunk and pass
+// order, the rows of a warp by shuffles, then the warps in order through
+// warp_part, nwarps x 3 x bw values after the threads' sums) into
+// part[prow].
+template <typename CT, int CPT>
+__device__ __forceinline__ void reduce_dots(
+    const SharedDots<CT, CPT>& d, typename Dot<CT>::type* __restrict__ part,
+    long long prow, int b, int bw, int tpr, int sub, int flags) {
+  using DT = typename Dot<CT>::type;
+  DT* warp_part = d.p + 3 * CPT * d.nt;
+  const int warp = threadIdx.x >> 5;
+  const int wl = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (!(flags & (kDotYY << k))) continue;
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) {
+      const DT s = rows_sum(d.get(k, e), tpr);
+      if (wl < tpr) warp_part[(warp * 3 + k) * bw + sub * CPT + e] = s;
+    }
+  }
+  __syncthreads();
+  const int nwarps = blockDim.x >> 5;
+  for (int t = threadIdx.x; t < 3 * bw; t += blockDim.x) {
+    const int dd = t / bw;
+    const int col = t % bw;
+    const int k = blockIdx.y * bw + col;
+    if (k < b) {
+      DT s = DT(0);
+      if (flags & (kDotYY << dd))
+        for (int w = 0; w < nwarps; ++w)
+          s += warp_part[(w * 3 + dd) * bw + col];
+      part[(prow * 3 + dd) * b + k] = s;
+    }
+  }
+}
+
+// N slots of a row from slot j: values, indices and gathers of all N in
+// flight together, then the products added in slot order.
+template <int N, typename VT, typename CT, int CPT>
+__device__ __forceinline__ void slot_group(
+    const VT* __restrict__ vals, const int* __restrict__ cols,
+    const CT* __restrict__ x, long long base, int j, int C, int b, int kk,
+    CT (&acc)[CPT]) {
+  CT a[N];
+  int col[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const long long s = base + (long long)(j + u) * C;
+    a[u] = load_as<CT>(vals[s]);
+    col[u] = __ldg(cols + s);
+  }
+  Pack<CT, CPT> xv[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) xv[u].load(x + (long long)col[u] * b + kk);
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+#pragma unroll
+    for (int e = 0; e < CPT; ++e) acc[e] = mul_add(a[u], xv[u].v[e], acc[e]);
+}
+
+// A row's last n slots, 1 <= n < N, as one group of their own length.
+template <int N, typename VT, typename CT, int CPT>
+__device__ __forceinline__ void tail_group(
+    int n, const VT* __restrict__ vals, const int* __restrict__ cols,
+    const CT* __restrict__ x, long long base, int j, int C, int b, int kk,
+    CT (&acc)[CPT]) {
+  if constexpr (N > 1) {
+    if (n == N - 1)
+      slot_group<N - 1>(vals, cols, x, base, j, C, b, kk, acc);
+    else
+      tail_group<N - 1>(n, vals, cols, x, base, j, C, b, kk, acc);
+  }
+}
+
+// Slots in flight a thread: kUnroll for real values, kUnrollCx for 16
+// bytes of complex columns a thread, kUnrollCxWide for 32.
+template <typename CT, int CPT> __host__ __device__ constexpr int unroll() {
+  if constexpr (!IsComplex<CT>::value) return kUnroll;
+  return sizeof(CT) * CPT > 16 ? kUnrollCxWide : kUnrollCx;
+}
+
+// The kernel (see the note at the top).  With DOTS a block walks
+// kDotChunks chunks and writes part[blockIdx.x]; its dynamic shared
+// memory holds 3 x CPT dot sums of each thread, then the warps' sums
+// (nwarps x 3 x bw).
+template <typename VT, typename CT, int CPT, bool DOTS>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const int* __restrict__ chunk_off,
@@ -172,111 +339,56 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const CT* __restrict__ y_in, const CT* __restrict__ z_in,
                   const CT* __restrict__ gamma, CT* __restrict__ y,
                   CT* __restrict__ z, typename Dot<CT>::type* __restrict__ part,
-                  int C, int b, int bw, int tpr, int gamma_width, CT alpha,
-                  CT beta, CT delta, CT eta, int flags) {
+                  int nchunks, int C, int b, int bw, int tpr, int gamma_width,
+                  CT alpha, CT beta, CT delta, CT eta, int flags) {
   using DT = typename Dot<CT>::type;
-  constexpr int kU = sizeof(CT) > 8 ? kUnroll / 2 : kUnroll;
-  __shared__ DT warp_part[kMaxWarps][3][kMaxBW];
+  constexpr int kU = unroll<CT, CPT>();
+  constexpr int K = DOTS ? kDotChunks : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SharedDots<CT, CPT> d{reinterpret_cast<DT*>(smem), (int)blockDim.x};
 
-  const int c = blockIdx.x;
   const int sub = threadIdx.x % tpr;
   const int rip = threadIdx.x / tpr;  // row within a pass
   const int rows_per_pass = blockDim.x / tpr;
   const int kk = blockIdx.y * bw + sub * CPT;  // first column of the thread
   const bool col_ok = kk < b;  // CPT > 1: b % CPT == 0, all or none
-  const bool any_dot = flags & (kDotYY | kDotXY | kDotXX);
   const bool need_xrow = flags & (kHasGamma | kDotXY | kDotXX);
-  const long long off = (long long)chunk_off[c] * C;
-  const int len = chunk_len[c];
+  const int row_flags = DOTS ? flags : flags & ~(kDotYY | kDotXY | kDotXX);
+  if constexpr (DOTS) d.zero();
 
-  DT d_yy[CPT], d_xy[CPT], d_xx[CPT];
-#pragma unroll
-  for (int e = 0; e < CPT; ++e) d_yy[e] = d_xy[e] = d_xx[e] = DT(0);
+  const int c_end = min(nchunks, (int)(blockIdx.x + 1) * K);
+  for (int c = blockIdx.x * K; c < c_end; ++c) {
+    const long long off = (long long)chunk_off[c] * C;
+    const int len = chunk_len[c];
+    for (int r0 = 0; r0 < C; r0 += rows_per_pass) {
+      const int lr = r0 + rip;
+      if (lr >= C || !col_ok) continue;
+      const long long row = (long long)c * C + lr;
+      const long long base = off + lr;
 
-  for (int r0 = 0; r0 < C; r0 += rows_per_pass) {
-    const int lr = r0 + rip;
-    if (lr >= C || !col_ok) continue;
-    const long long row = (long long)c * C + lr;
-    const long long base = off + lr;
-
-    CT acc[CPT];
+      CT acc[CPT];
 #pragma unroll
-    for (int e = 0; e < CPT; ++e) acc[e] = CT(0);
-    int j = 0;
-    for (; j + kU <= len; j += kU) {
-      CT a[kU];
-      int col[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const long long s = base + (long long)(j + u) * C;
-        a[u] = load_as<CT>(vals[s]);
-        col[u] = __ldg(cols + s);
+      for (int e = 0; e < CPT; ++e) acc[e] = CT(0);
+      int j = 0;
+      for (; j + kU <= len; j += kU)
+        slot_group<kU>(vals, cols, x, base, j, C, b, kk, acc);
+      if (j < len)  // the same for the whole block
+        tail_group<kU>(len - j, vals, cols, x, base, j, C, b, kk, acc);
+      if constexpr (DOTS) {
+        finish_row<CT, CPT>(acc, row * b + kk, kk, x, y_in, z_in, gamma, y,
+                            z, gamma_width, alpha, beta, delta, eta,
+                            row_flags, need_xrow, d);
+      } else {
+        NoDots none;
+        finish_row<CT, CPT>(acc, row * b + kk, kk, x, y_in, z_in, gamma, y,
+                            z, gamma_width, alpha, beta, delta, eta,
+                            row_flags, need_xrow, none);
       }
-      Pack<CT, CPT> xv[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) xv[u].load(x + (long long)col[u] * b + kk);
-#pragma unroll
-      for (int u = 0; u < kU; ++u)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e) acc[e] = mul_add(a[u], xv[u].v[e], acc[e]);
     }
-    for (; j < len; ++j) {
-      const long long s = base + (long long)j * C;
-      const CT a = load_as<CT>(vals[s]);
-      Pack<CT, CPT> xv;
-      xv.load(x + (long long)__ldg(cols + s) * b + kk);
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[e] = mul_add(a, xv.v[e], acc[e]);
-    }
-
-    const long long o = row * b + kk;
-    Pack<CT, CPT> xr, yv, yi, zi;
-    if (need_xrow) xr.load(x + o);
-    if (flags & kHasYin) yi.load(y_in + o);
-    if (flags & kChain) zi.load(z_in + o);
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) {
-      CT av = acc[e];
-      if (flags & kHasGamma)
-        av -= gamma[gamma_width == 1 ? 0 : kk + e] * xr.v[e];
-      CT yvv = alpha * av;
-      if (flags & kHasYin) yvv += beta * yi.v[e];
-      yv.v[e] = yvv;
-      if (flags & kChain) zi.v[e] = delta * zi.v[e] + eta * yvv;
-      if (flags & kDotYY) d_yy[e] += dot_term(yvv, yvv);
-      if (flags & kDotXY) d_xy[e] += dot_term(xr.v[e], yvv);
-      if (flags & kDotXX) d_xx[e] += dot_term(xr.v[e], xr.v[e]);
-    }
-    yv.store(y + o);
-    if (flags & kChain) zi.store(z + o);
   }
 
-  if (!any_dot) return;  // uniform across the block
-  const int warp = threadIdx.x >> 5;
-  const int wl = threadIdx.x & 31;
-#pragma unroll
-  for (int e = 0; e < CPT; ++e) {
-    const DT s_yy = (flags & kDotYY) ? rows_sum(d_yy[e], tpr) : DT(0);
-    const DT s_xy = (flags & kDotXY) ? rows_sum(d_xy[e], tpr) : DT(0);
-    const DT s_xx = (flags & kDotXX) ? rows_sum(d_xx[e], tpr) : DT(0);
-    if (wl < tpr) {
-      warp_part[warp][0][sub * CPT + e] = s_yy;
-      warp_part[warp][1][sub * CPT + e] = s_xy;
-      warp_part[warp][2][sub * CPT + e] = s_xx;
-    }
-  }
-  __syncthreads();
-  const int nwarps = blockDim.x >> 5;
-  for (int t = threadIdx.x; t < 3 * bw; t += blockDim.x) {
-    const int d = t / bw;
-    const int col = t % bw;
-    const int k = blockIdx.y * bw + col;
-    if (k < b) {
-      DT s = DT(0);
-      for (int w = 0; w < nwarps; ++w) s += warp_part[w][d][col];
-      part[((long long)c * 3 + d) * b + k] = s;
-    }
-  }
+  if constexpr (DOTS)
+    reduce_dots<CT, CPT>(d, part, blockIdx.x, b, bw, tpr, sub, flags);
 }
 
 struct Args {
@@ -296,31 +408,56 @@ struct Args {
   double alpha_im, beta_im, delta_im, eta_im;  // imaginary parts
 };
 
+// The instance with or without dots, and with dots its shared memory,
+// above the default 48 KB for complex64 and float32 at 512 threads.
+// 32 bytes of columns a thread are taken without dots only.
 template <typename VT, typename CT, int CPT>
-void launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.nchunks, (a.b + a.bw - 1) / a.bw);
-  sellcs_spmv_fused<VT, CT, CPT><<<grid, a.threads, 0, stream>>>(
+int launch(const Args& a, cudaStream_t stream) {
+  using DT = typename Dot<CT>::type;
+  const bool dots = a.flags & (kDotYY | kDotXY | kDotXX);
+  const dim3 grid(dots ? (a.nchunks + kDotChunks - 1) / kDotChunks
+                       : a.nchunks,
+                  (a.b + a.bw - 1) / a.bw);
+  const size_t smem =
+      dots ? (size_t)(3 * CPT * a.threads + a.threads / 32 * 3 * a.bw) *
+                 sizeof(DT)
+           : 0;
+  auto kern = sellcs_spmv_fused<VT, CT, CPT, false>;
+  if constexpr (sizeof(CT) * CPT <= 16) {
+    if (dots) kern = sellcs_spmv_fused<VT, CT, CPT, true>;
+  } else if (dots) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, a.threads, smem, stream>>>(
       static_cast<const VT*>(a.vals), a.cols, a.chunk_off, a.chunk_len,
       static_cast<const CT*>(a.x), static_cast<const CT*>(a.y_in),
       static_cast<const CT*>(a.z_in), static_cast<const CT*>(a.gamma),
       static_cast<CT*>(a.y), static_cast<CT*>(a.z),
-      static_cast<typename Dot<CT>::type*>(a.part), a.C, a.b, a.bw, a.tpr,
+      static_cast<DT*>(a.part), a.nchunks, a.C, a.b, a.bw, a.tpr,
       a.gamma_width, make_scalar<CT>(a.alpha, a.alpha_im),
       make_scalar<CT>(a.beta, a.beta_im), make_scalar<CT>(a.delta, a.delta_im),
       make_scalar<CT>(a.eta, a.eta_im), a.flags);
+  return 0;
 }
 
-// CPT is 1, or one 16-byte vector of the compute type.
+// CPT is 1, one 16-byte vector of the compute type, or (complex values
+// without dots) two.
 template <typename VT, typename CT>
 int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
   constexpr int kVec = 16 / (int)sizeof(CT);
-  if (cpt == 1)
-    launch<VT, CT, 1>(a, stream);
-  else if (cpt == kVec)
-    launch<VT, CT, kVec>(a, stream);
-  else
-    return (int)cudaErrorInvalidValue;
-  return 0;
+  if (cpt == 1) return launch<VT, CT, 1>(a, stream);
+  if constexpr (kVec > 1) {
+    if (cpt == kVec) return launch<VT, CT, kVec>(a, stream);
+  }
+  if constexpr (IsComplex<CT>::value) {
+    if (cpt == 2 * kVec) return launch<VT, CT, 2 * kVec>(a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

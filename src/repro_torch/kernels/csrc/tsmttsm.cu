@@ -21,47 +21,58 @@
 //   Here blocks run in parallel: block `blk` reduces the row range
 //   [blk * rows_per_block, ...) into an (m, k) partial (and its Kahan
 //   compensation) in a scratch buffer, and a second kernel sums the
-//   partials over the blocks in block order.  No atomics, so the result
-//   depends only on the shapes: a chunked solve equals a monolithic one.
+//   partials.  No atomics, so the result depends only on the shapes: a
+//   chunked solve equals a monolithic one.
 // * The bytes in flight live in shared memory, not in registers.  A tile
 //   of R consecutive rows of V is one contiguous run of R * m values, and
-//   likewise for W, so thread 0 streams both into a ring of kStages stages
+//   likewise for W, so thread 0 streams both into a ring of three stages
 //   with 1-D bulk copies (cp.async.bulk, completion on an mbarrier per
 //   stage) while the block computes on the stage before.  Where a tile's
 //   base address or size is not a multiple of 16 bytes (a view with an
 //   odd offset, odd m or k in a narrow type, the ragged last tile), the
 //   threads fill that stage with plain loads instead.  The wrapper picks R
-//   (kernels/tsmttsm.py:stage_rows) so that a stage holds at most 32 KB:
-//   two stages, 64 KB, are in flight while a block computes on a third,
-//   and two blocks share an SM where the registers allow (the Kahan
-//   float64 instance needs 146 a thread, so there one block fills an SM's
-//   register file; deeper rings measured no faster on the H100).
-// * Register blocking: a thread owns a TM x TN tile of the result and
-//   reads TM values of a V row and TN of the W row from shared memory (as
-//   broadcasts, vectorised when m and k are multiples of 4), so each
-//   loaded value feeds TN (or TM) products.  The G = ceil(m/TM) *
-//   ceil(k/TN) tiles of one row are spread over G neighbouring threads;
-//   the block's L = 256 / G "row lanes" take the rows of a stage with
-//   stride L.
+//   (kernels/tsmttsm.py:stage_rows) so that a stage holds at most 32 KB
+//   (16 KB for complex128): two stages are in flight while a block
+//   computes on a third (deeper rings measured no faster on the H100).
+// * Register blocking: a thread owns a TM x TN tile of the result (Tile
+//   below) and reads TM values of a V row and TN of the W row from shared
+//   memory (as broadcasts, vectorised when a real m and k are multiples
+//   of 4), so each loaded value feeds TN (or TM) products.  The G =
+//   ceil(m/TM) * ceil(k/TN) tiles of one row are spread over G
+//   neighbouring threads; the block's L = 256 / G "row lanes" take the
+//   rows of a stage with stride L.  A row of more than 256 tiles (complex
+//   values at m * k > 2048) is split over grid.y: each block of a slab is
+//   one lane over 256 of its tiles, reading the whole rows.
 // * Kahan (kahan=True): each lane sums groups of KG = 8 of its rows plainly
 //   and adds each group's sum with compensation, as the TPU kernel does
-//   with its 8-row micro-slabs; the lanes, and then the blocks, are
-//   combined with compensation too.  Without Kahan the same groups are
-//   added plainly.  A group may straddle two stages: its partial sum stays
-//   in registers.  The order of every addition is that of the row
-//   partition alone (kernels/tsmttsm.py:summation_depth), not of R.
+//   with its 8-row micro-slabs; the lanes, the blocks and the runs of
+//   blocks below are combined with compensation too.  Without Kahan the
+//   same groups are added plainly.  A group may straddle two stages: its
+//   partial sum stays in registers.  The order of every addition is that
+//   of the row partition alone (kernels/tsmttsm.py:summation_depth), not
+//   of R.
+// * The second kernel gives each result entry a warp: lane l sums the l-th
+//   of 32 runs of consecutive blocks' partials in block order, and the
+//   runs are then added in run order.  One thread an entry summing all
+//   ~527 partials in turn took 0.03-0.07 ms, a tenth of a call.
 // * The row count n and the tile edges need no padding: rows past n and
 //   result indices past m or k load zeros and store nothing.
 // * The partition (rows_per_block, number of blocks) is chosen by the
-//   wrapper from n, m and k alone, not from the card, so the summation
-//   order is the same on every card.
-// * Complex values (Complex<R> of dtypes.cuh) take the same path: the
-//   stages hold them as stored, a thread conjugates its TM values of V
-//   as it reads them (conj), each product is four fused multiply-adds,
-//   and Kahan compensates the real and the imaginary parts separately
-//   (its additions are those of each part).  A complex128 thread's three
-//   4 x 4 tiles (sum, compensation, group) take 192 registers, so its
-//   Kahan instances spill a little (the build log says how much).
+//   wrapper from n, m, k and the tile alone, not from the card, so the
+//   summation order is the same on every card.
+// * Complex values (Complex<R> of dtypes.cuh): the stages hold them as
+//   stored, a thread conjugates its TM values of V as it reads them
+//   (conj), each product is four fused multiply-adds, and Kahan
+//   compensates the real and the imaginary parts separately (its
+//   additions are those of each part).  A 4 x 4 tile of 16-byte values is
+//   192 registers for the sum, compensation and group tiles: the Kahan
+//   instance spilled and one block filled an SM.  Complex values take a
+//   4 x 2 tile, two blocks an SM; complex128 keeps its compensation tile
+//   (touched once every KG rows) in shared memory, so that its sum and
+//   group tiles and the operands fit 128 registers.  No instance spills
+//   (chip_smoke.py's build phase holds every instance to that).  A 2 x 2
+//   tile (three tiles in registers) read twice the operand bytes from
+//   shared memory a row and was slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,10 +82,42 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTM = 4;
-constexpr int kTN = 4;
+constexpr int kMaxDim = 64;  // kernels/tsmttsm.py:MAX_DIM
 constexpr int kKG = 8;      // rows per plainly summed group
 constexpr int kStages = 3;  // shared-memory ring
+constexpr int kFinishWarps = 4;  // result entries of a finishing block
+constexpr int kFinishChunk = 8;  // partials a lane has in flight
+
+// A thread's tile of the result (M entries of V's row by N of W's), the
+// blocks an SM should hold, and whether the Kahan compensation tile lives
+// in shared memory (kernels/tsmttsm.py:
+// thread_tile and stage_bytes):
+// * real values: 4 x 4, one block where the registers ask for it;
+// * complex128: 4 x 2, two blocks an SM: its sum and group tiles and the
+//   operands take the 128 registers that allows, so the compensation
+//   tile, touched once every kKG rows, lives in shared memory,
+//   thread-minor; 16 KB stages keep two blocks' rings and tiles in one
+//   SM's shared memory;
+// * complex64: 4 x 2, whose three tiles fit two blocks an SM.
+template <typename T> struct Tile {
+  static constexpr int M = 4, N = 4, kMinBlocks = 1;
+  static constexpr bool kSharedComp = false;
+};
+template <> struct Tile<Complex<double>> {
+  static constexpr int M = 4, N = 2, kMinBlocks = 2;
+  static constexpr bool kSharedComp = true;
+};
+template <> struct Tile<Complex<float>> {
+  static constexpr int M = 4, N = 2, kMinBlocks = 2;
+  static constexpr bool kSharedComp = false;
+};
+
+// Tiles of one row's (m, k) result.
+template <typename T>
+__host__ __device__ inline int tiles_of(int m, int k) {
+  return ((m + Tile<T>::M - 1) / Tile<T>::M) *
+         ((k + Tile<T>::N - 1) / Tile<T>::N);
+}
 
 // Adds t to the running sum s with compensation c (the sum is s - c), as
 // the TPU kernel's body does: y = t - c; u = s + y; c = (u - s) - y; s = u.
@@ -159,37 +202,51 @@ __device__ __forceinline__ void load4(const __half* p, A* out) {
   const float2 b = __half22float2(q[1]);
   out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
 }
-template <typename A, typename R>
-__device__ __forceinline__ void load4(const Complex<R>* p, A* out) {
-  out[0] = p[0]; out[1] = p[1]; out[2] = p[2]; out[3] = p[3];
+// N consecutive stored values in the accumulation type: four real ones as
+// one or two vectors, complex ones (8 or 16 bytes each) one by one.
+template <int N, typename A, typename T>
+__device__ __forceinline__ void load_run(const T* p, A* out) {
+  if constexpr (N == 4 && !IsComplex<T>::value) {
+    load4<A>(p, out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = load_as<A>(p[i]);
+  }
 }
 
 // Pass 1: part[blk] = sum over the block's rows of V[r]^T W[r] (V[r]^H
 // with conj; plus its compensation comp[blk] when KAHAN).  VEC: m and k
-// are multiples of 4.
+// are multiples of the tile's edges.
 // `bulk` says the operands' base addresses and the block and stage sizes
 // allow 16-byte bulk copies; each tile checks its own size too.
+// Where a row has more tiles than the block has threads (complex values
+// at m * k > 2048), the block is one row lane and grid.y splits the tiles
+// into slabs of kThreads, each reading the whole rows.
 template <typename T, bool KAHAN, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, Tile<T>::kMinBlocks)
 tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
                 typename Acc<T>::type* __restrict__ part,
                 typename Acc<T>::type* __restrict__ comp, long long n, int m,
                 int k, long long rows_per_block, int tile_rows,
-                int w_offset, int stage_stride, int bulk, int conj) {
+                int w_offset, int stage_stride, int comp_offset, int bulk,
+                int conj) {
   using A = typename Acc<T>::type;
+  constexpr int TM = Tile<T>::M;
+  constexpr int TN = Tile<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[kStages];
   const int mk = m * k;
 
-  const int kt = (k + kTN - 1) / kTN;
-  const int G = ((m + kTM - 1) / kTM) * kt;
-  const int L = kThreads / G;
+  const int kt = (k + TN - 1) / TN;
+  const int G = tiles_of<T>(m, k);
+  const bool slabs = G > kThreads;
+  const int L = slabs ? 1 : kThreads / G;
   const int t = threadIdx.x;
-  const int lane = t / G;
-  const int g = t % G;
-  const int i0 = (g / kt) * kTM;
-  const int j0 = (g % kt) * kTN;
-  const bool worker = lane < L;
+  const int lane = slabs ? 0 : t / G;
+  const int g = slabs ? blockIdx.y * kThreads + t : t % G;
+  const int i0 = (g / kt) * TM;
+  const int j0 = (g % kt) * TN;
+  const bool worker = lane < L && g < G;
 
   const long long r_begin = (long long)blockIdx.x * rows_per_block;
   long long r_end = r_begin + rows_per_block;
@@ -233,18 +290,34 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
       if (by_bulk(tile)) fetch(tile);
   }
 
-  A s[kTM][kTN], c[kTM][kTN], p[kTM][kTN];
+  // the compensation tile: registers, or (kSharedComp) shared memory past
+  // the ring and the lane combine's buffer, entry e of thread t at
+  // e * kThreads + t
+  constexpr bool CS = KAHAN && Tile<T>::kSharedComp;
+  A s[TM][TN], c[TM][TN], p[TM][TN];
+  A* c_sh = reinterpret_cast<A*>(smem + comp_offset);
+  auto comp_of = [&](int a, int b) -> A {
+    if constexpr (CS)
+      return c_sh[(a * TN + b) * kThreads + t];
+    else
+      return c[a][b];
+  };
 #pragma unroll
-  for (int a = 0; a < kTM; ++a)
+  for (int a = 0; a < TM; ++a)
 #pragma unroll
-    for (int b = 0; b < kTN; ++b) s[a][b] = c[a][b] = p[a][b] = A(0);
+    for (int b = 0; b < TN; ++b) {
+      s[a][b] = p[a][b] = c[a][b] = A(0);
+      if constexpr (CS) c_sh[(a * TN + b) * kThreads + t] = A(0);
+    }
 
   auto fold = [&]() {
 #pragma unroll
-    for (int a = 0; a < kTM; ++a)
+    for (int a = 0; a < TM; ++a)
 #pragma unroll
-      for (int b = 0; b < kTN; ++b) {
-        if (KAHAN)
+      for (int b = 0; b < TN; ++b) {
+        if constexpr (CS)
+          kahan_add(s[a][b], c_sh[(a * TN + b) * kThreads + t], p[a][b]);
+        else if (KAHAN)
           kahan_add(s[a][b], c[a][b], p[a][b]);
         else
           s[a][b] += p[a][b];
@@ -279,26 +352,26 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
           if (q >= run) break;
           const int lr = lane + (q0 + q) * L;
           if (lr < rows) {
-            A va[kTM], wb[kTN];
+            A va[TM], wb[TN];
             if (VEC) {
-              load4<A>(sv + lr * m + i0, va);
-              load4<A>(sw + lr * k + j0, wb);
+              load_run<TM>(sv + lr * m + i0, va);
+              load_run<TN>(sw + lr * k + j0, wb);
             } else {
 #pragma unroll
-              for (int a = 0; a < kTM; ++a)
+              for (int a = 0; a < TM; ++a)
                 va[a] = (i0 + a < m) ? load_as<A>(sv[lr * m + i0 + a]) : A(0);
 #pragma unroll
-              for (int b = 0; b < kTN; ++b)
+              for (int b = 0; b < TN; ++b)
                 wb[b] = (j0 + b < k) ? load_as<A>(sw[lr * k + j0 + b]) : A(0);
             }
             if (IsComplex<A>::value && conj) {
 #pragma unroll
-              for (int a = 0; a < kTM; ++a) va[a] = conj_of(va[a]);
+              for (int a = 0; a < TM; ++a) va[a] = conj_of(va[a]);
             }
 #pragma unroll
-            for (int a = 0; a < kTM; ++a)
+            for (int a = 0; a < TM; ++a)
 #pragma unroll
-              for (int b = 0; b < kTN; ++b)
+              for (int b = 0; b < TN; ++b)
                 p[a][b] = mul_add(va[a], wb[b], p[a][b]);
             hit = true;
           }
@@ -320,6 +393,31 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
   }
   if (worker && hit) fold();
 
+  if (slabs) {
+    // one lane: each thread's entries are the block's, combined as the
+    // lane loop below combines one lane
+    if (worker) {
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b)
+          if (i0 + a < m && j0 + b < k) {
+            const long long o = (long long)blockIdx.x * mk + (i0 + a) * k +
+                                j0 + b;
+            A S = A(0), C = A(0);
+            if (KAHAN) {
+              kahan_add(S, C, s[a][b]);
+              kahan_add(S, C, -comp_of(a, b));
+              comp[o] = C;
+            } else {
+              S += s[a][b];
+            }
+            part[o] = S;
+          }
+    }
+    return;
+  }
+
   // combine the lanes in lane order: first the sums, then (Kahan) the
   // compensations, through the (now idle) ring
   A* sh_s = reinterpret_cast<A*>(smem);
@@ -327,12 +425,12 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
   for (int round = 0; round < nrounds; ++round) {
     if (worker) {
 #pragma unroll
-      for (int a = 0; a < kTM; ++a)
+      for (int a = 0; a < TM; ++a)
 #pragma unroll
-        for (int b = 0; b < kTN; ++b)
+        for (int b = 0; b < TN; ++b)
           if (i0 + a < m && j0 + b < k)
             sh_s[lane * mk + (i0 + a) * k + j0 + b] =
-                round == 0 ? s[a][b] : c[a][b];
+                round == 0 ? s[a][b] : comp_of(a, b);
     }
     __syncthreads();
     for (int o = t; o < mk; o += kThreads) {
@@ -359,30 +457,47 @@ tsmttsm_partial(const T* __restrict__ V, const T* __restrict__ W,
   }
 }
 
-// Pass 2: one thread per result entry sums the block partials in block
-// order and applies alpha, beta and the output type.  The partials are
-// read kChunk at a time ahead of the (sequential) sums.
+// One value of every lane of a warp from lane `src`.
+__device__ __forceinline__ double lane_value(double v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ float lane_value(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+template <typename R>
+__device__ __forceinline__ Complex<R> lane_value(Complex<R> v, int src) {
+  return Complex<R>(lane_value(v.re, src), lane_value(v.im, src));
+}
+
+// Pass 2: one warp per result entry.  The block partials are cut into 32
+// runs of ceil(nblocks / 32) consecutive blocks; lane l sums run l in
+// block order (kFinishChunk partials in flight ahead of its sums), and
+// the runs' sums are then added in run order
+// (kernels/tsmttsm.py:summation_depth).  Lane 0 applies alpha, beta and
+// the output type.
 template <typename T, bool KAHAN, typename A = typename Acc<T>::type>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kFinishWarps)
 tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
                const typename Acc<T>::type* __restrict__ comp, int nblocks,
                int mk, const typename Acc<T>::type* __restrict__ x_in,
                T* __restrict__ x_out, A alpha, A beta, int has_x) {
-  constexpr int kChunk = 16;
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= mk) return;
+  const int o = blockIdx.x * kFinishWarps + threadIdx.x / 32;
+  const int l = threadIdx.x & 31;
+  if (o >= mk) return;  // the whole warp
+  const int run = (nblocks + 31) / 32;
+  const int b_end = min(nblocks, (l + 1) * run);
   A S = A(0), C = A(0);
-  for (int b0 = 0; b0 < nblocks; b0 += kChunk) {
-    A pv[kChunk], cv[kChunk];
+  for (int b0 = l * run; b0 < b_end; b0 += kFinishChunk) {
+    A pv[kFinishChunk], cv[kFinishChunk];
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      const bool in = b0 + u < nblocks;
+    for (int u = 0; u < kFinishChunk; ++u) {
+      const bool in = b0 + u < b_end;
       pv[u] = in ? part[(long long)(b0 + u) * mk + o] : A(0);
       cv[u] = (KAHAN && in) ? comp[(long long)(b0 + u) * mk + o] : A(0);
     }
 #pragma unroll
-    for (int u = 0; u < kChunk; ++u) {
-      if (b0 + u >= nblocks) break;
+    for (int u = 0; u < kFinishChunk; ++u) {
+      if (b0 + u >= b_end) break;
       if (KAHAN) {
         kahan_add(S, C, pv[u]);
         kahan_add(S, C, -cv[u]);
@@ -391,9 +506,22 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
       }
     }
   }
-  A res = alpha * S;
-  if (has_x) res += beta * x_in[o];
-  x_out[o] = store_as<T>(res);
+  A tot = A(0), tc = A(0);
+  for (int j = 0; j < 32 && j * run < nblocks; ++j) {
+    const A sj = lane_value(S, j);
+    if (KAHAN) {
+      const A cj = lane_value(C, j);
+      kahan_add(tot, tc, sj);
+      kahan_add(tot, tc, -cj);
+    } else {
+      tot += sj;
+    }
+  }
+  if (l == 0) {
+    A res = alpha * tot;
+    if (has_x) res += beta * x_in[o];
+    x_out[o] = store_as<T>(res);
+  }
 }
 
 struct Args {
@@ -418,27 +546,32 @@ int launch(const Args& a, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const int mk = a.m * a.k;
   if (a.nblocks > 0) {
-    const int G = ((a.m + kTM - 1) / kTM) * ((a.k + kTN - 1) / kTN);
-    const int L = kThreads / G;
+    const int G = tiles_of<T>(a.m, a.k);
+    const int L = G > kThreads ? 1 : kThreads / G;
     const int w_offset = round16((long long)a.tile_rows * a.m * sizeof(T));
     const int stride =
         w_offset + round16((long long)a.tile_rows * a.k * sizeof(T));
     int smem = kStages * stride;
-    const int combine = L * mk * (int)sizeof(A);
+    const int combine = G > kThreads ? 0 : L * mk * (int)sizeof(A);
     if (combine > smem) smem = combine;
+    const int comp_offset = round16(smem);
+    if (KAHAN && Tile<T>::kSharedComp)
+      smem = comp_offset + Tile<T>::M * Tile<T>::N * kThreads * (int)sizeof(A);
     auto kern = tsmttsm_partial<T, KAHAN, VEC>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<a.nblocks, kThreads, smem, stream>>>(
+    const dim3 grid(a.nblocks, (G + kThreads - 1) / kThreads);
+    kern<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(a.V), static_cast<const T*>(a.W),
         static_cast<A*>(a.part), static_cast<A*>(a.comp), a.n, a.m, a.k,
-        a.rows_per_block, a.tile_rows, w_offset, stride, a.bulk, a.conj);
+        a.rows_per_block, a.tile_rows, w_offset, stride, comp_offset, a.bulk,
+        a.conj);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  tsmttsm_finish<T, KAHAN><<<(mk + kThreads - 1) / kThreads, kThreads, 0,
-                             stream>>>(
+  tsmttsm_finish<T, KAHAN><<<(mk + kFinishWarps - 1) / kFinishWarps,
+                             32 * kFinishWarps, 0, stream>>>(
       static_cast<const A*>(a.part), static_cast<const A*>(a.comp),
       a.nblocks, mk, static_cast<const A*>(a.x_in), static_cast<T*>(a.x_out),
       make_scalar<A>(a.alpha, a.alpha_im), make_scalar<A>(a.beta, a.beta_im),
@@ -448,7 +581,11 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T>
 int launch_t(int kahan, const Args& a, cudaStream_t s) {
-  const bool vec = a.m % 4 == 0 && a.k % 4 == 0;
+  // a stage holds whole sweeps of the row lanes
+  const int G = tiles_of<T>(a.m, a.k);
+  if (a.nblocks > 0 && a.tile_rows % (G > kThreads ? 1 : kThreads / G))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = a.m % Tile<T>::M == 0 && a.k % Tile<T>::N == 0;
   if (kahan)
     return vec ? launch<T, true, true>(a, s) : launch<T, true, false>(a, s);
   return vec ? launch<T, false, true>(a, s) : launch<T, false, false>(a, s);
@@ -474,10 +611,8 @@ extern "C" int tsmttsm_launch(int dtype, int kahan, int conj, const void* V,
                               void* x_out, double alpha, double beta,
                               double alpha_im, double beta_im, int has_x,
                               void* stream) {
-  const int G = ((m + kTM - 1) / kTM) * ((k + kTN - 1) / kTN);
-  if (m < 1 || k < 1 || n < 0 || nblocks < 0 || G > kThreads ||
-      (nblocks > 0 &&
-       (rows_per_block < 1 || tile_rows < 1 || tile_rows % (kThreads / G))))
+  if (m < 1 || k < 1 || m > kMaxDim || k > kMaxDim || n < 0 || nblocks < 0 ||
+      (nblocks > 0 && (rows_per_block < 1 || tile_rows < 1)))
     return (int)cudaErrorInvalidValue;
   const Args a{V,  W,        part,  comp,  n,    m,     k,
                rows_per_block, nblocks, tile_rows, bulk, x_in, x_out,

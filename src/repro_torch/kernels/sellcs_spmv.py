@@ -4,13 +4,13 @@ The CUDA port of ``repro/kernels/sellcs_spmv.py:sellcs_spmv_pallas`` (B1).
 One thread block owns one C-row chunk, and :func:`launch_geometry` spreads
 each row over a few threads that own neighbouring columns as 16-byte
 vectors; the kernel computes ``y = alpha (A - gamma I) x + beta y_in``,
-the chained ``z = delta z_in + eta y`` and per-chunk float64 partial dots
-in one sweep (see the note at the top of the CUDA source), for real and
-for complex64/complex128 values.  This wrapper validates the operands,
-picks the launch geometry, allocates the outputs, launches on the current
-stream without synchronising, and sums the per-chunk dots over chunks in
-float64 (complex128 for complex values) as the JAX wrapper does outside
-its ``pallas_call``.
+the chained ``z = delta z_in + eta y`` and float64 partial dots of each
+block of chunks in one sweep (see the note at the top of the CUDA
+source), for real and for complex64/complex128 values.  This wrapper
+validates the operands, picks the launch geometry, allocates the outputs,
+launches on the current stream without synchronising, and sums the
+blocks' dots (:func:`dot_parts`) in float64 (complex128 for complex
+values) as the JAX wrapper does outside its ``pallas_call``.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; the plain version is ``repro_torch.kernels.ref.sellcs_spmv_ref``.
@@ -27,7 +27,7 @@ from repro_torch.core.spmv import dot_acc_dtype
 from repro_torch.kernels import _build
 
 __all__ = ["sellcs_spmv_cuda", "check_operand", "launch_geometry",
-           "Geometry", "MAX_C", "MAX_THREADS"]
+           "dot_parts", "Geometry", "MAX_C", "MAX_THREADS"]
 
 #: largest chunk height
 MAX_C = 256
@@ -36,6 +36,11 @@ MAX_C = 256
 MAX_THREADS = 512
 #: columns of one grid.y slice at most
 _MAX_BW = 16
+#: bytes of columns a thread owns for complex values, where b allows
+COMPLEX_THREAD_BYTES = 32
+#: chunks a block walks when it sums dots (``kDotChunks`` of the CUDA
+#: source)
+DOT_CHUNKS = 4
 
 _STORE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                 torch.float16: 3, torch.complex128: 4, torch.complex64: 5}
@@ -56,26 +61,43 @@ class Geometry(NamedTuple):
 
 
 def launch_geometry(b: int, C: int, compute_dtype: torch.dtype,
-                    vectors: bool = True) -> Geometry:
+                    vectors: bool = True, dots: bool = False) -> Geometry:
     """How the kernel spreads a chunk of ``C`` rows and ``b`` columns.
 
     A slice of ``bw`` columns (the smallest power of two >= ``b``, at most
     16) is split over ``tpr`` threads a row, each owning ``cpt``
-    neighbouring columns: one 16-byte vector (2 float64, 4 float32 or 2
-    complex64 values) when ``b`` is a multiple of it and ``vectors``
-    allows (the operands lie on 16-byte boundaries), else one column.  So
-    b=16 in float64 is 8 threads a row, b=4 two, b=1 one; a complex128
-    value is itself one vector, one column a thread.  A block holds the
-    chunk's ``C * tpr`` threads, rounded up to whole warps and capped at
-    :data:`MAX_THREADS` (then the chunk is walked in passes)."""
+    neighbouring columns: one 16-byte vector (2 float64 or 4 float32
+    values) when ``b`` is a multiple of it and ``vectors`` allows (the
+    operands lie on 16-byte boundaries), else one column.  Complex values
+    without ``dots`` take :data:`COMPLEX_THREAD_BYTES` of columns where
+    ``b`` allows (2 complex128 or 4 complex64 values, two vectors), else,
+    as with dots, 16 bytes (2 complex64 values; a complex128 value is
+    itself one vector), else one column.  So b=16 in float64 is 8 threads
+    a row, b=4 two, b=1 one; complex128 b=16 is 8 threads without dots
+    and 16 with them.  A block holds the chunk's ``C * tpr`` threads,
+    rounded up to whole warps and capped at :data:`MAX_THREADS` (then the
+    chunk is walked in passes)."""
     bw = 1
     while bw < min(b, _MAX_BW):
         bw *= 2
-    vec = 16 // compute_dtype.itemsize
-    cpt = vec if vectors and b % vec == 0 and bw >= vec else 1
+    cpt = 1
+    if vectors:
+        widths = ((COMPLEX_THREAD_BYTES, 16)
+                  if compute_dtype.is_complex and not dots else (16,))
+        for nbytes in widths:
+            v = max(1, nbytes // compute_dtype.itemsize)
+            if b % v == 0 and bw >= v:
+                cpt = v
+                break
     tpr = bw // cpt
     threads = min(-(-C * tpr // 32) * 32, MAX_THREADS)
     return Geometry(bw, cpt, tpr, threads, -(-b // bw))
+
+
+def dot_parts(nchunks: int) -> int:
+    """Rows of dot partials the kernel writes: one a block of
+    :data:`DOT_CHUNKS` chunks."""
+    return -(-nchunks // DOT_CHUNKS)
 
 
 def _entry():
@@ -205,9 +227,10 @@ def sellcs_spmv_cuda(
     z = torch.empty((n_pad, b), dtype=ct, device=device) if chain else None
     geo = launch_geometry(b, C, ct, all(
         t.data_ptr() % 16 == 0 for t in (x, y_in, z_in if chain else None)
-        if t is not None))
-    part = (torch.empty((nchunks, 3, b), dtype=dot_acc_dtype(ct),
-                        device=device) if any_dot else None)
+        if t is not None), dots=any_dot)
+    part = (torch.empty((dot_parts(nchunks), 3, b),
+                        dtype=dot_acc_dtype(ct), device=device)
+            if any_dot else None)
     coefs = [coefficient("sellcs_spmv", name, v, ct) for name, v in
              (("alpha", alpha), ("beta", beta),
               ("delta", 0.0 if delta is None else delta),

@@ -29,16 +29,20 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sellcs_spmv import check_operand, coefficient
 
 __all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
-           "stage_rows", "bulk_aligned", "DTYPE_CODES"]
+           "stage_rows", "bulk_aligned", "thread_tile", "block_runs",
+           "stage_bytes",
+           "DTYPE_CODES"]
 
-#: largest m and k the kernels take (a thread tile of 4 x 4 results, at
-#: most 256 tiles)
+#: largest m and k the kernels take
 MAX_DIM = 64
 #: the number of blocks the rows are spread over, at most (a constant, not
 #: the card's SM count, so the summation order is the same on every card)
 MAX_BLOCKS = 528
-_TILE, _THREADS, _GROUP = 4, 256, 8
-#: bytes of one shared-memory stage, at most (the ring has three)
+_THREADS, _GROUP = 256, 8
+#: runs of block partials the finishing kernel sums apart (a warp's lanes)
+_RUNS = 32
+#: bytes of one shared-memory stage, at most (the ring has three; see
+#: :func:`stage_bytes`)
 STAGE_BYTES = 32768
 #: the most rows of one lane a stage holds
 _MAX_LANE_ROWS = 64
@@ -58,45 +62,79 @@ def _entry():
     return fn
 
 
-def _lanes(m: int, k: int) -> int:
-    """Row lanes of a block: 256 threads over the ``ceil(m/4) * ceil(k/4)``
-    result tiles of one row."""
-    return _THREADS // (-(-m // _TILE) * -(-k // _TILE))
+def thread_tile(dtype: Optional[torch.dtype] = None):
+    """``(rows of V, columns of W)`` of one thread's tile of the result
+    (``csrc/tsmttsm.cu``'s ``Tile``): 4 x 4 for real values, 4 x 2 for
+    complex ones."""
+    return (4, 2) if dtype is not None and dtype.is_complex else (4, 4)
 
 
-def row_partition(n: int, m: int, k: int):
+def stage_bytes(dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes of one shared-memory stage at most: :data:`STAGE_BYTES`, half
+    that for complex128 (two blocks an SM, each with its ring and its
+    compensation tile)."""
+    return STAGE_BYTES // 2 if dtype == torch.complex128 else STAGE_BYTES
+
+
+def _tiles(m: int, k: int, dtype) -> int:
+    tm, tn = thread_tile(dtype)
+    return -(-m // tm) * -(-k // tn)
+
+
+def _lanes(m: int, k: int, dtype=None) -> int:
+    """Row lanes of a block: 256 threads over the tiles of one row, or one
+    lane where a row has more tiles than that (complex values at ``m * k
+    > 2048``; the kernel then splits the tiles over grid.y, slabs of 256
+    each reading the whole rows)."""
+    return max(1, _THREADS // _tiles(m, k, dtype))
+
+
+def row_partition(n: int, m: int, k: int, dtype=None):
     """``(rows_per_block, nblocks)`` for ``n`` rows: at most
     :data:`MAX_BLOCKS` blocks, each a whole number of the block's row-lane
-    sweeps (lanes x 8-row groups).  A function of ``(n, m, k)`` alone."""
+    sweeps (lanes x 8-row groups).  A function of ``(n, m, k)`` and of the
+    thread tile of ``dtype`` (None: a real dtype) alone."""
     if n == 0:
         return 0, 0
-    sweep = _lanes(m, k) * _GROUP
+    sweep = _lanes(m, k, dtype) * _GROUP
     rows = -(-n // MAX_BLOCKS)
     rows = -(-rows // sweep) * sweep
     return rows, -(-n // rows)
 
 
-def summation_depth(n: int, m: int, k: int) -> int:
+def block_runs(nblocks: int):
+    """``(run, runs)``: the finishing kernel sums the block partials in
+    runs of ``run`` consecutive blocks, one run a lane of a warp, and then
+    the ``runs`` runs in order."""
+    if nblocks == 0:
+        return 0, 0
+    run = -(-nblocks // _RUNS)
+    return run, -(-nblocks // run)
+
+
+def summation_depth(n: int, m: int, k: int, dtype=None) -> int:
     """The longest chain of additions any product passes through in the
     kernel: its lane's rows of one block (a lane takes every L-th row of
     the block, in 8-row groups summed plainly and then added in order;
     the shared-memory stages do not change that order), then the lanes
-    in lane order, then the blocks in block order (the ``depth`` of the
-    standard bound ``depth * u * sum |terms|``)."""
-    rows, nblocks = row_partition(n, m, k)
-    lanes = _lanes(m, k)
-    return -(-rows // lanes) + lanes + nblocks
+    in lane order, then a run of blocks in block order, then the runs in
+    run order (the ``depth`` of the standard bound ``depth * u * sum
+    |terms|``)."""
+    rows, nblocks = row_partition(n, m, k, dtype)
+    lanes = _lanes(m, k, dtype)
+    return -(-rows // lanes) + lanes + sum(block_runs(nblocks))
 
 
-def stage_rows(m: int, k: int, itemsize: int) -> int:
+def stage_rows(m: int, k: int, itemsize: int, dtype=None) -> int:
     """Rows of V and W in one shared-memory stage: the row lanes times
     the largest power of two (at most 64) of rows per lane that keeps a
-    stage within :data:`STAGE_BYTES`.  It sets only how the rows are
+    stage within :func:`stage_bytes`.  It sets only how the rows are
     fetched, never the order in which they are summed."""
-    lanes = _lanes(m, k)
+    lanes = _lanes(m, k, dtype)
     row_bytes = (m + k) * itemsize
+    limit = stage_bytes(dtype)
     q = 1
-    while q < _MAX_LANE_ROWS and 2 * q * lanes * row_bytes <= STAGE_BYTES:
+    while q < _MAX_LANE_ROWS and 2 * q * lanes * row_bytes <= limit:
         q *= 2
     return lanes * q
 
@@ -155,8 +193,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
         if X.is_complex() and not V.is_complex():
             raise TypeError(f"{fn}: X must be real for real V, got {X.dtype}")
         x_in = X.resolve_conj().to(acc).contiguous()
-    rows, nblocks = row_partition(n, m, k)
-    tile_rows = stage_rows(m, k, V.element_size())
+    rows, nblocks = row_partition(n, m, k, V.dtype)
+    tile_rows = stage_rows(m, k, V.element_size(), V.dtype)
     bulk = bulk_aligned(V, W, rows, tile_rows)
     part = torch.empty((nblocks, m, k), dtype=acc, device=device)
     comp = torch.empty_like(part) if kahan else None

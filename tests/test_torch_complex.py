@@ -471,3 +471,13 @@ def test_chip_smoke_complex_phases_rehearse_on_cpu(monkeypatch):
     cx = chip_smoke.phase_complex_solves(fw, {"iters": 0}, 0, "cpu")
     assert cx["A"].dtype == torch.complex128
     assert cx["cg complex64"]["iters"] < cx["cg complex128"]["iters"]
+    # the timing phase's rows (B1 and B2 in both complex types) with each
+    # call run once in place of the card's timer
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "PRECOND_NX", 64)
+    rows = chip_smoke.phase_complex_timing(cx, "cpu")
+    for ct in (torch.complex128, torch.complex64):
+        for b in (1, 4, 8, 16):
+            assert rows[("sellcs_spmv", ct, b)]["bound_ms"] > 0
+        for kahan in (True, False):
+            assert rows[("tsmttsm", ct, kahan)]["library_ms"] == 1.0

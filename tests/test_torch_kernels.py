@@ -22,16 +22,20 @@ import torch
 from repro_torch.core import SpmvOpts, execution, from_coo
 from repro_torch.kernels.ops import sellcs_spmv, tsmm, tsmttsm
 from repro_torch.kernels.ref import sellcs_spmv_ref, tsmm_ref, tsmttsm_ref
-from repro_torch.kernels.sellcs_spmv import (MAX_C, MAX_THREADS,
+from repro_torch.kernels.sellcs_spmv import (DOT_CHUNKS, MAX_C,
+                                             MAX_THREADS, dot_parts,
                                              launch_geometry,
                                              sellcs_spmv_cuda)
 from repro_torch.kernels.tsmm import tsmm_cuda
 from repro_torch.kernels.tsmttsm import (MAX_BLOCKS, MAX_DIM, STAGE_BYTES,
-                                         bulk_aligned, row_partition,
-                                         stage_rows, summation_depth,
+                                         block_runs, bulk_aligned,
+                                         row_partition, stage_bytes,
+                                         stage_rows,
+                                         summation_depth, thread_tile,
                                          tsmttsm_cuda)
 from repro_torch.matrices import anisotropic_laplace2d, matpde
-from repro_torch.solvers import cg, cg_init, cg_step, make_operator
+from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,
+                                 make_operator)
 
 PAIRS = [(torch.float64, np.float64), (torch.float32, np.float32),
          (torch.bfloat16, np.float32), (torch.float16, np.float32),
@@ -135,7 +139,7 @@ CX_FLAGS = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("real_x", [False, True])
 @pytest.mark.parametrize("flag", list(CX_FLAGS))
-@pytest.mark.parametrize("b", [1, 2, 4, 16])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("np_ct", [np.complex128, np.complex64],
                          ids=["complex128", "complex64"])
 def test_complex_kernel_matches_plain_on_card(np_ct, b, flag, real_x):
@@ -178,7 +182,9 @@ def test_complex_kernel_matches_plain_on_card(np_ct, b, flag, real_x):
 @pytest.mark.parametrize("kahan", [False, True])
 @pytest.mark.parametrize("conj", [True, False])
 @pytest.mark.parametrize("n,m,k", [(37, 3, 8), (4109, 16, 16),
-                                   (4109, MAX_DIM, MAX_DIM)])
+                                   (4109, MAX_DIM, MAX_DIM),
+                                   (4109, MAX_DIM, 16), (4109, 5, MAX_DIM),
+                                   (37, MAX_DIM, 1)])
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
                          ids=["complex128", "complex64"])
 def test_complex_tsm_matches_plain_on_card(dtype, n, m, k, conj, kahan,
@@ -213,6 +219,65 @@ def test_complex_tsm_matches_plain_on_card(dtype, n, m, k, conj, kahan,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kahan", [False, True])
+@pytest.mark.parametrize("m,k", [(16, 16), (5, 16), (MAX_DIM, 3)])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
+                         ids=["complex128", "complex64"])
+def test_complex_tsmttsm_views_and_chunks_give_the_same_bits_on_card(
+        dtype, m, k, kahan):
+    """Complex B2 on views one value past their allocation (complex64:
+    off a 16-byte boundary, so the stages fill by plain loads) equals the
+    same values in fresh tensors to the bit, and so does every call: the
+    row partition alone fixes the order of the sums."""
+    need_card()
+    n = 262144 + 37
+    g = torch.Generator(device="cuda").manual_seed(m + 3 * k)
+    V, W = (torch.randn(n * w + 1, generator=g, device="cuda",
+                        dtype=torch.complex128).to(dtype)[1:].view(n, w)
+            for w in (m, k))
+    want = tsmttsm(V.clone(), W.clone(), kahan=kahan)
+    assert torch.equal(tsmttsm(V, W, kahan=kahan), want)
+    assert torch.equal(tsmttsm(V.clone(), W.clone(), kahan=kahan), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_ct", [np.complex128, np.complex64],
+                         ids=["complex128", "complex64"])
+def test_complex_block_cg_chunked_equals_monolithic_on_card(np_ct):
+    """Complex block CG (B1, B2, B3 on its path) in cg_step chunks equals
+    one monolithic solve bit for bit."""
+    need_card()
+    A = anisotropic_laplace2d_complex(np_ct)
+    op = make_operator(A)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b = torch.randn(A.nrows_pad, 16, generator=g, device="cuda",
+                    dtype=torch.complex128).to(A.dtype)
+    tol = 1e-10 if np_ct is np.complex128 else 1e-5
+    res = cg(op, b, tol=tol, maxiter=400, block=True)
+    st = cg_init(op, b, tol=tol, maxiter=400, block=True)
+    while st.it < st.maxiter and not bool(st.done.all()):
+        st = cg_step(op, st, 3)
+    ch = cg_finalize(st)
+    assert bool(res.converged.all())
+    assert ch.iters == res.iters and torch.equal(ch.x, res.x)
+
+
+def anisotropic_laplace2d_complex(np_ct, nx=48):
+    """anisotropic_laplace2d(nx) with U(1) phases on its off-diagonals
+    (Hermitian positive definite), on the card."""
+    r, c, v, n = anisotropic_laplace2d(nx, epsilon=0.1)
+    r, c = np.asarray(r), np.asarray(c)
+    up = r < c
+    theta = np.zeros(r.size)
+    theta[up] = np.random.default_rng(5).uniform(0, 2 * np.pi, int(up.sum()))
+    key = {(int(i), int(j)): t for i, j, t in zip(r[up], c[up], theta[up])}
+    lo = np.nonzero(r > c)[0]
+    theta[lo] = [-key[(int(c[i]), int(r[i]))] for i in lo]
+    return from_coo(r, c, np.asarray(v) * np.exp(1j * theta), (n, n), C=32,
+                    sigma=1, dtype=np_ct, device="cuda")
+
+
+@pytest.mark.gpu
 def test_kernel_rectangular_part_on_card():
     need_card()
     A = _matrix(n=200, ncols=75, C=32, sigma=64, dtype=np.float64,
@@ -229,35 +294,82 @@ def test_kernel_rectangular_part_on_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [8, 128, 256])
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("np_ct", [np.float64, np.float32])
+@pytest.mark.parametrize("np_ct", [np.float64, np.float32, np.complex128,
+                                   np.complex64])
 def test_kernel_passes_and_unaligned_operands_on_card(np_ct, aligned, C):
     """A chunk of C rows at b=16 takes C * tpr threads, walked in passes
     above 512; operands off a 16-byte boundary (views one value into a
-    buffer) take the one-column-a-thread path.  Every flag at once."""
+    buffer) take the one-column-a-thread path.  Every flag at once, with
+    complex coefficients for complex values."""
     need_card()
-    A = _matrix(n=5 * C + 3, C=C, sigma=4 * C, dtype=np_ct, device="cuda")
+    cx = np.dtype(np_ct).kind == "c"
+    n_rows = 5 * C + 3
+    A = (_complex_matrix(np_ct, n=n_rows, C=C, sigma=4 * C) if cx else
+         _matrix(n=n_rows, C=C, sigma=4 * C, dtype=np_ct, device="cuda"))
     ct, b, n = A.dtype, 16, A.nrows_pad
     g = torch.Generator(device="cuda").manual_seed(C)
     x, y, z = (torch.randn(n * b + 1, dtype=ct, device="cuda",
                            generator=g)[int(not aligned):][:n * b].view(n, b)
                for _ in range(3))
-    assert (x.data_ptr() % 16 == 0) == aligned
-    opts = SpmvOpts(alpha=1.1, beta=0.5, delta=0.3, eta=-0.8,
-                    gamma=torch.linspace(-1, 1, b, dtype=ct, device="cuda"),
-                    dot_yy=True, dot_xy=True, dot_xx=True)
+    # a complex128 value is 16 bytes: a view one value in stays aligned
+    assert (x.data_ptr() % 16 == 0) == (aligned or x.element_size() == 16)
+    unit = 1 - 0.4j if cx else 1.0
+    opts = SpmvOpts(alpha=1.1 * unit, beta=0.5, delta=0.3 * unit, eta=-0.8,
+                    gamma=torch.linspace(-1, 1, b, dtype=ct, device="cuda")
+                    * unit, dot_yy=True, dot_xy=True, dot_xx=True)
     got = sellcs_spmv(A, x, y, z, opts)
     want = sellcs_spmv_ref(A, x, y, z, opts)
-    vec_tol, dot_tol = (1e-12, 1e-12) if ct == torch.float64 else (1e-5, 1e-6)
-    assert rel_err(got[0], want[0]) <= vec_tol
-    assert rel_err(got[1], want[1]) <= vec_tol
-    assert rel_err(got[2], want[2]) <= dot_tol
+    err = complex_rel_err if cx else rel_err
+    vec_tol, dot_tol = ((1e-12, 1e-12)
+                        if ct in (torch.float64, torch.complex128)
+                        else (1e-5, 1e-6))
+    assert err(got[0], want[0]) <= vec_tol
+    assert err(got[1], want[1]) <= vec_tol
+    assert err(got[2], want[2]) <= dot_tol
 
 
 @pytest.mark.gpu
-def test_kernel_dots_are_deterministic_on_card():
+@pytest.mark.parametrize("flag", list(CX_FLAGS))
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("C", [128, 256])
+@pytest.mark.parametrize("np_ct", [np.complex128, np.complex64],
+                         ids=["complex128", "complex64"])
+def test_complex_kernel_tall_chunks_match_plain_on_card(np_ct, C, b, flag):
+    """Chunks of 128 and 256 rows with complex values, each fusion flag
+    alone: more rows than a block's threads, walked in passes, and with
+    dots the shared memory a block needs above 48 KB (complex64 at 512
+    threads)."""
     need_card()
-    A = _matrix(n=5000, C=32, sigma=256, dtype=np.float32, device="cuda")
-    x = torch.randn(A.nrows_pad, 4, device="cuda")
+    kw, with_y, with_z = CX_FLAGS[flag]
+    A = _complex_matrix(np_ct, n=5 * C + 3, C=C, sigma=4 * C)
+    ct = A.dtype
+    rt = torch.float64 if ct == torch.complex128 else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(C + b)
+    x, y, z = (torch.randn(A.nrows_pad, b, dtype=ct, device="cuda",
+                           generator=g) for _ in range(3))
+    kw = dict(kw)
+    if kw.get("gamma") == "column":
+        kw["gamma"] = torch.linspace(-1, 1, b, dtype=rt, device="cuda") * 1j
+    opts = SpmvOpts(**kw)
+    args = (A, x, y if with_y else None, z if with_z else None, opts)
+    got, want = sellcs_spmv(*args), sellcs_spmv_ref(*args)
+    vec_tol, dot_tol = (1e-12, 1e-12) if ct == torch.complex128 else (1e-5,
+                                                                      1e-6)
+    assert complex_rel_err(got[0], want[0]) <= vec_tol
+    if with_z:
+        assert complex_rel_err(got[1], want[1]) <= vec_tol
+    if want[2] is not None:
+        assert complex_rel_err(got[2], want[2]) <= dot_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_ct", [np.float32, np.complex128, np.complex64],
+                         ids=["float32", "complex128", "complex64"])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_kernel_dots_are_deterministic_on_card(np_ct, b):
+    need_card()
+    A = _matrix(n=5000, C=32, sigma=256, dtype=np_ct, device="cuda")
+    x = torch.randn(A.nrows_pad, b, device="cuda", dtype=A.dtype)
     opts = SpmvOpts(dot_yy=True, dot_xy=True, dot_xx=True)
     first = sellcs_spmv(A, x, opts=opts)
     for _ in range(5):
@@ -330,16 +442,48 @@ def test_launch_geometry_spreads_rows_over_vector_threads():
     assert launch_geometry(20, 32, f64) == (16, 2, 8, 256, 2)
 
 
-@pytest.mark.parametrize("ct", [torch.float64, torch.float32],
-                         ids=["float64", "float32"])
-def test_launch_geometry_is_what_the_kernel_takes(ct):
+def test_launch_geometry_gives_complex_values_their_own_widths():
+    """Complex values without dots: 32 bytes of columns a thread (2
+    complex128, 4 complex64); with dots, or where b does not allow, 16
+    bytes or one column."""
+    c128, c64 = torch.complex128, torch.complex64
+    assert launch_geometry(16, 32, c128) == (16, 2, 8, 256, 1)
+    assert launch_geometry(16, 32, c128, dots=True) == (16, 1, 16, 512, 1)
+    assert launch_geometry(4, 32, c128, dots=True) == (4, 1, 4, 128, 1)
+    assert launch_geometry(8, 32, c64) == (8, 4, 2, 64, 1)
+    assert launch_geometry(4, 32, c64, dots=True) == (4, 2, 2, 64, 1)
+    assert launch_geometry(6, 32, c64) == (8, 2, 4, 128, 1)
+    assert launch_geometry(3, 32, c128) == (4, 1, 4, 128, 1)
+    assert launch_geometry(16, 32, c128, vectors=False) == (16, 1, 16, 512, 1)
+    # real values keep 16 bytes, dots or not
+    assert launch_geometry(16, 32, torch.float64, dots=True) == (
+        launch_geometry(16, 32, torch.float64))
+
+
+def test_dot_parts_one_a_block_of_complex_chunks():
+    """Real and complex values alike: one row of partials a block of
+    DOT_CHUNKS chunks."""
+    assert dot_parts(128000) == 128000 // DOT_CHUNKS
+    assert dot_parts(5) == -(-5 // DOT_CHUNKS)
+    assert dot_parts(1) == 1
+
+
+@pytest.mark.parametrize("dots", [False, True])
+@pytest.mark.parametrize("ct", [torch.float64, torch.float32,
+                                torch.complex128, torch.complex64],
+                         ids=["float64", "float32", "complex128",
+                              "complex64"])
+def test_launch_geometry_is_what_the_kernel_takes(ct, dots):
+    # the kernel takes one column, 16 bytes of columns or, complex values
+    # without dots, 32
+    widths = (16, 32) if ct.is_complex and not dots else (16,)
     for b in range(1, 41):
         for C in (1, 8, 31, 32, 100, MAX_C):
             for vectors in (True, False):
-                g = launch_geometry(b, C, ct, vectors)
+                g = launch_geometry(b, C, ct, vectors, dots)
                 assert g.bw in (1, 2, 4, 8, 16) and g.tpr * g.cpt == g.bw
                 assert g.cpt == 1 or (vectors and b % g.cpt == 0
-                                      and g.cpt * ct.itemsize == 16)
+                                      and g.cpt * ct.itemsize in widths)
                 assert 32 % g.tpr == 0 and g.threads % 32 == 0
                 assert min(C * g.tpr, MAX_THREADS) <= g.threads <= MAX_THREADS
                 assert g.bw * (g.slices - 1) < b <= g.bw * g.slices
@@ -362,8 +506,10 @@ TSM_TOL = {torch.float64: 1e-13, torch.float32: 1e-5,
 #: the compensated bound of the Kahan kernel, per unit of |V|^T |W|: an
 #: 8-row group summed plainly (8u with the products), three compensated
 #: levels (groups, lanes, blocks) at 2u each, alpha/beta and the result
-#: (3u); float64 keeps TSM_TOL, the float64 plain version's own sum being
-#: no more accurate than that
+#: (3u); the finishing kernel now sums the blocks in runs, a fourth level,
+#: and the test keeps the three levels' bound, the tighter one; float64
+#: keeps TSM_TOL, the float64 plain version's own sum being no more
+#: accurate than that
 KAHAN_TOL = {torch.float64: 1e-13, torch.float32: 17 * 2.0 ** -24,
              torch.bfloat16: 17 * 2.0 ** -24, torch.float16: 17 * 2.0 ** -24}
 #: the output's own rounding on top (bfloat16 / float16 results)
@@ -660,14 +806,21 @@ def test_tsmttsm_row_partition_depends_on_the_shape_alone(monkeypatch):
 
 
 def test_tsmttsm_summation_depth_by_hand():
-    # 16 x 16: 16 lanes; a lane's 7808 / 16 = 488 rows, 16 lanes, 525 blocks
-    assert summation_depth(4_096_000, 16, 16) == 488 + 16 + 525
-    # 3 x 8: 2 tiles a row, 128 lanes of 8 rows in one block
-    assert summation_depth(37, 3, 8) == 8 + 128 + 1
-    # 64 x 64: 256 tiles a row, one lane, blocks of 8 rows
-    assert summation_depth(4109, 64, 64) == 8 + 1 + 514
-    assert summation_depth(1 << 20, 1, 1) == 8 + 256 + 512
+    # 16 x 16: 16 lanes; a lane's 7808 / 16 = 488 rows, 16 lanes, then
+    # 525 blocks in 31 runs of 17
+    assert block_runs(525) == (17, 31)
+    assert summation_depth(4_096_000, 16, 16) == 488 + 16 + 17 + 31
+    # 3 x 8: 2 tiles a row, 128 lanes of 8 rows in one block (one run)
+    assert summation_depth(37, 3, 8) == 8 + 128 + 1 + 1
+    # 64 x 64: 256 tiles a row, one lane, 514 blocks of 8 rows
+    assert block_runs(514) == (17, 31)
+    assert summation_depth(4109, 64, 64) == 8 + 1 + 17 + 31
+    assert summation_depth(1 << 20, 1, 1) == 8 + 256 + 16 + 32
     assert summation_depth(0, 16, 16) == 0 + 16 + 0
+    # complex: 4 x 2 tiles, so 16 x 16 has 32 tiles a row and 8 lanes
+    c128 = torch.complex128
+    assert row_partition(4_096_000, 16, 16, c128) == (7808, 525)
+    assert summation_depth(4_096_000, 16, 16, c128) == 976 + 8 + 17 + 31
 
 
 @pytest.mark.parametrize("itemsize", [2, 4, 8])
@@ -685,6 +838,44 @@ def test_tsmttsm_stage_rows(itemsize):
             assert rows % lanes == 0 and per_lane & (per_lane - 1) == 0
             assert 1 <= per_lane <= 64
             assert rows * (m + k) * itemsize <= STAGE_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
+                         ids=["complex128", "complex64"])
+def test_tsmttsm_complex_tiles(dtype):
+    """Complex values take 4 x 2 tiles: the lanes and the stages (16 KB
+    for complex128) follow; past 256 tiles a row a block is one lane."""
+    assert thread_tile(dtype) == (4, 2) and thread_tile() == (4, 4)
+    limit = stage_bytes(dtype)
+    assert limit == (STAGE_BYTES // 2 if dtype == torch.complex128
+                     else STAGE_BYTES)
+    item = torch.empty((), dtype=dtype).element_size()
+    for m in range(1, MAX_DIM + 1, 3):
+        for k in range(1, MAX_DIM + 1, 5):
+            tiles = -(-m // 4) * -(-k // 2)
+            lanes = max(1, 256 // tiles)
+            rows = stage_rows(m, k, item, dtype)
+            per_lane = rows // lanes
+            assert rows % lanes == 0 and per_lane & (per_lane - 1) == 0
+            # within the limit, or one row a lane where that is above it
+            assert 1 <= per_lane <= 64
+            assert rows * (m + k) * item <= limit or per_lane == 1
+            for n in (1, 37, 4109, 4_096_000):
+                r, nb = row_partition(n, m, k, dtype)
+                assert r % (lanes * 8) == 0 and 1 <= nb <= MAX_BLOCKS
+                assert (nb - 1) * r < n <= nb * r
+    # 64 x 64: 512 tiles a row, one lane; 16 x 16: 32 tiles, 8 lanes
+    assert row_partition(4109, MAX_DIM, MAX_DIM, dtype) == (8, 514)
+    assert row_partition(4109, 16, 16, dtype) == (64, 65)
+
+
+@pytest.mark.parametrize("nblocks", [0, 1, 31, 32, 33, 525, MAX_BLOCKS])
+def test_tsmttsm_block_runs_cover_the_blocks(nblocks):
+    """The finishing kernel's runs: at most 32 (a warp's lanes), each of
+    ``run`` consecutive blocks but the last, together all the blocks."""
+    run, runs = block_runs(nblocks)
+    assert runs <= 32
+    assert (runs - 1) * run < nblocks <= runs * run or nblocks == 0
 
 
 def test_tsmttsm_bulk_aligned():
