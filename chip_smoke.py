@@ -92,14 +92,18 @@ the card, holding every kernel against its plain PyTorch version:
     ``[complex]`` lines;
 14. block-Jacobi preconditioned MINRES on the same matrix, and
     Chebyshev-preconditioned CG on anisotropic_laplace2d(1024);
-15. timing of B4 and B5 at the main shapes, and the time split of one
-    preconditioned CG iteration;
+15. timing of B4 and B5 at the main shapes (B5 in float64 and float32,
+    with its device time from the profiler and its host syncs a call),
+    and the time split of one preconditioned CG iteration;
 15b. ``run_chunk``, which reads the stopping test one iteration late,
     against a loop that reads it every iteration, on column CG, PCG,
     block CG and block MINRES at full width: equal states, ms per
     iteration in turns, synchronising calls per iteration (0 required of
     the block steppers' late read), and a profiler split of the
-    iterations by kind of kernel with the time the card sat idle;
+    iterations by kind of kernel with the time the card sat idle; then
+    the host syncs of the calls that hand a coefficient to a kernel (B5
+    with Python numbers, real and complex; B1 with a Python-float gamma;
+    a ChebFD filter step; a KPM moment step), 0 required of each;
 15c. slice 6's main path at full width: the continuous-batching
     ``SolverService`` over a ``MatrixRegistry`` holding laplace3d(160) and
     anisotropic_laplace2d(2048) (prebuilt): 32 mixed CG/MINRES requests
@@ -332,6 +336,8 @@ from repro_torch.models import sharding as SH  # noqa: E402
 from repro_torch.train.optimizer import compressed_psum  # noqa: E402
 from repro_torch.solvers import block  # noqa: E402
 cg_mod = importlib.import_module("repro_torch.solvers.cg")
+chebfd_mod = importlib.import_module("repro_torch.solvers.chebfd")
+kpm_mod = importlib.import_module("repro_torch.solvers.kpm")
 from repro_torch.solvers import run_chunk  # noqa: E402
 from repro_torch.solvers.lanczos import tridiag_eigh  # noqa: E402
 
@@ -399,8 +405,12 @@ B4_BS = (1, 4, 8, 16, 32, 48, MAX_BS)
 B4_B = (1, 3, 4, 16)
 B4_NB = (0, 1, 7, 4096)
 B5_NS = (0, 1, 37, 4109, 1 << 20)
-#: (from bw = 86 on a thread block has fewer threads than (dot, column) pairs)
+#: (bw = 3 and 86: periods of whole rows that a warp does not divide; 256
+#: in float64: 128 slots, two lanes a block)
 B5_BW = (1, 3, 4, 16, 86, 256)
+#: B5 past one thread block's slots (grid.y slot tiles): widths and their
+#: row counts, each call made twice and held bit-equal
+B5_WIDE_BW, B5_WIDE_NS = (257, 512), (0, 1, 37, 4109)
 #: slice 8a: the B6 grid, and the jamba serving path (``lm_config``): its
 #: widths ("full": the published ones; "smoke": the registered SMOKE ones,
 #: for a CPU rehearsal), prefill batch and length, the serve loop's prompt
@@ -1552,14 +1562,15 @@ def phase_b4_grid() -> None:
           f"1-d, nblocks in {B4_NB}")
 
 
-def _b5_check(x, y, a, b, flags, tag, worst):
+def _b5_check(x, y, a, b, flags, tag, worst, twice=False):
     """B5 against its plain version computed in float64 from the same
     inputs (``a``/``b`` as the kernel sees them, in the accumulation
     dtype).  ``y'`` errs by at most ``3 u_acc (|a x| + |b y|)`` plus the
     output's rounding; each dot by at most ``(depth + 6) u_acc`` times the
     sum of its terms' magnitudes (``depth`` the kernel's longest addition
     chain, ``fused_update.summation_depth``) plus the float64 plain
-    version's ``(n + 6) 2^-53`` of the same sum."""
+    version's ``(n + 6) 2^-53`` of the same sum.  With ``twice`` a second
+    call must give the same bits."""
     out = torch.promote_types(x.dtype, y.dtype)
     acc = torch.float64 if out == torch.float64 else torch.float32
     n, bw = x.shape
@@ -1567,6 +1578,8 @@ def _b5_check(x, y, a, b, flags, tag, worst):
     bv = fused_update.coefficients(b, bw, acc, DEVICE).double()
     got, dots = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
                                  dot_xy=flags[1], dot_xx=flags[2])
+    if twice:
+        _b5_same_twice(got, dots, x, y, a, b, flags, tag)
     xd, yd = x.double(), y.double()
     want, wdots = fused_axpby_dots_ref(xd, yd, av, bv, dot_yy=flags[0],
                                        dot_xy=flags[1], dot_xx=flags[2])
@@ -1583,7 +1596,7 @@ def _b5_check(x, y, a, b, flags, tag, worst):
     else:
         require(dots is not None and dots.dtype == acc
                 and dots.shape == (3, bw), f"B5 {tag}: dots {dots}")
-        depth = fused_update.summation_depth(n, bw)
+        depth = fused_update.summation_depth(n, bw, out)
         scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
                              (xd * xd).sum(0)])
         dlim = ((depth + 6) * u + (n + 6) * 2.0 ** -53) * scale + 1e-300
@@ -1596,6 +1609,14 @@ def _b5_check(x, y, a, b, flags, tag, worst):
         worst[:] = [ratio, tag]
 
 
+def _b5_same_twice(got, dots, x, y, a, b, flags, tag):
+    again, dots2 = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
+                                    dot_xy=flags[1], dot_xx=flags[2])
+    require(torch.equal(got, again) and (dots is None) == (dots2 is None)
+            and (dots is None or torch.equal(dots, dots2)),
+            f"B5 {tag}: a second call differs in its bits")
+
+
 B5_FLAGS = tuple((yy, xy, xx) for yy in (False, True) for xy in (False, True)
                  for xx in (False, True))
 
@@ -1604,23 +1625,25 @@ def phase_b5_grid() -> None:
     g = torch.Generator(device=DEVICE).manual_seed(8)
     worst = {}
     n_cases = 0
+    shapes = ([(n, bw) for n in B5_NS for bw in B5_BW]
+              + [(n, bw) for n in B5_WIDE_NS for bw in B5_WIDE_BW])
     for dt in (torch.float64, torch.float32, torch.bfloat16, torch.float16):
         w = worst.setdefault(str(dt)[6:], [0.0, ""])
-        for n in B5_NS:
-            for bw in B5_BW:
-                x, y = (torch.randn(n, bw, generator=g, dtype=torch.float64,
-                                    device=DEVICE).to(dt) for _ in range(2))
-                coefs = [(0.75, -1.25, "scalar"),
-                         (torch.randn(bw, generator=g, dtype=torch.float64,
-                                      device=DEVICE),
-                          torch.randn(bw, generator=g, dtype=torch.float64,
-                                      device=DEVICE), "per-column")]
-                for a, b, kind in coefs:
-                    for flags in B5_FLAGS:
-                        _b5_check(x, y, a, b, flags,
-                                  f"{str(dt)[6:]} n={n} bw={bw} {kind} "
-                                  f"dots={flags}", w)
-                        n_cases += 1
+        for n, bw in shapes:
+            x, y = (torch.randn(n, bw, generator=g, dtype=torch.float64,
+                                device=DEVICE).to(dt) for _ in range(2))
+            coefs = [(0.75, -1.25, "scalar"),
+                     (torch.randn(bw, generator=g, dtype=torch.float64,
+                                  device=DEVICE),
+                      torch.randn(bw, generator=g, dtype=torch.float64,
+                                  device=DEVICE), "per-column")]
+            for a, b, kind in coefs:
+                for flags in B5_FLAGS:
+                    _b5_check(x, y, a, b, flags,
+                              f"{str(dt)[6:]} n={n} bw={bw} {kind} "
+                              f"dots={flags}", w,
+                              twice=bw in B5_WIDE_BW)
+                    n_cases += 1
         x1, y1 = (torch.randn(4109, generator=g, dtype=torch.float64,
                               device=DEVICE).to(dt) for _ in range(2))
         out, dots = fused_axpby_dots(x1, y1, 2.0, 0.5, dot_yy=True,
@@ -1638,8 +1661,9 @@ def phase_b5_grid() -> None:
               f"(at {tag})")
     print(f"[b5 grid] {n_cases} cases within their bounds (y': 3 u_acc "
           f"(|a x| + |b y|) + u_out |y'|; dots: (depth + 6) u_acc sum|terms|):"
-          f" n in {B5_NS}, bw in {B5_BW}, scalar and per-column a/b, every "
-          f"combination of the dot flags, and 1-d inputs")
+          f" n in {B5_NS}, bw in {B5_BW}, and n in {B5_WIDE_NS}, bw in "
+          f"{B5_WIDE_BW} (each twice, bit-equal), scalar and per-column a/b, "
+          f"every combination of the dot flags, and 1-d inputs")
 
 
 # ----------------------------------------------------------------- phase 13
@@ -2004,17 +2028,21 @@ def phase_complex_grid() -> None:
     worst = {}
     for ct in CX_DTYPES:
         w = worst.setdefault(str(ct)[6:], [0.0, ""])
-        for n in (0, 1) + tuple(CX_TSM_NS):
-            for bw in CX_B5_BW:
-                x, y = (_cx_randn((n, bw), ct, g) for _ in range(2))
-                for a, b, kind in ((0.75 - 0.5j, -1.25 + 2j, "scalar"),
-                                   (_cx_randn((bw,), ct, g),
-                                    _cx_randn((bw,), ct, g), "per-column")):
-                    for flags in CX_B5_FLAGS:
-                        _b5_cx_check(x, y, a, b, flags,
-                                     f"{str(ct)[6:]} n={n} bw={bw} {kind} "
-                                     f"dots={flags}", w)
-                        n_b5 += 1
+        shapes = ([(n, bw) for n in (0, 1) + tuple(CX_TSM_NS)
+                   for bw in CX_B5_BW]
+                  + [(n, bw) for n in B5_WIDE_NS for bw in B5_WIDE_BW])
+        for n, bw in shapes:
+            x, y = (_cx_randn((n, bw), ct, g) for _ in range(2))
+            for a, b, kind in ((0.75 - 0.5j, -1.25 + 2j, "scalar"),
+                               (_cx_randn((bw,), ct, g),
+                                _cx_randn((bw,), ct, g), "per-column")):
+                for flags in (B5_FLAGS if bw in B5_WIDE_BW
+                              else CX_B5_FLAGS):
+                    _b5_cx_check(x, y, a, b, flags,
+                                 f"{str(ct)[6:]} n={n} bw={bw} {kind} "
+                                 f"dots={flags}", w,
+                                 twice=bw in B5_WIDE_BW)
+                    n_b5 += 1
         # a real x of the precision: widened exactly, as the plain version
         # promotes it
         xr = _cx_randn((4109, 4), CX_REAL[ct], g)
@@ -2029,8 +2057,9 @@ def phase_complex_grid() -> None:
     print(f"[complex grid] B5: {n_b5} cases within their bounds (y': 8 u "
           f"(|a||x| + |b||y|); dots: ((depth + 6) 2^-53 + 8 u) sum|terms| "
           f"+ u |dot|): n in {(0, 1) + tuple(CX_TSM_NS)}, bw in {CX_B5_BW}, "
-          f"scalar and per-column complex a/b, dots {CX_B5_FLAGS}, a real "
-          f"x; {time.perf_counter() - t0:.1f} s in all")
+          f"dots {CX_B5_FLAGS}, and n in {B5_WIDE_NS}, bw in {B5_WIDE_BW} "
+          f"with every flag (each twice, bit-equal), scalar and per-column "
+          f"complex a/b, a real x; {time.perf_counter() - t0:.1f} s in all")
 
 
 def _cx_tsm_views(g) -> int:
@@ -2089,7 +2118,7 @@ def _cx_block_chunked(g) -> None:
                       f"the monolithic one")
 
 
-def _b5_cx_check(x, y, a, b, flags, tag, worst):
+def _b5_cx_check(x, y, a, b, flags, tag, worst, twice=False):
     """B5's complex variant against its plain version computed in
     complex128 from the same inputs (``a``/``b`` as the kernel sees them).
     Each entry of ``y'`` is a sum of two complex products, each within
@@ -2097,13 +2126,15 @@ def _b5_cx_check(x, y, a, b, flags, tag, worst):
     (|a||x| + |b||y|) bounds it.  The dots sum in complex128: (depth + 6)
     2^-53 of the sum of their terms' magnitudes, plus the terms' own error
     from y' (8 u of the same sum) and, for complex64, the final rounding
-    (u |dot|)."""
+    (u |dot|).  With ``twice`` a second call must give the same bits."""
     ct = torch.promote_types(x.dtype, y.dtype)
     n, bw = x.shape
     av = fused_update.coefficients(a, bw, ct, DEVICE).to(torch.complex128)
     bv = fused_update.coefficients(b, bw, ct, DEVICE).to(torch.complex128)
     got, dots = fused_axpby_dots(x, y, a, b, dot_yy=flags[0],
                                  dot_xy=flags[1], dot_xx=flags[2])
+    if twice:
+        _b5_same_twice(got, dots, x, y, a, b, flags, tag)
     xd, yd = x.to(torch.complex128), y.to(torch.complex128)
     want, wdots = fused_axpby_dots_ref(xd, yd, av, bv, dot_yy=flags[0],
                                        dot_xy=flags[1], dot_xx=flags[2])
@@ -2120,7 +2151,7 @@ def _b5_cx_check(x, y, a, b, flags, tag, worst):
     else:
         require(dots is not None and dots.dtype == ct
                 and dots.shape == (3, bw), f"B5 {tag}: dots {dots}")
-        depth = fused_update.summation_depth(n, bw)
+        depth = fused_update.summation_depth(n, bw, ct)
         scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
                              (xd.abs() ** 2).sum(0)])
         dlim = (((depth + 6) * 2.0 ** -53 + 8 * u) * scale
@@ -2538,7 +2569,36 @@ def _cx_eigen(A, op, v0, card):
                 f"complex KPM fused={fused}: mu_2 {mu2} against {want}")
         require(abs(float(mus[0]) - 1.0) <= 1e-6,
                 f"complex KPM fused={fused}: mu_0 = {float(mus[0])}")
+    if DEVICE == "cuda":
+        _cx_eigen_timing(A, op, a, gam, lam, card)
     return {"lambda_min": lam}
+
+
+def _cx_eigen_timing(A, op, a, gam, lam, card) -> None:
+    """ms per B1 launch as ChebFD and KPM issue it on the phased matrix
+    in complex128 (CUDA events over back-to-back calls): ChebFD's filter
+    of CX_CHEB_DEGREE on a block of 8 (one launch a degree, its vector
+    passes included) and its recurrence's B1 call alone, and one KPM
+    moment step on CX_KPM_PROBES probes (one launch, its moments
+    included)."""
+    g = torch.Generator(device=DEVICE).manual_seed(CX_SEED + 3)
+    V = _cx_randn((A.nrows_pad, 8), torch.complex128, g)
+    deg = CX_CHEB_DEGREE
+    lo_t, hi_t = lam - CX_CHEB_BELOW, lam + CX_CHEB_ABOVE
+    filt = time_ms(lambda: chebfd_mod._cheb_filter(op, V, deg, a, gam, lo_t,
+                                                   hi_t), warmup=1, iters=3)
+    opts = SpmvOpts(alpha=2.0 / a, beta=-1.0, gamma=gam)
+    one = time_ms(lambda: op.mv_fused(V, y=V, opts=opts))
+    w = _cx_randn((A.nrows_pad, CX_KPM_PROBES), torch.complex128, g)
+    mu = torch.ones(CX_KPM_PROBES, dtype=torch.float32, device=DEVICE)
+    step = time_ms(lambda: kpm_mod.moment_step(op, w, w, 2.0 / a, gam, mu,
+                                               mu))
+    print(f"[complex solves] ms per B1 launch, complex128 phased laplace3d"
+          f"({NX}): ChebFD's filter of degree {deg} on a block of 8 "
+          f"{filt / deg:.4f} ms a launch ({filt:.3f} ms a filter, its vector "
+          f"passes included), its recurrence's B1 call alone {one:.4f} ms; "
+          f"one KPM moment step on {CX_KPM_PROBES} probes {step:.4f} ms "
+          f"(one launch, its moments included)  [{card}]")
 
 
 # ---------------------------------------------------------------- phase 13d
@@ -2656,29 +2716,18 @@ def phase_complex_timing(cx, card):
         _nbytes(V, X, got), flops, err)
     del V, W, Va, Wa
     # B5's complex variant at the shape of the real B5 row (n x 4), with
-    # all three dots; no single PyTorch call computes it
+    # all three dots; no single PyTorch call computes it.  Two complex
+    # products and a sum (14 operations an entry), three dot terms (24)
     for ct in CX_DTYPES:
         x5, y5 = (_cx_randn((nt, PRECOND_WIDTH), ct, g) for _ in range(2))
         a5, b5 = 0.5 - 1.5j, -1.0 + 0.25j
         worst5 = [0.0, ""]
         _b5_cx_check(x5, y5, a5, b5, (True, True, True),
                      f"{str(ct)[6:]} n={nt}", worst5)
-        got, dots = fused_axpby_dots(x5, y5, a5, b5, dot_yy=True,
-                                     dot_xy=True, dot_xx=True)
-        want, _ = fused_axpby_dots_ref(x5.to(torch.complex128),
-                                       y5.to(torch.complex128), a5, b5)
-        err = float((got.to(torch.complex128) - want).abs().max())
-        row(("fused_axpby_dots", ct),
-            f"fused_axpby_dots {str(ct)[6:]} n={nt} bw={PRECOND_WIDTH} all "
-            f"dots", lambda: fused_axpby_dots(x5, y5, a5, b5, dot_yy=True,
-                                              dot_xy=True, dot_xx=True),
-            lambda: fused_axpby_dots_ref(x5, y5, a5, b5, dot_yy=True,
-                                         dot_xy=True, dot_xx=True),
-            None, _nbytes(x5, y5, got, dots),
-            # two complex products and a sum (14), three dot terms (24)
-            38.0 * nt * PRECOND_WIDTH, err,
-            peak=PEAK_FLOPS[CX_REAL[ct]])
-        del x5, y5, got
+        rows[("fused_axpby_dots", ct)] = _b5_timed(
+            x5, y5, a5, b5, f"[complex] fused_axpby_dots {str(ct)[6:]}",
+            PEAK_FLOPS[CX_REAL[ct]], 38.0, worst5, card)
+        del x5, y5
     nb, bs = PRECOND_NX * PRECOND_NX // PRECOND_C, PRECOND_C
     B = _cx_randn((nb, bs, bs), torch.complex128, g)
     x = _cx_randn((nb * bs, PRECOND_WIDTH), torch.complex128, g)
@@ -2870,29 +2919,62 @@ def phase_precond_timing(pcg, card):
                     device="cuda")
     a = torch.randn(PRECOND_WIDTH, generator=g, dtype=torch.float64,
                     device="cuda")
-    flags = dict(dot_yy=True, dot_xy=True, dot_xx=True)
-    worst = [0.0, ""]
-    _b5_check(x64, y, a, -0.5, (True, True, True), "timing f64", worst)
-    out, dots = fused_axpby_dots(x64, y, a, -0.5, **flags)
-    want, _ = fused_axpby_dots_ref(x64, y, a, -0.5, **flags)
-    err = float((out - want).abs().max())
-    ms = time_ms(lambda: fused_axpby_dots(x64, y, a, -0.5, **flags))
-    plain_ms = time_ms(lambda: fused_axpby_dots_ref(x64, y, a, -0.5,
-                                                    **flags))
-    nbytes = _nbytes(x64, y, a, out, dots) + 8 * PRECOND_WIDTH
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * 8.0 * n * PRECOND_WIDTH / PEAK_FLOPS[torch.float64]
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"[timing] fused_axpby_dots f64 n={n} bw={PRECOND_WIDTH}, all "
-          f"three dots: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"n/a (no single PyTorch call computes it), bound {bound_ms:.4f} "
-          f"ms ({nbytes / 1e6:.1f} MB; operations {ops_ms:.4f} ms), "
-          f"{100 * bound_ms / ms:.1f}% of bound, y' max abs err {err:.3e} "
-          f"(bounds: {worst[0]:.3f} of the stated ones)  [{card}]")
-    rows[("fused_axpby_dots", "f64")] = dict(
-        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations", err=err)
+    for label, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        xb, yb, ab = x64.to(dt), y.to(dt), a.to(dt)
+        worst = [0.0, ""]
+        _b5_check(xb, yb, ab, -0.5, (True, True, True), f"timing {label}",
+                  worst)
+        rows[("fused_axpby_dots", label)] = _b5_timed(
+            xb, yb, ab, -0.5, f"[timing] fused_axpby_dots {label}",
+            PEAK_FLOPS[dt], 8.0, worst, card)
     return rows
+
+
+def _b5_timed(x, y, a, b, label, peak, flops_per_entry, worst, card):
+    """B5 at one shape with all three dots, a second call bit-equal:
+    kernel (CUDA events over back-to-back calls), the same without dots, its device time a call
+    from the profiler, host syncs a call, the plain version, and the bound
+    (x and y read, y' written, the coefficients and the dots; operations
+    at ``flops_per_entry`` over ``peak``).  ``worst`` holds the grid
+    bound's ratio from :func:`_b5_check` or :func:`_b5_cx_check`.
+    Returns the kernels line's row."""
+    flags = dict(dot_yy=True, dot_xy=True, dot_xx=True)
+    out, dots = fused_axpby_dots(x, y, a, b, **flags)
+    _b5_same_twice(out, dots, x, y, a, b, (True, True, True), label)
+    wide = torch.complex128 if out.is_complex() else torch.float64
+    want, _ = fused_axpby_dots_ref(x.to(wide), y.to(wide),
+                                   a.to(wide) if torch.is_tensor(a) else a,
+                                   b, **flags)
+    err = float((out.to(wide) - want).abs().max())
+    ms = time_ms(lambda: fused_axpby_dots(x, y, a, b, **flags))
+    nodots_ms = time_ms(lambda: fused_axpby_dots(x, y, a, b))
+    dev_ms, syncs = None, None
+    if DEVICE == "cuda":
+        dev_ms, syncs = _b5_profile(lambda: fused_axpby_dots(x, y, a, b,
+                                                             **flags))
+    plain_ms = time_ms(lambda: fused_axpby_dots_ref(x, y, a, b, **flags),
+                       warmup=3, iters=20)
+    n, bw = x.shape
+    nbytes = _nbytes(x, y, out, dots) + 2 * bw * dots.element_size()
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops_per_entry * n * bw / peak
+    bound_ms = max(bytes_ms, ops_ms)
+    dev_text = ("not measured (the profiler did not see one kernel a "
+                "call)" if dev_ms is None
+                else f"{dev_ms:.4f} ms ({100 * bound_ms / dev_ms:.1f}% of "
+                f"bound)")
+    sync_text = "not measured" if syncs is None else f"{syncs:.2f}"
+    print(f"{label} n={n} bw={bw}, all three dots: kernel {ms:.4f} ms "
+          f"({100 * bound_ms / ms:.1f}% of bound), without dots "
+          f"{nodots_ms:.4f} ms, device time a call {dev_text}, host syncs "
+          f"a call {sync_text}, plain {plain_ms:.4f} ms, library n/a (no "
+          f"single PyTorch call computes it), bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e9:.1f} GB/s; "
+          f"operations {ops_ms:.4f} ms), y' max abs err {err:.3e} (bounds: "
+          f"{worst[0]:.3f} of the stated ones)  [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                err=err, device_ms=dev_ms, syncs=syncs, nodots_ms=nodots_ms)
 
 
 def phase_pcg_split(pcg, card) -> None:
@@ -3071,6 +3153,90 @@ def phase_stepper(fw, bcg, pcg, card) -> None:
               f"profiler: {split['wall']:.3f} ms/iter wall; device ms/iter: "
               f"{parts}; card idle {split['idle']:.4f} ms/iter "
               f"({100 * split['idle_share']:.1f}% of the window)  [{card}]")
+
+
+#: the coefficient hand-over's sync count (phase 15b): ChebFD's block
+#: width and filter degree for one step, KPM's probes, and the window of
+#: both on laplace3d(NX) (its spectrum lies inside (0, 12))
+COEF_CHEB_B, COEF_KPM_PROBES, COEF_SPECTRUM = 8, 4, (0.0, 12.0)
+
+
+def phase_coef_syncs(fw, card) -> dict:
+    """Host syncs of the calls that hand a number or a tensor to a kernel
+    as a coefficient, on laplace3d(NX) at the widths of phases 13 and 13c:
+    B5 with Python-number ``a`` and ``b`` (float64) and with complex ones
+    (complex128) at width PRECOND_WIDTH, B1 through ``ops`` with a
+    Python-float gamma at ChebFD's block of COEF_CHEB_B, one step of
+    ChebFD's filter (``chebfd._cheb_filter`` of degree 2: its first
+    application and one step of the recurrence, two B1 launches, with the
+    filter's vector passes) and one KPM moment step
+    (``kpm.moment_step``, bf16-store/f32 operator as phase 10's KPM).
+    Each call runs once first (the kernels load then), and its syncs are
+    counted with torch's sync debug mode; every count must be 0.  On the
+    CPU the calls run once and nothing is counted."""
+    A64, A16 = fw["A64"], fw["A16"]
+    n = A64.nrows_pad
+    f64 = torch.float64
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    x4, y4 = (torch.randn(n, PRECOND_WIDTH, generator=g, dtype=f64,
+                          device=DEVICE) for _ in range(2))
+    xc, yc = (_cx_randn((n, PRECOND_WIDTH), torch.complex128, g)
+              for _ in range(2))
+    V = torch.randn(n, COEF_CHEB_B, generator=g, dtype=f64, device=DEVICE)
+    lo, hi = COEF_SPECTRUM
+    a, gam = (hi - lo) / 2.0, (hi + lo) / 2.0
+    op64, op16 = make_operator(A64), make_operator(A16)
+    w0 = torch.randn(n, COEF_KPM_PROBES, generator=g, dtype=torch.float32,
+                     device=DEVICE)
+    w1 = torch.randn(n, COEF_KPM_PROBES, generator=g, dtype=torch.float32,
+                     device=DEVICE)
+    mu = torch.ones(COEF_KPM_PROBES, dtype=torch.float32, device=DEVICE)
+    dots = dict(dot_yy=True, dot_xy=True, dot_xx=True)
+    calls = [
+        ("B5 f64, Python-number a and b",
+         lambda: fused_axpby_dots(x4, y4, 0.75, -0.5, **dots)),
+        ("B5 complex128, complex a and b",
+         lambda: fused_axpby_dots(xc, yc, 0.5 - 1.5j, -1.0 + 0.25j, **dots)),
+        (f"B1 through ops, Python-float gamma, b={COEF_CHEB_B}",
+         lambda: sellcs_spmv(A64, V, opts=SpmvOpts(alpha=1.0 / a,
+                                                   gamma=gam))),
+        (f"one ChebFD filter step, b={COEF_CHEB_B}",
+         lambda: chebfd_mod._cheb_filter(op64, V, 2, a, gam, 1.0, 2.0)),
+        (f"one KPM moment step, {COEF_KPM_PROBES} probes",
+         lambda: kpm_mod.moment_step(op16, w0, w1, 2.0 / a, gam, mu, mu)),
+    ]
+    counts = {}
+    for label, fn in calls:
+        fn()
+        sync()
+        if DEVICE != "cuda":
+            continue
+        counts[label] = _syncs(fn)
+        sync()
+        print(f"[coef syncs] {label}: {counts[label]} host syncs a call "
+              f"(torch's sync debug mode)  [{card}]")
+    for label, k in counts.items():
+        require(k == 0, f"{label}: {k} host syncs a call")
+    return counts
+
+
+def _b5_profile(fn, iters: int = 20):
+    """B5's device time a call (``torch.profiler`` over ``iters``
+    back-to-back calls, the kernels whose name holds ``axpby``; None
+    unless the profiler saw one such kernel a call: a window that lost
+    events once gave half the time) and host syncs a call (torch's sync
+    debug mode)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "axpby" in e.name]
+    dev = 1e-3 * sum(spans) / iters if len(spans) == iters else None
+    return dev, _syncs(lambda: [fn() for _ in range(iters)]) / iters
 
 
 # ---------------------------------------------------------------- phase 15c
@@ -6066,6 +6232,7 @@ def main() -> int:
     pre = timed("precond timing", phase_precond_timing, pcg, card)
     timed("pcg split", phase_pcg_split, pcg, card)
     timed("stepper", phase_stepper, fw, bcg, pcg, card)
+    timed("coefficient syncs", phase_coef_syncs, fw, card)
     timed("serving", phase_serving, fw, pcg, card)
     timed("pool bandwidths", phase_bandwidths, card)
     mlg = timed("mlgeer distributed spmv", phase_mlgeer, card)

@@ -56,6 +56,11 @@
 //   larger is walked in passes of blockDim / TPR rows.
 // * Narrow stored values (bf16, f16, or f32 under f64 compute) are upcast in
 //   registers, so the value stream moves at the storage width.
+// * alpha, beta, delta, eta and gamma come by value (two doubles each) or,
+//   for a tensor on the card, through a pointer (CoefPtrs; gamma of width
+//   1 or b): the wrapper never reads a value on the host, so a call makes
+//   no host sync (a Python-float gamma made one before; PERF.md, section
+//   6).
 // * The dots are reduced in a fixed order (each thread over its rows in
 //   chunk and pass order, warp shuffles over the rows of a warp, then
 //   warps in order through shared memory) without atomics, so results are
@@ -215,6 +220,12 @@ template <typename CT, int CPT> struct SharedDots {
   __device__ __forceinline__ DT get(int k, int e) const { return at(k, e); }
 };
 
+// Coefficients read on the card where the wrapper passes a tensor (no
+// host sync): null where the value came by value.
+template <typename CT> struct CoefPtrs {
+  const CT *alpha, *beta, *delta, *eta;
+};
+
 // A row's sums acc (CPT columns from kk, at o = row * b + kk) through the
 // shift, alpha, beta and the chain into y and z, and into the dots d.
 template <typename CT, int CPT, typename Dots>
@@ -222,7 +233,7 @@ __device__ __forceinline__ void finish_row(
     const CT (&acc)[CPT], long long o, int kk, const CT* __restrict__ x,
     const CT* __restrict__ y_in, const CT* __restrict__ z_in,
     const CT* __restrict__ gamma, CT* __restrict__ y, CT* __restrict__ z,
-    int gamma_width, CT alpha, CT beta, CT delta, CT eta, int flags,
+    int gamma_width, CT gval, CT alpha, CT beta, CT delta, CT eta, int flags,
     bool need_xrow, Dots& d) {
   Pack<CT, CPT> xr, yv, yi, zi;
   if (need_xrow) xr.load(x + o);
@@ -232,7 +243,9 @@ __device__ __forceinline__ void finish_row(
   for (int e = 0; e < CPT; ++e) {
     CT av = acc[e];
     if (flags & kHasGamma)
-      av -= gamma[gamma_width == 1 ? 0 : kk + e] * xr.v[e];
+      av -= (gamma_width == 0 ? gval
+                              : gamma[gamma_width == 1 ? 0 : kk + e]) *
+            xr.v[e];
     CT yvv = alpha * av;
     if (flags & kHasYin) yvv += beta * yi.v[e];
     yv.v[e] = yvv;
@@ -340,7 +353,8 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const CT* __restrict__ gamma, CT* __restrict__ y,
                   CT* __restrict__ z, typename Dot<CT>::type* __restrict__ part,
                   int nchunks, int C, int b, int bw, int tpr, int gamma_width,
-                  CT alpha, CT beta, CT delta, CT eta, int flags) {
+                  CT gval, CT alpha, CT beta, CT delta, CT eta,
+                  const CoefPtrs<CT> cp, int flags) {
   using DT = typename Dot<CT>::type;
   constexpr int kU = unroll<CT, CPT>();
   constexpr int K = DOTS ? kDotChunks : 1;
@@ -355,6 +369,10 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
   const bool need_xrow = flags & (kHasGamma | kDotXY | kDotXX);
   const int row_flags = DOTS ? flags : flags & ~(kDotYY | kDotXY | kDotXX);
   if constexpr (DOTS) d.zero();
+  if (cp.alpha) alpha = *cp.alpha;
+  if (cp.beta) beta = *cp.beta;
+  if (cp.delta) delta = *cp.delta;
+  if (cp.eta) eta = *cp.eta;
 
   const int c_end = min(nchunks, (int)(blockIdx.x + 1) * K);
   for (int c = blockIdx.x * K; c < c_end; ++c) {
@@ -376,12 +394,12 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
         tail_group<kU>(len - j, vals, cols, x, base, j, C, b, kk, acc);
       if constexpr (DOTS) {
         finish_row<CT, CPT>(acc, row * b + kk, kk, x, y_in, z_in, gamma, y,
-                            z, gamma_width, alpha, beta, delta, eta,
+                            z, gamma_width, gval, alpha, beta, delta, eta,
                             row_flags, need_xrow, d);
       } else {
         NoDots none;
         finish_row<CT, CPT>(acc, row * b + kk, kk, x, y_in, z_in, gamma, y,
-                            z, gamma_width, alpha, beta, delta, eta,
+                            z, gamma_width, gval, alpha, beta, delta, eta,
                             row_flags, need_xrow, none);
       }
     }
@@ -406,6 +424,8 @@ struct Args {
   int nchunks, C, b, bw, tpr, threads, gamma_width, flags;
   double alpha, beta, delta, eta;           // real parts
   double alpha_im, beta_im, delta_im, eta_im;  // imaginary parts
+  double gamma_re, gamma_im;                // gamma by value (width 0)
+  const void *alpha_p, *beta_p, *delta_p, *eta_p;  // or on the card
 };
 
 // The instance with or without dots, and with dots its shared memory,
@@ -439,9 +459,15 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const CT*>(a.z_in), static_cast<const CT*>(a.gamma),
       static_cast<CT*>(a.y), static_cast<CT*>(a.z),
       static_cast<DT*>(a.part), a.nchunks, a.C, a.b, a.bw, a.tpr,
-      a.gamma_width, make_scalar<CT>(a.alpha, a.alpha_im),
+      a.gamma_width, make_scalar<CT>(a.gamma_re, a.gamma_im),
+      make_scalar<CT>(a.alpha, a.alpha_im),
       make_scalar<CT>(a.beta, a.beta_im), make_scalar<CT>(a.delta, a.delta_im),
-      make_scalar<CT>(a.eta, a.eta_im), a.flags);
+      make_scalar<CT>(a.eta, a.eta_im),
+      CoefPtrs<CT>{static_cast<const CT*>(a.alpha_p),
+                   static_cast<const CT*>(a.beta_p),
+                   static_cast<const CT*>(a.delta_p),
+                   static_cast<const CT*>(a.eta_p)},
+      a.flags);
   return 0;
 }
 
@@ -466,7 +492,10 @@ int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
 // 5 complex64; compute: 0 float64, 1 float32, 2 complex128 (store 4),
 // 3 complex64 (store 5).  part holds float64 partials, complex128 for a
 // complex compute type; the coefficients come as real and imaginary
-// parts (the imaginary parts are ignored for a real compute type).  bw
+// parts (the imaginary parts are ignored for a real compute type), or,
+// where alpha_p ... eta_p is not null, as one value of the compute type
+// on the card; gamma (with the gamma flag) by value where gamma_width is
+// 0, else as gamma_width (1 or b) values on the card.  bw
 // (columns per grid.y slice, <= 16), tpr (threads per row), cpt (columns
 // per thread, tpr * cpt == bw) and threads (per block) come
 // from kernels/sellcs_spmv.py:launch_geometry; cpt > 1 needs b % cpt == 0
@@ -479,7 +508,9 @@ extern "C" int sellcs_spmv_launch(
     void* part, int nchunks, int C, int b, int bw, int tpr, int cpt,
     int threads, int gamma_width, double alpha, double beta, double delta,
     double eta, double alpha_im, double beta_im, double delta_im,
-    double eta_im, int flags, void* stream) {
+    double eta_im, double gamma_re, double gamma_im, const void* alpha_p,
+    const void* beta_p, const void* delta_p, const void* eta_p, int flags,
+    void* stream) {
   if (C < 1 || nchunks < 1 || b < 1 || bw < 1 || bw > kMaxBW || tpr < 1 ||
       cpt < 1 || tpr * cpt != bw || (cpt > 1 && b % cpt) || threads < 32 ||
       threads > kMaxThreads || threads % 32 || 32 % tpr)
@@ -488,7 +519,8 @@ extern "C" int sellcs_spmv_launch(
                static_cast<const int*>(chunk_off),
                static_cast<const int*>(chunk_len), x, y_in, z_in, gamma, y, z,
                part, nchunks, C, b, bw, tpr, threads, gamma_width, flags,
-               alpha, beta, delta, eta, alpha_im, beta_im, delta_im, eta_im};
+               alpha, beta, delta, eta, alpha_im, beta_im, delta_im, eta_im,
+               gamma_re, gamma_im, alpha_p, beta_p, delta_p, eta_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (compute == 0) {

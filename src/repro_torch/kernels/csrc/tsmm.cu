@@ -142,8 +142,12 @@ tsmm_stream(const T* __restrict__ V, const typename Acc<T>::type* __restrict__ X
             const T* __restrict__ W_in, T* __restrict__ W_out, long long n,
             int m_rt, int k_rt, int R, long long ntiles,
             typename Acc<T>::type alpha, typename Acc<T>::type beta,
+            const typename Acc<T>::type* __restrict__ alpha_p,
+            const typename Acc<T>::type* __restrict__ beta_p,
             int has_w, int v_al, int w_al) {
   using A = typename Acc<T>::type;
+  if (alpha_p) alpha = *alpha_p;  // a coefficient on the card
+  if (beta_p) beta = *beta_p;
   constexpr int G = group_of<A>(K);
   constexpr bool kRegX = M > 0 && M * G * (int)sizeof(A) <= kRegXBytes;
   // V is read PW values at a time (a whole row's bytes where under 16)
@@ -265,7 +269,8 @@ tsmm_stream(const T* __restrict__ V, const typename Acc<T>::type* __restrict__ X
 template <typename T, int M, int K>
 int launch_mk(const void* V, const void* X, const void* W_in, void* W_out,
               long long n, int m, int k, typename Acc<T>::type alpha,
-              typename Acc<T>::type beta, int has_w, cudaStream_t stream) {
+              typename Acc<T>::type beta, const void* alpha_p,
+              const void* beta_p, int has_w, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const int R = tile_rows(m, k, (int)sizeof(T));
   const long long ntiles = (n + R - 1) / R;
@@ -314,21 +319,23 @@ int launch_mk(const void* V, const void* X, const void* W_in, void* W_out,
   kern<<<(unsigned)grid, kThreads, smem, stream>>>(
       static_cast<const T*>(V), static_cast<const A*>(X),
       static_cast<const T*>(W_in), static_cast<T*>(W_out), n, m, k, R, ntiles,
-      alpha, beta, has_w, v_al, w_al);
+      alpha, beta, static_cast<const A*>(alpha_p),
+      static_cast<const A*>(beta_p), has_w, v_al, w_al);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* V, const void* X, const void* W_in, void* W_out,
            long long n, int m, int k, double alpha, double beta,
-           double alpha_im, double beta_im, int has_w, cudaStream_t stream) {
+           double alpha_im, double beta_im, const void* alpha_p,
+           const void* beta_p, int has_w, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   const A a = make_scalar<A>(alpha, alpha_im);
   const A b = make_scalar<A>(beta, beta_im);
 #define TSMM_SQUARE(W)                                                      \
   if (m == W && k == W)                                                     \
-    return launch_mk<T, W, W>(V, X, W_in, W_out, n, m, k, a, b, has_w,      \
-                              stream);
+    return launch_mk<T, W, W>(V, X, W_in, W_out, n, m, k, a, b, alpha_p,    \
+                              beta_p, has_w, stream);
   TSMM_SQUARE(1)
   TSMM_SQUARE(2)
   TSMM_SQUARE(4)
@@ -337,7 +344,8 @@ int launch(const void* V, const void* X, const void* W_in, void* W_out,
   TSMM_SQUARE(32)
   TSMM_SQUARE(64)
 #undef TSMM_SQUARE
-  return launch_mk<T, 0, 0>(V, X, W_in, W_out, n, m, k, a, b, has_w, stream);
+  return launch_mk<T, 0, 0>(V, X, W_in, W_out, n, m, k, a, b, alpha_p,
+                            beta_p, has_w, stream);
 }
 
 }  // namespace
@@ -345,18 +353,23 @@ int launch(const void* V, const void* X, const void* W_in, void* W_out,
 // dtype: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
 // 5 complex64 (of V, W_in, W_out); X holds m * k values of the
 // accumulation type.  alpha and beta come as real and imaginary parts (the
-// imaginary parts are ignored for a real dtype).  Requires n >= 1 and
+// imaginary parts are ignored for a real dtype), or, where alpha_p /
+// beta_p is not null, as one value of the accumulation type on the card.
+// Requires n >= 1 and
 // 1 <= m, k <= 64; W_out 16-byte aligned.  Returns the first CUDA error of
 // the launch (0 on success).
 extern "C" int tsmm_launch(int dtype, const void* V, const void* X,
                            const void* W_in, void* W_out, long long n, int m,
                            int k, double alpha, double beta, double alpha_im,
-                           double beta_im, int has_w, void* stream) {
+                           double beta_im, const void* alpha_p,
+                           const void* beta_p, int has_w, void* stream) {
   if (n < 1 || m < 1 || k < 1 || m > kMaxDim || k > kMaxDim ||
       (reinterpret_cast<uintptr_t>(W_out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TSMM_ARGS V, X, W_in, W_out, n, m, k, alpha, beta, alpha_im, beta_im, has_w, s
+#define TSMM_ARGS \
+  V, X, W_in, W_out, n, m, k, alpha, beta, alpha_im, beta_im, alpha_p, \
+      beta_p, has_w, s
   switch (dtype) {
     case 0: return launch<double>(TSMM_ARGS);
     case 1: return launch<float>(TSMM_ARGS);

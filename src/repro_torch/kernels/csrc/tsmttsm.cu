@@ -474,13 +474,16 @@ __device__ __forceinline__ Complex<R> lane_value(Complex<R> v, int src) {
 // block order (kFinishChunk partials in flight ahead of its sums), and
 // the runs' sums are then added in run order
 // (kernels/tsmttsm.py:summation_depth).  Lane 0 applies alpha, beta and
-// the output type.
+// the output type (alpha and beta read on the card where alpha_p and
+// beta_p are not null).
 template <typename T, bool KAHAN, typename A = typename Acc<T>::type>
 __global__ void __launch_bounds__(32 * kFinishWarps)
 tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
                const typename Acc<T>::type* __restrict__ comp, int nblocks,
                int mk, const typename Acc<T>::type* __restrict__ x_in,
-               T* __restrict__ x_out, A alpha, A beta, int has_x) {
+               T* __restrict__ x_out, A alpha, A beta,
+               const A* __restrict__ alpha_p, const A* __restrict__ beta_p,
+               int has_x) {
   const int o = blockIdx.x * kFinishWarps + threadIdx.x / 32;
   const int l = threadIdx.x & 31;
   if (o >= mk) return;  // the whole warp
@@ -518,8 +521,8 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
     }
   }
   if (l == 0) {
-    A res = alpha * tot;
-    if (has_x) res += beta * x_in[o];
+    A res = (alpha_p ? *alpha_p : alpha) * tot;
+    if (has_x) res += (beta_p ? *beta_p : beta) * x_in[o];
     x_out[o] = store_as<T>(res);
   }
 }
@@ -536,6 +539,7 @@ struct Args {
   const void* x_in;
   void* x_out;
   double alpha, beta, alpha_im, beta_im;
+  const void *alpha_p, *beta_p;
   int has_x, conj;
 };
 
@@ -575,6 +579,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const A*>(a.part), static_cast<const A*>(a.comp),
       a.nblocks, mk, static_cast<const A*>(a.x_in), static_cast<T*>(a.x_out),
       make_scalar<A>(a.alpha, a.alpha_im), make_scalar<A>(a.beta, a.beta_im),
+      static_cast<const A*>(a.alpha_p), static_cast<const A*>(a.beta_p),
       a.has_x);
   return (int)cudaGetLastError();
 }
@@ -596,7 +601,8 @@ int launch_t(int kahan, const Args& a, cudaStream_t s) {
 // dtype: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
 // 5 complex64; conj (complex only) gives V^H W.  alpha and beta come as
 // real and imaginary parts (the imaginary parts are ignored for a real
-// dtype).  part and comp hold
+// dtype), or, where alpha_p / beta_p is not null, as one value of the
+// accumulation type on the card.  part and comp hold
 // nblocks * m * k values of the accumulation type (comp only for kahan);
 // x_in holds m * k values of the accumulation type (read when has_x).
 // tile_rows is a multiple of the row lanes (kernels/tsmttsm.py:stage_rows);
@@ -609,14 +615,15 @@ extern "C" int tsmttsm_launch(int dtype, int kahan, int conj, const void* V,
                               long long rows_per_block, int nblocks,
                               int tile_rows, int bulk, const void* x_in,
                               void* x_out, double alpha, double beta,
-                              double alpha_im, double beta_im, int has_x,
-                              void* stream) {
+                              double alpha_im, double beta_im,
+                              const void* alpha_p, const void* beta_p,
+                              int has_x, void* stream) {
   if (m < 1 || k < 1 || m > kMaxDim || k > kMaxDim || n < 0 || nblocks < 0 ||
       (nblocks > 0 && (rows_per_block < 1 || tile_rows < 1)))
     return (int)cudaErrorInvalidValue;
   const Args a{V,  W,        part,  comp,  n,    m,     k,
                rows_per_block, nblocks, tile_rows, bulk, x_in, x_out,
-               alpha, beta, alpha_im, beta_im, has_x, conj};
+               alpha, beta, alpha_im, beta_im, alpha_p, beta_p, has_x, conj};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_t<double>(kahan, a, s);

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import execution
@@ -27,7 +28,8 @@ from repro_torch.core.spmv import dot_acc_dtype
 from repro_torch.kernels import _build
 
 __all__ = ["sellcs_spmv_cuda", "check_operand", "launch_geometry",
-           "dot_parts", "Geometry", "MAX_C", "MAX_THREADS"]
+           "dot_parts", "coefficient", "coefficient_arg", "Coef", "Geometry",
+           "MAX_C", "MAX_THREADS"]
 
 #: largest chunk height
 MAX_C = 256
@@ -49,7 +51,7 @@ _COMPUTE_CODES = {torch.float64: 0, torch.float32: 1, torch.complex128: 2,
 _HAS_YIN, _HAS_GAMMA, _CHAIN, _DOT_YY, _DOT_XY, _DOT_XX = 1, 2, 4, 8, 16, 32
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 8 + [_I, _P]
+_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 10 + [_P] * 4 + [_I, _P]
 
 
 class Geometry(NamedTuple):
@@ -136,13 +138,71 @@ def _check(name, t, device, dtype, shape) -> None:
 
 
 def coefficient(fn: str, name: str, v, ct: torch.dtype):
-    """``(real, imaginary)`` parts of a number or 0-d tensor coefficient;
-    a real compute dtype takes real coefficients only."""
+    """``(real, imaginary)`` parts of a number or a 0-d tensor on the host;
+    a real compute dtype takes real coefficients only.  A tensor on the
+    card goes through :func:`coefficient_arg` instead: reading it here
+    would wait for the card."""
     c = complex(v)
     if c.imag != 0 and not ct.is_complex:
         raise TypeError(f"{fn}: {name}={v} is complex but the compute dtype "
                         f"{ct} is real")
     return c.real, c.imag
+
+
+class Coef(NamedTuple):
+    """A coefficient as the kernels take it: by value, ``re + i im``, or,
+    where ``values`` is set, through the pointer of those 1 or ``width``
+    values on the card (in the compute dtype), which the host never
+    reads."""
+    re: float
+    im: float
+    values: Optional[torch.Tensor] = None
+
+    @property
+    def ptr(self):
+        return None if self.values is None else self.values.data_ptr()
+
+    @property
+    def width(self) -> int:
+        return 0 if self.values is None else int(self.values.numel())
+
+
+def coefficient_arg(fn: str, name: str, v, ct: torch.dtype, device,
+                    width: int = 1) -> Coef:
+    """A coefficient (a number, a 0-d tensor, or ``width`` values) as a
+    kernel takes it, without a host sync: a number, or a host tensor or
+    array of one value, by value; a tensor on the card as its values in
+    ``ct`` (converted on the card where its dtype differs); a host tensor
+    or array of ``width`` values copied to ``device`` from pinned memory
+    without blocking.  A real ``ct`` takes real coefficients only (a
+    complex tensor on the card is refused by its dtype)."""
+    if isinstance(v, (int, float, complex)):
+        return Coef(*coefficient(fn, name, v, ct))
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        if v.is_complex() and not ct.is_complex:
+            raise TypeError(f"{fn}: {name} is a {v.dtype} tensor but the "
+                            f"compute dtype {ct} is real")
+        t = v.reshape(-1)
+    elif not isinstance(v, torch.Tensor) and np.ndim(v) == 0:
+        return Coef(*coefficient(fn, name, v, ct))
+    else:
+        t = (v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.asarray(v))).reshape(-1)
+        if t.numel() == 1:
+            return Coef(*coefficient(fn, name, t[0], ct))
+        if t.is_complex() and not ct.is_complex:
+            raise TypeError(f"{fn}: {name} is complex but the compute dtype "
+                            f"{ct} is real")
+    if t.numel() not in (1, width):
+        shape = v.shape if isinstance(v, torch.Tensor) else np.shape(v)
+        raise ValueError(f"{fn}: {name} must be a scalar or ({width},), got "
+                         f"{tuple(shape)}")
+    t = t.resolve_conj().to(ct).contiguous()
+    if t.device != torch.device(device):
+        if t.device.type == "cpu":
+            t = t.pin_memory()
+        t = t.to(device, non_blocking=True)
+    return Coef(0.0, 0.0, t)
 
 
 def sellcs_spmv_cuda(
@@ -216,12 +276,8 @@ def sellcs_spmv_cuda(
         if z_in is None:
             raise ValueError("sellcs_spmv: chained axpby requires z_in")
         _check("z_in", z_in, device, ct, (n_pad, b))
-    g = None
-    if gamma is not None:
-        g = torch.as_tensor(gamma, dtype=ct, device=device).reshape(-1)
-        if g.numel() not in (1, b):
-            raise ValueError(f"gamma must be scalar or ({b},)")
-        g = g.resolve_conj().contiguous()
+    g = (None if gamma is None else
+         coefficient_arg("sellcs_spmv", "gamma", gamma, ct, device, b))
 
     y = torch.empty((n_pad, b), dtype=ct, device=device)
     z = torch.empty((n_pad, b), dtype=ct, device=device) if chain else None
@@ -231,10 +287,10 @@ def sellcs_spmv_cuda(
     part = (torch.empty((dot_parts(nchunks), 3, b),
                         dtype=dot_acc_dtype(ct), device=device)
             if any_dot else None)
-    coefs = [coefficient("sellcs_spmv", name, v, ct) for name, v in
-             (("alpha", alpha), ("beta", beta),
-              ("delta", 0.0 if delta is None else delta),
-              ("eta", 0.0 if eta is None else eta))]
+    coefs = [coefficient_arg("sellcs_spmv", name, v, ct, device)
+             for name, v in (("alpha", alpha), ("beta", beta),
+                             ("delta", 0.0 if delta is None else delta),
+                             ("eta", 0.0 if eta is None else eta))]
     if n_pad and b:
         flags = ((_HAS_YIN if y_in is not None else 0)
                  | (_HAS_GAMMA if g is not None else 0)
@@ -247,12 +303,13 @@ def sellcs_spmv_cuda(
             rc = _entry()(
                 _STORE_CODES[vals.dtype], _COMPUTE_CODES[ct],
                 _ptr(vals), _ptr(cols), _ptr(chunk_off), _ptr(chunk_len),
-                _ptr(x), _ptr(y_in), _ptr(z_in if chain else None), _ptr(g),
-                _ptr(y), _ptr(z), _ptr(part),
+                _ptr(x), _ptr(y_in), _ptr(z_in if chain else None),
+                None if g is None else g.ptr, _ptr(y), _ptr(z), _ptr(part),
                 nchunks, C, b, geo.bw, geo.tpr, geo.cpt, geo.threads,
-                0 if g is None else g.numel(),
-                *(re for re, _ in coefs), *(im for _, im in coefs),
-                flags, stream)
+                0 if g is None else g.width,
+                *(c.re for c in coefs), *(c.im for c in coefs),
+                0.0 if g is None else g.re, 0.0 if g is None else g.im,
+                *(c.ptr for c in coefs), flags, stream)
         if rc != 0:
             raise RuntimeError(f"sellcs_spmv: kernel launch failed with CUDA "
                                f"error {rc}")

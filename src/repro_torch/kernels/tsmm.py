@@ -21,13 +21,13 @@ import torch
 from repro_torch.core import execution
 from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
-from repro_torch.kernels.sellcs_spmv import check_operand, coefficient
+from repro_torch.kernels.sellcs_spmv import check_operand, coefficient_arg
 from repro_torch.kernels.tsmttsm import DTYPE_CODES, check_dims
 
 __all__ = ["tsmm_cuda"]
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = [_I, _P, _P, _P, _P, _L, _I, _I, _D, _D, _D, _D, _I, _P]
+_ARGTYPES = [_I, _P, _P, _P, _P, _L, _I, _I, _D, _D, _D, _D, _P, _P, _I, _P]
 
 
 def _entry():
@@ -47,7 +47,8 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     or a real X of its precision, converted exactly); W, when given, has
     that dtype too.  The products are summed in the accumulation dtype
     (float32 for bfloat16/float16).  ``alpha``/``beta`` are numbers or 0-d
-    tensors, complex ones for complex V only.
+    tensors (one on the card is read there, never on the host), complex
+    ones for complex V only.
     """
     fn = "tsmm"
     device = V.device
@@ -72,15 +73,17 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     out = torch.empty((n, k), dtype=V.dtype, device=device)
     if n == 0:
         return out
-    xs = X.resolve_conj().to(storage_acc_dtype(V.dtype)).contiguous()
-    (ar, ai), (br, bi) = (coefficient(fn, "alpha", alpha, V.dtype),
-                          coefficient(fn, "beta", beta, V.dtype))
+    acc = storage_acc_dtype(V.dtype)
+    xs = X.resolve_conj().to(acc).contiguous()
+    ca, cb = (coefficient_arg(fn, name, v, acc, device)
+              for name, v in (("alpha", alpha), ("beta", beta)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry()(
             DTYPE_CODES[V.dtype], V.data_ptr(), xs.data_ptr(),
             None if W is None else W.data_ptr(), out.data_ptr(), n, m, k,
-            ar, br, ai, bi, int(W is not None), stream)
+            ca.re, cb.re, ca.im, cb.im, ca.ptr, cb.ptr, int(W is not None),
+            stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch("tsmm")

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core import execution
 from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
-from repro_torch.kernels.sellcs_spmv import check_operand, coefficient
+from repro_torch.kernels.sellcs_spmv import check_operand, coefficient_arg
 
 __all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
            "stage_rows", "bulk_aligned", "thread_tile", "block_runs",
@@ -52,7 +52,7 @@ DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P, _P,
-             _D, _D, _D, _D, _I, _P]
+             _D, _D, _D, _D, _P, _P, _I, _P]
 
 
 def _entry():
@@ -168,7 +168,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     in that dtype, summed in the accumulation dtype (float32 for
     bfloat16/float16).  ``X`` (a real dtype, or a complex one for complex
     V) is read in the accumulation dtype.  ``alpha``/``beta`` are numbers
-    or 0-d tensors, complex ones for complex V only.
+    or 0-d tensors (one on the card is read there, never on the host),
+    complex ones for complex V only.
     """
     fn = "tsmttsm"
     device = V.device
@@ -199,8 +200,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     part = torch.empty((nblocks, m, k), dtype=acc, device=device)
     comp = torch.empty_like(part) if kahan else None
     out = torch.empty((m, k), dtype=V.dtype, device=device)
-    (ar, ai), (br, bi) = (coefficient(fn, "alpha", alpha, V.dtype),
-                          coefficient(fn, "beta", beta, V.dtype))
+    ca, cb = (coefficient_arg(fn, name, v, acc, device)
+              for name, v in (("alpha", alpha), ("beta", beta)))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry()(
@@ -209,7 +210,8 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
             part.data_ptr(), None if comp is None else comp.data_ptr(),
             n, m, k, rows, nblocks, tile_rows, int(bulk),
             None if x_in is None else x_in.data_ptr(), out.data_ptr(),
-            ar, br, ai, bi, int(x_in is not None), stream)
+            ca.re, cb.re, ca.im, cb.im, ca.ptr, cb.ptr,
+            int(x_in is not None), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch("tsmttsm")

@@ -43,7 +43,7 @@ import torch
 from repro_torch.core.spmv import SpmvOpts
 from repro_torch.solvers.lanczos import lanczos_extrema, op_device, real_rows
 
-__all__ = ["kpm_dos_moments", "jackson_kernel", "kpm_dos"]
+__all__ = ["kpm_dos_moments", "moment_step", "jackson_kernel", "kpm_dos"]
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -54,6 +54,18 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _re(t: torch.Tensor) -> torch.Tensor:
     return t.real if t.is_complex() else t
+
+
+def moment_step(op, w0, w1, alpha2: float, gamma: float, mu0, mu1):
+    """One fused sweep of the recurrence: ``w2 = alpha2 (A - gamma I) w1 -
+    w0`` and the moments ``mu_{2m+1} = 2 <w1, w2> - mu_1`` and ``mu_{2m+2}
+    = 2 <w2, w2> - mu_0`` from its dots, one B1 launch on the card and no
+    host sync.  Returns ``(w2, mu_{2m+1}, mu_{2m+2})``."""
+    w2, _, dots = op.mv_fused(
+        w1, y=w0, opts=SpmvOpts(alpha=alpha2, beta=-1.0, gamma=gamma,
+                                dot_yy=True, dot_xy=True))
+    return (w2, 2.0 * _re(dots[1]).to(mu1.dtype) - mu1,
+            2.0 * _re(dots[0]).to(mu0.dtype) - mu0)
 
 
 def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
@@ -97,12 +109,9 @@ def kpm_dos_moments(op, n_moments: int, *, n_probes: int = 4,
     odds, evens = [], []
     for _ in range(half):
         if fused:
-            w2, _, dots = op.mv_fused(
-                w1, y=w0,
-                opts=SpmvOpts(alpha=alpha2, beta=-1.0, gamma=gamma,
-                              dot_yy=True, dot_xy=True))
-            odds.append(2.0 * _re(dots[1]).to(mu1.dtype) - mu1)  # mu_{2m+1}
-            evens.append(2.0 * _re(dots[0]).to(mu0.dtype) - mu0)  # mu_{2m+2}
+            w2, odd, even = moment_step(op, w0, w1, alpha2, gamma, mu0, mu1)
+            odds.append(odd)
+            evens.append(even)
         else:
             Aw = op.mv(w1)
             w2 = alpha2 * (Aw - gamma * w1) - w0

@@ -165,6 +165,31 @@ def test_b1_plain_path_matches_jax(dname, flag, real_x):
         close(dt.numpy(), dj, TOL[dtype])
 
 
+@pytest.mark.parametrize("dname", sorted(CDTYPES))
+def test_b5_wide_block_plain_path_matches_jax(dname):
+    """B5's complex plain path at bw = 300 (past one thread block's 256
+    slots on the card) against the JAX op, which takes its plain path for
+    complex values, with per-column a and a scalar b: y' within TOL of
+    max |y'|; the port's dots, conjugate-linear in the first argument,
+    against the conjugated sums of the JAX y' (the JAX package's dots do
+    not conjugate, a deliberate difference)."""
+    dtype = CDTYPES[dname]
+    rng = np.random.default_rng(12)
+    x, y = (_crandn(rng, (53, 300), dtype) for _ in range(2))
+    a, b = _crandn(rng, 300, dtype), 0.25 - 0.75j
+    out, dots = ops.fused_axpby_dots(_t(x), _t(y), _t(a), b, dot_yy=True,
+                                     dot_xy=True, dot_xx=True)
+    with _x64(dtype):
+        jo, _ = jops.fused_axpby_dots(_j(x), _j(y), _j(a), b)
+        jo = np.asarray(jo)
+    assert dots.shape == (3, 300)
+    close(out.numpy(), jo, TOL[dtype])
+    yn, xc = jo.astype(np.complex128), x.astype(np.complex128)
+    close(dots.numpy(), np.stack([np.sum(yn.conj() * yn, 0),
+                                  np.sum(xc.conj() * yn, 0),
+                                  np.sum(xc.conj() * xc, 0)]), TOL[dtype])
+
+
 # ------------------------------------------------------------------- B2, B3
 @pytest.mark.parametrize("with_x", [False, True])
 @pytest.mark.parametrize("kahan", [False, True])
@@ -464,7 +489,8 @@ def test_chip_smoke_complex_phases_rehearse_on_cpu(monkeypatch):
     from repro_torch.matrices import laplace3d
     for name, value in (("DEVICE", "cpu"), ("NX", 10),
                         ("CX_TSM_NS", (37, 300)), ("CX_TSM_DIMS", (1, 5, 16)),
-                        ("CX_B4_NB", (1, 7)), ("CX_PRECOND_NX", 32)):
+                        ("CX_B4_NB", (1, 7)), ("CX_PRECOND_NX", 32),
+                        ("B5_WIDE_NS", (0, 37))):
         monkeypatch.setattr(chip_smoke, name, value)
     chip_smoke.phase_complex_grid()
     fw = {"coo": laplace3d(10), "iters64": 0}
@@ -481,3 +507,4 @@ def test_chip_smoke_complex_phases_rehearse_on_cpu(monkeypatch):
             assert rows[("sellcs_spmv", ct, b)]["bound_ms"] > 0
         for kahan in (True, False):
             assert rows[("tsmttsm", ct, kahan)]["library_ms"] == 1.0
+        assert rows[("fused_axpby_dots", ct)]["bound_ms"] > 0

@@ -170,20 +170,102 @@ def test_plain_version_on_the_cpu_launches_nothing():
 
 
 def test_partition_and_depth():
-    assert fused_update.partition(0, 4) == (0, 0)
-    assert fused_update.summation_depth(0, 4) == 0
-    # tiles of 8 x 256 entries at bw = 4: 4,194,304 rows make 8192 tiles
-    assert fused_update.partition(4_194_304, 4) == (8192, 528)
-    # 16 tiles of 8 entries per thread, 64 lanes, 17 finishing loads, 5 steps
-    assert fused_update.summation_depth(4_194_304, 4) == 128 + 64 + 17 + 5
-    # bw = 3: a tile is 8 x 255 entries
-    assert fused_update.partition(37, 3) == (1, 1)
-    assert fused_update.summation_depth(37, 3) == 8 + 85 + 1 + 5
-    # past bw = 85 a block has fewer threads than (dot, column) pairs;
-    # at bw = 256 every thread is its column's only lane
-    assert fused_update.partition(4109, 86) == (257, 257)
-    assert fused_update.partition(37, 256) == (5, 5)
-    assert fused_update.summation_depth(37, 256) == 8 + 1 + 1 + 5
+    f64, f32, c128 = torch.float64, torch.float32, torch.complex128
+    assert fused_update.summation_depth(0, 4, f64) == 0
+    # float64 at bw = 4: vectors of 2 entries, periods of 4 (one row), 2
+    # slots, 128 lanes, tiles of 4 x 128 periods: 4,194,304 rows make 8192
+    # tiles over 264 blocks (132 SMs x 2) in 9 groups
+    p = fused_update.partition(4_194_304, 4, f64)
+    assert (p.vec, p.period, p.slots, p.slot_tiles, p.lanes, p.unroll,
+            p.ntiles, p.nbx, p.ngroups) == (2, 4, 2, 1, 128, 4, 8192, 264, 9)
+    # 32 tiles of 4 entries a thread, a butterfly over 16 lanes (4 steps)
+    # and 8 warps, 32 blocks of a group, 9 groups of one offset
+    assert fused_update.summation_depth(4_194_304, 4, f64) == (
+        128 + 4 + 8 + 32 + 9)
+    # float32: one slot of 4 columns a period, 256 lanes
+    p = fused_update.partition(4_194_304, 4, f32)
+    assert (p.vec, p.period, p.slots, p.lanes, p.ntiles) == (4, 4, 1, 256,
+                                                             4096)
+    # complex128: one value a vector, 4 slots
+    assert fused_update.partition(4_096_000, 4, c128)[:3] == (1, 4, 4)
+    # bw = 3 in float64: periods of 6 entries (two rows) in 3 slots, which
+    # a warp does not divide: 85 lanes summed in order; one tile, one
+    # block, one group of two offsets a column
+    p = fused_update.partition(37, 3, f64)
+    assert (p.period, p.slots, p.lanes, p.ntiles, p.nbx) == (6, 3, 85, 1, 1)
+    assert fused_update.summation_depth(37, 3, f64) == 4 + 85 + 1 + 2
+    # the half types: 8 entries a vector, 2 periods in flight
+    p = fused_update.partition(1 << 20, 16, torch.bfloat16)
+    assert (p.vec, p.period, p.slots, p.unroll, p.nbx) == (8, 16, 2, 2, 264)
+    # past 256 slots: slot tiles along grid.y, one lane each, and half
+    # the blocks along x; bw = 257 takes periods of two rows
+    p = fused_update.partition(4109, 257, f64)
+    assert (p.period, p.slots, p.slot_tiles, p.slot_tile, p.lanes,
+            p.nbx) == (514, 257, 2, 129, 1, 132)
+    p = fused_update.partition(4109, 512, c128)
+    assert (p.slots, p.slot_tiles, p.slot_tile, p.lanes) == (512, 2, 256, 1)
+    # an empty block with dots still takes one block (it writes zeros)
+    assert fused_update.partition(0, 4, f64).nbx == 1
+
+
+COEF_KINDS = ["number", "0-d tensor", "per-column tensor"]
+
+
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("kind", COEF_KINDS)
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+def test_coefficients_broadcast_as_the_jax_kernel(dtype, kind, complex_):
+    """The coefficient helpers give the (bw,) values the JAX kernel
+    broadcasts (``jnp.broadcast_to(jnp.asarray(a, acc), (bw,))``) for a
+    number, a 0-d tensor and a (bw,) tensor, in the accumulation dtype
+    (complex128 / complex64 for complex values): a number and a 0-d host
+    tensor go to the kernel by value, a (bw,) tensor as its values."""
+    from repro_torch.kernels.sellcs_spmv import coefficient_arg
+    bw = 5
+    rng = np.random.default_rng(7)
+    vals = rng.standard_normal(bw) + (1j * rng.standard_normal(bw)
+                                      if complex_ else 0.0)
+    if complex_:
+        acc = {"float64": torch.complex128}.get(dtype, torch.complex64)
+        jacc = {"float64": jnp.complex128}.get(dtype, jnp.complex64)
+    else:
+        acc = torch.float64 if dtype == "float64" else torch.float32
+        jacc = jnp.float64 if dtype == "float64" else jnp.float32
+    c = {"number": complex(vals[0]) if complex_ else float(vals[0]),
+         "0-d tensor": torch.tensor(vals[0]),
+         "per-column tensor": torch.from_numpy(vals)}[kind]
+    with jax.enable_x64(True):
+        jc = np.asarray(c) if isinstance(c, torch.Tensor) else c
+        want = np.asarray(jnp.broadcast_to(jnp.asarray(jc, jacc), (bw,)))
+    got = fused_update.coefficients(c, bw, acc, "cpu")
+    assert got.dtype == acc and got.shape == (bw,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    arg = coefficient_arg("f", "a", c, acc, "cpu", bw)
+    assert (arg.values is None) == (kind != "per-column tensor")
+
+
+@pytest.mark.parametrize("flags", [(True, True, True), (False, True, False)],
+                         ids=["all", "xy"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_wide_block_plain_path_matches_jax(dtype, flags):
+    """B5's plain path at bw = 300, past one thread block's 256 slots on
+    the card (its slot tiles), against the JAX op with per-column a and a
+    scalar b: the tolerances of :func:`test_matches_jax`."""
+    x, y, a, _ = _inputs(67, 300, dtype, seed=11, per_column=True)
+    b = -0.375
+    jout, jdt, jdots = _jax(x, y, a, b, flags, dtype == "float64")
+    out, dots = fused_axpby_dots(tensor_from_array(x, "cpu"),
+                                 tensor_from_array(y, "cpu"),
+                                 torch.from_numpy(a), b, dot_yy=flags[0],
+                                 dot_xy=flags[1], dot_xx=flags[2])
+    assert str(out.dtype)[6:] == jdt == dtype and dots.shape == (3, 300)
+    vec_tol, dot_tol = TOL[dtype]
+    assert _rel(out.double().numpy(), jout) <= vec_tol
+    for k, on in enumerate(flags):
+        if on:
+            assert _rel(dots[k].numpy(), jdots[k]) <= dot_tol
+        else:
+            assert not dots[k].any() and not jdots[k].any()
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -235,7 +317,7 @@ def test_kernel_matches_plain_on_card(dt, n, bw, flags):
     if not any(flags):
         assert dots is None
         return
-    depth = fused_update.summation_depth(n, bw)
+    depth = fused_update.summation_depth(n, bw, dt)
     scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
                          (xd * xd).sum(0)])
     dlim = (depth + 6) * u * scale + (n + 6) * 2.0 ** -53 * scale
@@ -329,7 +411,7 @@ def test_complex_kernel_matches_plain_on_card(dt, n, bw, flags):
     if not any(flags):
         assert dots is None
         return
-    depth = fused_update.summation_depth(n, bw)
+    depth = fused_update.summation_depth(n, bw, dt)
     scale = torch.stack([(mag * mag).sum(0), (xd.abs() * mag).sum(0),
                          (xd.abs() ** 2).sum(0)])
     dlim = ((depth + 6) * 2.0 ** -53 + 8 * u) * scale + u * wdots.abs()

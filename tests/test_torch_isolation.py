@@ -333,7 +333,7 @@ def test_chip_smoke_precond_phases_rehearse_on_cpu(monkeypatch):
     import chip_smoke
     for name, value in (("DEVICE", "cpu"), ("PRECOND_NX", 64),
                         ("CHEB_PCG_NX", 32), ("B4_NB", (0, 1, 7, 40)),
-                        ("B5_NS", (0, 1, 37, 600))):
+                        ("B5_NS", (0, 1, 37, 600)), ("B5_WIDE_NS", (0, 37))):
         monkeypatch.setattr(chip_smoke, name, value)
     chip_smoke.phase_b4_grid()
     chip_smoke.phase_b5_grid()
@@ -364,6 +364,26 @@ def test_chip_smoke_stepper_phase_rehearses_on_cpu(monkeypatch):
     execution.reset_launch_counts()
     chip_smoke.phase_stepper(fw, bcg, pcg, "cpu rehearsal")
     assert execution.discarded_counts().get("cg", 0) == 0
+
+
+def test_chip_smoke_coef_syncs_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's count of the coefficient hand-over's host syncs, on
+    the CPU at a small size: each call (B5 with numbers, real and complex;
+    B1 with a Python-float gamma; a ChebFD filter step; a KPM moment step)
+    runs once through the plain versions, and nothing is counted (the
+    count needs the card)."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    r, c, v, n = chip_smoke.laplace3d(12)
+    fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu"),
+          "A16": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float32, store_dtype=torch.bfloat16,
+                          device="cpu")}
+    execution.reset_launch_counts()
+    assert chip_smoke.phase_coef_syncs(fw, "cpu rehearsal") == {}
+    assert not any(execution.launch_counts().values())
 
 
 def test_chip_smoke_lm_phases_rehearse_on_cpu(monkeypatch):
