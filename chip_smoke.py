@@ -290,19 +290,19 @@ from repro_torch.core.distributed import (Staging, fused_epilogue,  # noqa: E402
                                           remote_stage)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import fused_update  # noqa: E402
-from repro_torch.kernels.block_diag import MAX_BS  # noqa: E402
-from repro_torch.kernels.mamba_scan import MAX_N as SCAN_MAX_N  # noqa: E402
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     EXP_FLUSH, EXP_REL, EXP_ULP, exp2_cuda, error_bound as scan_error_bound)
 from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
                                      fused_axpby_dots, herm_eig, mamba_scan,
                                      sellcs_spmv, tsmm, tsmttsm)
 from repro_torch.kernels.herm_eig import herm_eig_cuda  # noqa: E402
+from repro_torch.kernels.sellcs_spmv import (chunk_parts,  # noqa: E402
+                                             dot_parts, launch_geometry)
 from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
                                      fused_axpby_dots_ref, mamba_scan_ref,
                                      sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
 from repro_torch.launch.serve import generate  # noqa: E402
-from repro_torch.kernels.tsmttsm import MAX_DIM, summation_depth  # noqa: E402
+from repro_torch.kernels.tsmttsm import summation_depth  # noqa: E402
 from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
                                   laplace3d, matpde)
 from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E402
@@ -376,10 +376,13 @@ GRID_PAIRS = [(torch.float64, np.float64), (torch.float32, np.float32),
 #: control flow may lower them; the card run uses these values)
 DEVICE = "cuda"
 NX = 160
+#: the widest instance of each kernel's narrow design (B2/B3's widths, the
+#: eigensolver's m, B4's bs, B6's N); the wide grids start past it
+NARROW = 64
 #: block width of the block-Krylov main path, and the TSM grid's row counts
 WIDTH = 16
 TSM_NS = (0, 1, 37, 4109, 1 << 20)
-TSM_DIMS = (1, 3, 8, 16, MAX_DIM)
+TSM_DIMS = (1, 3, 8, 16, NARROW)
 #: (m, k) of B2's cases on views off a 16-byte boundary (the stages then
 #: fill by plain loads)
 TSM_ODD = ((3, 5), (1, 7), (5, 3), (7, 9))
@@ -401,7 +404,7 @@ CHEB_NX, CHEB_TARGET, CHEB_DEGREE, CHEB_SWEEPS = 16, (0.05, 0.25), 150, 4
 PRECOND_NX, CHEB_PCG_NX, PRECOND_EPS, PRECOND_C = 2048, 1024, 1e-2, 32
 PCG_TOL, PMINRES_TOL, PRECOND_WIDTH = 1e-8, 1e-6, 4
 #: B4 and B5 grids
-B4_BS = (1, 4, 8, 16, 32, 48, MAX_BS)
+B4_BS = (1, 4, 8, 16, 32, 48, NARROW)
 B4_B = (1, 3, 4, 16)
 B4_NB = (0, 1, 7, 4096)
 B5_NS = (0, 1, 37, 4109, 1 << 20)
@@ -419,7 +422,7 @@ B5_WIDE_BW, B5_WIDE_NS = (257, 512), (0, 1, 37, 4109)
 B6_B = (1, 3)
 B6_S = (1, 7, 64, 257, 4096)
 B6_DI = (1, 8, 100, 16384)
-B6_N = (1, 4, 16, SCAN_MAX_N)
+B6_N = (1, 4, 16, NARROW)
 #: B6's exponential: float32 arguments per launch, and the stride through
 #: their bit patterns (1: every finite argument <= 0; a CPU rehearsal
 #: strides)
@@ -582,8 +585,11 @@ def phase_environment() -> str:
 
 # ------------------------------------------------------------------ phase 2
 #: B6's template instances in mangled names: (lanes per channel, states per
-#: lane)
-SCAN_INSTANCE = r"mamba_scan_rowsILi(\d+)ELi(\d+)E"
+#: lane, whether it adds to y: the later state groups past 512 states)
+SCAN_INSTANCE = r"mamba_scan_rowsILi(\d+)ELi(\d+)E(?:Lb([01])E)?"
+#: B6's instances: (lanes, states a lane) of 1-4, 1-8, 1-16, 2-16, 4-16,
+#: 8-16, 16-16 and 32-16, each storing y and adding to it
+SCAN_INSTANCES = 16
 
 
 def sass_hot_loop(lib: Path, pattern: str = SCAN_INSTANCE):
@@ -626,7 +632,7 @@ def hot_loops(sass: str, pattern: str = SCAN_INSTANCE):
                 for op in ops:
                     hist[op.split(".")[0]] = hist.get(op.split(".")[0], 0) + 1
                 best = (len(ops), mufu, hist)
-        loops[f"<{m.group(1)},{m.group(2)}>"] = best
+        loops["<" + ",".join(g for g in m.groups() if g) + ">"] = best
     return loops
 
 
@@ -643,8 +649,11 @@ def phase_build() -> None:
             m = re.search(r"Function properties for (\S+)", line)
             if m:
                 inst = re.search(r"(sellcs_spmv_fused|"
-                                 r"tsmttsm_partial|tsmttsm_finish|tsmm_rows|"
-                                 r"block_diag_rows|axpby_dots_partial|"
+                                 r"tsmttsm_partial|tsmttsm_finish|"
+                                 r"tsmm_stream|tsmm_tiled|tsmm_dmma|"
+                                 r"block_diag_rows|"
+                                 r"block_diag_tiled|herm_eig_block|"
+                                 r"axpby_dots_partial|"
                                  r"axpby_dots_finish|mamba_scan_rows)"
                                  r"I(\w+?)EEv",
                                  m.group(1))
@@ -665,7 +674,8 @@ def phase_build() -> None:
                       f"{regs.group(0) if regs else '?'}, "
                       f"{smem.group(0) if smem else 'no smem'}; {spill}")
     loops = sass_hot_loop(_build._library_path("mamba_scan"))
-    require(len(loops) == 5, f"build: mamba_scan_rows instances {list(loops)}")
+    require(len(loops) == SCAN_INSTANCES,
+            f"build: mamba_scan_rows instances {list(loops)}")
     for inst, (n, mufu, hist) in loops.items():
         require(mufu > 0, f"build: no MUFU.EX2 loop in mamba_scan_rows{inst}")
         npl = int(inst.strip("<>").split(",")[1])
@@ -1767,12 +1777,12 @@ CX_GRID_C, CX_GRID_B = (8, 32), (1, 2, 4, 8, 16)
 #: a chunk taller than a block's threads (walked in passes; with dots,
 #: complex64 at 512 threads needs more than 48 KB of shared memory)
 CX_GRID_TALL_C, CX_GRID_TALL_B = 256, (4, 16)
-CX_TSM_NS, CX_TSM_DIMS = (37, 4109, 1 << 18), (1, 5, 16, MAX_DIM)
+CX_TSM_NS, CX_TSM_DIMS = (37, 4109, 1 << 18), (1, 5, 16, NARROW)
 #: B2 on views one element off the allocation (complex64: off a 16-byte
 #: boundary, so the stages fill by plain loads), held bit for bit to the
 #: same values in a fresh tensor; and the phased laplace3d of the complex
 #: block CG run in cg_step chunks against one monolithic solve
-CX_TSM_VIEWS = ((5, 16), (16, 5), (16, 16), (1, MAX_DIM), (MAX_DIM, 3))
+CX_TSM_VIEWS = ((5, 16), (16, 5), (16, 16), (1, NARROW), (NARROW, 3))
 CX_CHUNK_NX, CX_CHUNK_STEPS = 12, 3
 #: B1's timed complex widths, and those timed with <p, Ap> (column CG and
 #: PCG at 4, Lanczos at 1; ChebFD's block of 8 and block CG's 16 ask none)
@@ -2168,7 +2178,7 @@ def _b5_cx_check(x, y, a, b, flags, tag, worst, twice=False):
 #: the eigensolver's grid: dtypes, orders and kinds of Hermitian matrix
 EIG_DTYPES = (torch.float64, torch.float32, torch.complex128,
               torch.complex64)
-EIG_MS = (1, 2, 3, 16, 17, MAX_DIM)
+EIG_MS = (1, 2, 3, 16, 17, NARROW)
 EIG_KINDS = ("gram", "rank deficient", "repeated")
 
 
@@ -2260,6 +2270,592 @@ def phase_eig_grid() -> None:
           f"||U^H U - I||_F 16 m eps): dtypes "
           f"{[str(d)[6:] for d in EIG_DTYPES]}, m in {EIG_MS}, {EIG_KINDS}, "
           f"and a batch of 8 at m = {WIDTH} equal to one at a time")
+
+
+# ---------------------------------------------------------------- phase 12b
+#: slice 19: every kernel past its narrow design (the instances that used
+#: to raise).  B2/B3's widths (m, k), row counts and dtypes; the
+#: eigensolver's orders (all four dtypes) and one float64 order whose A
+#: lives in device memory; B1's chunk heights (None: one chunk of all
+#: rows, ELLPACK), the rows of a matrix a height and widths; B4's block
+#: sizes, widths, block counts and dtype pairs; B6's (B, S, d_inner, N)
+WIDE_TSM = ((65, 65), (96, 96), (128, 128), (100, 72))
+WIDE_TSM_NS = (37, 4109, 1 << 18)
+WIDE_TSM_DTYPES = (torch.float64, torch.float32, torch.complex128)
+WIDE_EIG_MS = (65, 96, 128)
+WIDE_EIG_DEVICE_A = 200
+WIDE_C = (512, 4096, None)
+WIDE_B1_ROWS = {512: 4 * 512 + 5, 4096: 4 * 4096 + 5, None: 9001}
+WIDE_B1_B = (1, 4, 16)
+WIDE_B4_BS = (65, 128, 256)
+WIDE_B4_B = (1, 4, 17)
+WIDE_B4_NB = (1, 7, 300)
+WIDE_B4_PAIRS = ((torch.float64, torch.float64),
+                 (torch.float32, torch.float32),
+                 (torch.complex128, torch.complex128),
+                 (torch.complex128, torch.float64))
+WIDE_B6 = (tuple((B, S, di, N) for N in (65, 128, 256, 520)
+                 for B, S, di in ((1, 257, 100), (3, 7, 8)))
+           + ((65536, 3, 4, 16), (65537, 2, 3, 65)))
+
+
+def _wide_tsm_cases(g, worst) -> int:
+    """B2 and B3 past width 64 against their plain versions, at the TSM
+    grid's bounds (real: ``_tsm_check``, Kahan to ``kahan_depth``;
+    complex128: ``_cx_check``), each B2 call twice to the same bits."""
+    n_cases = 0
+    for dt in WIDE_TSM_DTYPES:
+        cx = dt.is_complex
+        wide = torch.complex128 if cx else torch.float64
+        name = str(dt)[6:]
+        coefs = CX_TSM_COEFS if cx else TSM_COEFS
+        for n in WIDE_TSM_NS:
+            for m, k in WIDE_TSM:
+                V, W, X, Xs = (_cx_randn(s, dt, g) for s in
+                               ((n, m), (n, k), (m, k), (m, k)))
+                Vd, Wd, Xd, Xsd = (t.to(wide) for t in (V, W, X, Xs))
+                vw, vx = Vd.abs().T @ Wd.abs(), Vd.abs() @ Xsd.abs()
+                d2 = summation_depth(n, m, k, dt)
+                for alpha, beta, out in coefs:
+                    tag = f"{name} n={n} m={m} k={k} alpha={alpha}"
+                    want = tsmttsm_ref(Vd, Wd, Xd if out else None, alpha,
+                                       beta)
+                    scale = abs(alpha) * vw + abs(beta) * Xd.abs()
+                    for kahan in (False, True):
+                        got = tsmttsm(V, W, X if out else None, alpha, beta,
+                                      kahan=kahan)
+                        require(torch.equal(got, tsmttsm(
+                            V, W, X if out else None, alpha, beta,
+                            kahan=kahan)), f"wide B2 {tag}: two runs differ")
+                        key = ("B2" + (" kahan" if kahan else ""), name)
+                        w = worst.setdefault(key, [0.0, "", 0.0])
+                        t = tag + f" kahan={kahan}"
+                        if cx:
+                            depth = (kahan_depth(n, m, k, CX_REAL[dt], dt)
+                                     if kahan else d2)
+                            _cx_check(got, want, scale, dt, depth, n, t, w)
+                        else:
+                            depth = kahan_depth(n, m, k, dt) if kahan else d2
+                            _tsm_check(got, want, scale, dt, depth, n, t, w)
+                    want = tsmm_ref(Vd, Xsd, Wd if out else None, alpha, beta)
+                    scale = abs(alpha) * vx + abs(beta) * Wd.abs()
+                    got = tsmm(V, Xs, W if out else None, alpha, beta)
+                    w = worst.setdefault(("B3" + (" W" if out else ""), name),
+                                         [0.0, "", 0.0])
+                    if cx:
+                        _cx_check(got, want, scale, dt, m, m, tag, w)
+                    else:
+                        _tsm_check(got, want, scale, dt, m, m, tag, w)
+                    n_cases += 3
+    return n_cases
+
+
+def _wide_b1_cases(rng, g, worst) -> int:
+    """B1 on chunks past 256 rows (spread over several blocks), every
+    fusion flag, real (B1 grid's tolerances) and complex128 (as float64),
+    the dots twice to the same bits."""
+    n_cases = 0
+    for ct in (torch.float64, torch.float32, torch.complex128):
+        np_ct = {torch.float64: np.float64, torch.float32: np.float32,
+                 torch.complex128: np.complex128}[ct]
+        tol = TOL[CX_REAL.get(ct, ct)]
+        for C in WIDE_C:
+            n = WIDE_B1_ROWS[C]
+            rows, cols, vals = _grid_coo(n, n, rng)
+            if ct.is_complex:
+                vals = vals + 1j * rng.standard_normal(vals.size)
+            height = n if C is None else C
+            A = from_coo(rows, cols, vals, (n, n), C=height,
+                         sigma=1 if C is None else C, dtype=np_ct,
+                         device=DEVICE)
+            cases = _cx_flag_cases if ct.is_complex else _flag_cases
+            for b in WIDE_B1_B:
+                x, y, z = (_cx_randn((A.nrows_pad, b), ct, g)
+                           for _ in range(3))
+                for name, opts, with_y, with_z in cases(b, rng, np_ct):
+                    args = (A, x, y if with_y else None,
+                            z if with_z else None, opts)
+                    tag = (f"{str(ct)[6:]} C={'nrows' if C is None else C} "
+                           f"b={b} {name}")
+                    _compare(*args, tol, tag,
+                             worst.setdefault(("B1", str(ct)[6:]),
+                                              [0.0, ""]))
+                    if name == "dots":
+                        one, two = sellcs_spmv(*args), sellcs_spmv(*args)
+                        require(torch.equal(one[2], two[2]),
+                                f"wide B1 {tag}: two runs' dots differ")
+                    n_cases += 1
+    return n_cases
+
+
+def _wide_b4_cases(g, worst) -> int:
+    """B4 past bs = 64 (a thread block a 64-row tile of one block): real
+    pairs at the B4 grid's bound (``_b4_check``), complex blocks at the
+    complex grid's (``_cx_check`` with depth bs)."""
+    n_cases = 0
+    for bd, xd in WIDE_B4_PAIRS:
+        key = f"B4 {str(bd)[6:]} x {str(xd)[6:]}"
+        w = worst.setdefault((key, ""), [0.0, "", 0.0])
+        for bs in WIDE_B4_BS:
+            for nb in WIDE_B4_NB:
+                blocks = _cx_randn((nb, bs, bs), bd, g)
+                for b in WIDE_B4_B:
+                    x = _cx_randn((nb * bs, b), xd, g)
+                    tag = f"{key} bs={bs} nb={nb} b={b}"
+                    if bd.is_complex:
+                        c = torch.complex128
+                        want = block_diag_matmul_ref(blocks.to(c), x.to(c))
+                        scale = block_diag_matmul_ref(blocks.to(c).abs(),
+                                                      x.to(c).abs())
+                        _cx_check(block_jacobi_apply(blocks, x), want, scale,
+                                  bd, bs, bs, tag, w)
+                    else:
+                        _b4_check(blocks, x, tag, w)
+                    n_cases += 1
+    return n_cases
+
+
+def phase_wide_grid() -> None:
+    """Every widened instance against its plain version on the card, at
+    the tolerances of the grid it joins: B2/B3 past width 64, the
+    eigensolver past m = 64, B1 past C = 256 (ELLPACK included), B4 past
+    bs = 64, B6 past N = 64 and B = 65535."""
+    rng = np.random.default_rng(19)
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    worst = {}
+    t0 = time.perf_counter()
+    n_tsm = _wide_tsm_cases(g, worst)
+    n_b1 = _wide_b1_cases(rng, g, worst)
+    n_b4 = _wide_b4_cases(g, worst)
+    eig_worst, n_eig = {}, 0
+    for dt in EIG_DTYPES:
+        w = eig_worst.setdefault(str(dt)[6:], [0.0, ""])
+        for m in WIDE_EIG_MS:
+            for kind in EIG_KINDS:
+                _eig_check(_eig_matrix(kind, m, dt, g),
+                           f"{str(dt)[6:]} m={m} {kind}", w)
+                n_eig += 1
+    m = WIDE_EIG_DEVICE_A
+    _eig_check(_eig_matrix("gram", m, torch.float64, g),
+               f"float64 m={m} gram (A in device memory)",
+               eig_worst["float64"])
+    n_eig += 1
+    b6_worst = {}
+    for i, (B, S, di, N) in enumerate(WIDE_B6):
+        _b6_check(_b6_inputs(B, S, di, N, seed=1900 + i),
+                  f"B={B} S={S} di={di} N={N}", b6_worst)
+    sync()
+    for (kern, dt), v in sorted(worst.items()):
+        ratio, tag = v[0], v[1]
+        print(f"[wide grid] {kern:9s} {dt:10s} worst {ratio:.3e} "
+              f"{'rel err' if kern == 'B1' else 'of its bound'}  (at {tag})")
+    for key, (ratio, tag) in eig_worst.items():
+        print(f"[wide grid] herm_eig {key:10s} worst {ratio:.3f} of its "
+              f"bounds  (at {tag})")
+    for N, (r, tag) in sorted(b6_worst.items()):
+        print(f"[wide grid] B6 N={N}: worst {r:.3f} of its bound ({tag})")
+    print(f"[wide grid] {n_tsm} B2/B3 cases (n in {WIDE_TSM_NS}, (m, k) in "
+          f"{WIDE_TSM}, {[str(d)[6:] for d in WIDE_TSM_DTYPES]}, Kahan on "
+          f"and off), {n_b1} B1 cases (C in 512, 4096 and nrows, b in "
+          f"{WIDE_B1_B}, every flag; float64, float32, complex128), {n_b4} "
+          f"B4 cases (bs in {WIDE_B4_BS}), {n_eig} eigensolver cases (m in "
+          f"{WIDE_EIG_MS}, four dtypes; m = {WIDE_EIG_DEVICE_A} float64), "
+          f"{len(WIDE_B6)} B6 cases ({WIDE_B6}) within the bounds of the "
+          f"grids they join, in {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 12c
+#: the width of the block-CG path that the widened instances open, its
+#: tolerance, and the iterations of its profiled and sync-counted windows
+WIDE_WIDTH = 128
+WIDE_TOL = 1e-8
+WIDE_MAXITER = 3000
+WIDE_PROFILED = 3
+
+
+def phase_block_cg_wide(fw, card):
+    """Block CG at width 128 on laplace3d(NX) in float64: B1 at b = 128
+    (8 column slices), B2 and B3 at 128 x 128 and the eigensolver at m =
+    128, every column held to its true residual; the launches, host syncs
+    in late-read iterations and the device time by kind of kernel."""
+    A = fw["A64"]
+    op = make_operator(A)
+    g = torch.Generator(device=DEVICE).manual_seed(128)
+    b = A.permute(torch.randn(A.nrows, WIDE_WIDTH, generator=g,
+                              dtype=torch.float64, device=DEVICE))
+    execution.reset_launch_counts()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    res = cg(op, b, tol=WIDE_TOL, maxiter=WIDE_MAXITER, block=True)
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    it = res.iters
+    d = dropped("block_cg")
+    # the plain SpMV gathers a value a slot and column: WIDTH columns at a
+    # time, not 128 (29 GB of gathered products)
+    relres = torch.cat([_colwise_relres(A, b[:, j:j + WIDTH].contiguous(),
+                                        res.x[:, j:j + WIDTH].contiguous())
+                        for j in range(0, WIDE_WIDTH, WIDTH)])
+    ms_iter = 1e3 * secs / max(it, 1)
+    print(f"[block cg {WIDE_WIDTH}] laplace3d({NX}) f64 width {WIDE_WIDTH} "
+          f"tol {WIDE_TOL}: {it} iterations in {secs:.3f} s ({ms_iter:.3f} "
+          f"ms/iter), converged={bool(res.converged.all())}, true relative "
+          f"residual max {float(relres.max()):.2e} min "
+          f"{float(relres.min()):.2e}; peak memory {_peak_gb():.1f} GB  "
+          f"[{card}]")
+    print(f"[block cg {WIDE_WIDTH}] launches {launches} (per iteration: 1 "
+          f"sellcs_spmv, 2 tsmttsm, 4 tsmm, 2 herm_eig; init: 1 each; {d} "
+          f"discarded iteration)")
+    require(bool(res.converged.all()), f"block CG {WIDE_WIDTH}: not converged")
+    require(float(relres.max()) <= 10 * WIDE_TOL,
+            f"block CG {WIDE_WIDTH}: true residual {float(relres.max())} > "
+            f"{10 * WIDE_TOL}")
+    n_it = it + d
+    want = {"sellcs_spmv": n_it + 1, "tsmttsm": 2 * n_it + 1,
+            "tsmm": 4 * n_it + 1, "herm_eig": 2 * n_it + 1}
+    require(launches == want or DEVICE == "cpu",
+            f"block CG {WIDE_WIDTH} launches {launches} != {want}")
+    del res
+    st0 = cg_init(op, b, tol=WIDE_TOL, maxiter=WIDE_MAXITER, block=True)
+    split = None
+    if DEVICE == "cuda":
+        syncs = _syncs(lambda: run_chunk(op, "block_cg", 3, st0,
+                                         block.block_cg_body))
+        print(f"[block cg {WIDE_WIDTH}] synchronising calls in 3 late-read "
+              f"iterations: {syncs}")
+        require(syncs == 0, f"block CG {WIDE_WIDTH}: {syncs} synchronising "
+                f"calls in 3 late-read iterations")
+        split = _device_split(lambda: run_chunk(
+            op, "block_cg", WIDE_PROFILED, st0, block.block_cg_body),
+            WIDE_PROFILED)
+    if split is None:
+        print(f"[block cg {WIDE_WIDTH}] device split not measured")
+    else:
+        parts = ", ".join(f"{kind} {ms:.3f}" for kind, ms in
+                          sorted(split["kinds"].items()))
+        print(f"[block cg {WIDE_WIDTH}] {WIDE_PROFILED} late-read iterations "
+              f"under the profiler: {split['wall']:.3f} ms/iter wall; device "
+              f"ms/iter: {parts}; card idle {split['idle']:.3f} ms/iter "
+              f"({100 * split['idle_share']:.1f}% of the window)  [{card}]")
+    st = run_chunk(op, "block_cg", 1, st0, block.block_cg_body)
+    return dict(iters=it, secs=secs, ms_iter=ms_iter, launches=launches,
+                state=st, op=op, split=split)
+
+
+# ---------------------------------------------------------------- phase 12d
+#: FP64 through the tensor cores (DMMA), the H100 SXM's FP64 peak (NVIDIA
+#: data sheet): the operations bound of the wide B2/B3 rows (the CUDA
+#: cores' 34 TFLOP/s of PEAK_FLOPS printed beside it)
+DMMA_FLOPS_F64 = 67e12
+#: B1's chunk heights timed against C = 32 on laplace3d(NX) (None: C =
+#: nrows), the width, and the column-CG path on the tallest-but-one
+WIDE_B1_TIMED = (1024, None)
+WIDE_SPMV_B = 4
+#: B4 at bs = 128: rows and width; the block-Jacobi PCG path on
+#: anisotropic_laplace2d(WIDE_PCG_NX) with blocks of WIDE_B4_TIMED_BS
+WIDE_B4_TIMED_BS, WIDE_B4_ROWS = 128, 4_194_304
+WIDE_PCG_NX = 512
+#: B6 at N = 128: (B, S, d_inner); the error is checked on the first
+#: WIDE_B6_CHECK_S timesteps (the scan is causal, so they are the whole
+#: run's), and the Mamba mixer path at jamba's d_model with this N
+WIDE_B6_SHAPE, WIDE_B6_N, WIDE_B6_CHECK_S = (4, 4096, 16384), 128, 256
+
+
+def _wide_tsm_rows(n, card, rows):
+    """B2 (Kahan and plain) and B3 (with and without W) at n x 128 in
+    float64: kernel, plain version, `addmm`/`mm`, and the bound at DMMA's
+    FP64 rate."""
+    m = WIDE_WIDTH
+    f64 = torch.float64
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    V, W = (torch.randn(n, m, generator=g, dtype=f64, device=DEVICE)
+            for _ in range(2))
+    X = torch.randn(m, m, generator=g, dtype=f64, device=DEVICE)
+    flops = 2.0 * n * m * m
+    vw = V.abs().T @ W.abs()
+    cases = [
+        ("tsmttsm", "kahan", lambda: tsmttsm(V, W, kahan=True),
+         lambda: tsmttsm_ref(V, W, kahan=True),
+         lambda: torch.addmm(X, V.mT, W, beta=0.0, alpha=1.0),
+         (V, W), kahan_depth(n, m, m, f64)),
+        ("tsmttsm", "plain sum", lambda: tsmttsm(V, W),
+         lambda: tsmttsm_ref(V, W),
+         lambda: torch.addmm(X, V.mT, W, beta=0.0, alpha=1.0),
+         (V, W), summation_depth(n, m, m)),
+        ("tsmm", "with W", lambda: tsmm(V, X, W, 1.0, 1.0),
+         lambda: tsmm_ref(V, X, W, 1.0, 1.0),
+         lambda: torch.addmm(W, V, X, beta=1.0, alpha=1.0), (V, X, W), m),
+        ("tsmm", "without W", lambda: tsmm(V, X), lambda: tsmm_ref(V, X),
+         lambda: torch.mm(V, X), (V, X), m),
+    ]
+    for name, variant, kern, plain, lib, inputs, depth in cases:
+        got = kern()
+        if name == "tsmttsm":
+            want, scale = tsmttsm_ref(V, W), vw
+        else:
+            want = plain()
+            scale = V.abs() @ X.abs() + (W.abs() if variant == "with W"
+                                         else 0.0)
+        err = float(_tsm_check(got, want, scale, f64, depth, n,
+                               f"wide {name} {variant} n={n}").max())
+        del want, scale
+        ms = time_ms(kern, warmup=3, iters=20)
+        slow = variant == "kahan"            # a Python loop over blocks
+        plain_ms = time_ms(plain, warmup=1 if slow else 3,
+                           iters=1 if slow else 10)
+        lib_ms = time_ms(lib, warmup=3, iters=20)
+        nbytes = _nbytes(*inputs, got)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * flops / DMMA_FLOPS_F64
+        core_ms = 1e3 * flops / PEAK_FLOPS[f64]
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"[wide timing] {name} {variant} f64 n={n} m=k={m}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for "
+              f"{nbytes / 1e9:.3f} GB; {flops / 1e9:.1f} GFLOP {ops_ms:.4f} "
+              f"ms at DMMA's 67 TFLOP/s, {core_ms:.4f} ms at the CUDA cores' "
+              f"34), {100 * bound_ms / ms:.1f}% of bound, "
+              f"{100 * core_ms / ms:.1f}% of the CUDA cores' rate, max abs "
+              f"err {err:.3e}  [{card}]")
+        rows[(name, variant)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations", err=err)
+
+
+def _wide_eig_row(bcg, card):
+    """The eigensolver at m = 128 on the width-128 block CG's Gram of its
+    search block against `torch.linalg.eigh` (with its host sync)."""
+    m = WIDE_WIDTH
+    P = bcg["state"].p
+    Gs = block._herm(tsmttsm(P, bcg["op"].mv(P), kahan=True))
+    worst = [0.0, ""]
+    _eig_check(Gs, f"block CG Gram m={m}", worst)
+    err = float((herm_eig(Gs)[0] - torch.linalg.eigvalsh(Gs)).abs().max())
+    ms = time_ms(lambda: herm_eig(Gs), warmup=3, iters=20)
+    eigh_ms = time_ms(lambda: torch.linalg.eigh(Gs), warmup=3, iters=20)
+    sweeps = int(herm_eig_cuda(Gs)[2]) if DEVICE == "cuda" else 0
+    flops = sweeps * (m - 1) * (m // 2) * m * 18.0
+    bytes_ms = 1e3 * (2 * m * m + m) * 8 / HBM_BYTES_PER_S
+    ops_ms = 1e3 * flops / PEAK_FLOPS[torch.float64]
+    print(f"[wide timing] herm_eig f64 m={m} (a block-CG Gram): kernel "
+          f"{ms:.4f} ms ({sweeps} sweeps, A in shared memory, U in device "
+          f"memory), torch.linalg.eigh {eigh_ms:.4f} ms (with its host "
+          f"sync), bound {max(bytes_ms, ops_ms):.6f} ms (operations "
+          f"{ops_ms:.6f}, bytes {bytes_ms:.6f}: a chain of "
+          f"{sweeps * (m - 1)} dependent rounds bounds it, not a rate); "
+          f"within {worst[0]:.3f} of its bounds against eigh  [{card}]")
+    return dict(ms=ms, plain_ms=eigh_ms, library_ms=eigh_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                err=err)
+
+
+def _wide_b1_row(fw, card):
+    """B1 at b = 4 on laplace3d(NX) stored with tall chunks (C = 1024 and
+    C = nrows) against C = 32, each held against its plain version; the
+    launch grid; and column CG on the C = 1024 matrix, B1's wide path."""
+    r, c, v, n = fw["coo"]
+    g = torch.Generator(device=DEVICE).manual_seed(41)
+    opts = SpmvOpts(dot_xy=True)              # what column CG asks of it
+    out = {}
+    for C in (32,) + WIDE_B1_TIMED:
+        height = n if C is None else C
+        label = "nrows" if C is None else str(C)
+        if C == 32:
+            A = fw["A64"]
+        else:
+            t0 = time.perf_counter()
+            A = from_coo(r, c, v, (n, n), C=height,
+                         sigma=1 if C is None else height, dtype=np.float64,
+                         device=DEVICE)
+            sync()
+            print(f"[wide timing] laplace3d({NX}) at C={label}: host build "
+                  f"{time.perf_counter() - t0:.1f} s, {A.nchunks} chunks")
+        x = torch.randn(A.nrows_pad, WIDE_SPMV_B, generator=g,
+                        dtype=torch.float64, device=DEVICE)
+        yk, _, dk = sellcs_spmv(A, x, opts=opts)
+        yr, _, dr = sellcs_spmv_ref(A, x, opts=opts)
+        err = float((yk - yr).abs().max())
+        e_rel, d_rel = rel_err(yk, yr), rel_err(dk, dr)
+        require(e_rel <= TOL[torch.float64]["vec"]
+                and d_rel <= TOL[torch.float64]["dots"],
+                f"wide B1 C={label}: rel err {e_rel:.3e}, dots {d_rel:.3e}")
+        ms = time_ms(lambda: sellcs_spmv(A, x, opts=opts))
+        plain_ms = time_ms(lambda: sellcs_spmv_ref(A, x, opts=opts),
+                           warmup=2, iters=5)
+        lib_ms = None
+        if C == WIDE_B1_TIMED[0]:             # the kernels line's row
+            csr = _library_csr(A, fw["coo"])
+            require(rel_err(csr @ x, yk) <= 1e-12,
+                    f"wide B1 C={label}: the library product disagrees")
+            lib_ms = time_ms(lambda: csr @ x)
+            del csr
+        geo = launch_geometry(WIDE_SPMV_B, height, A.dtype, dots=True)
+        parts = chunk_parts(height, geo)
+        grid = dot_parts(A.nchunks, parts)
+        nbytes = _spmv_bytes(A, x, yk, dk)
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"[wide timing] sellcs_spmv f64 b={WIDE_SPMV_B} <p, Ap> C="
+              f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library(csr@x) "
+              f"{'not timed' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+              f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of bound; grid "
+              f"{grid} x {geo.slices} blocks of {geo.threads} threads "
+              f"({A.nchunks} chunks of {height} rows, {parts} blocks a chunk,"
+              f" {geo.tpr} threads a row); max abs err {err:.3e}  [{card}]")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by="bytes", err=err, A=A)
+    # the path through the tall chunks: column CG on the C = 1024 matrix
+    A = out[str(WIDE_B1_TIMED[0])]["A"]
+    b = A.permute(torch.from_numpy(fw["b_host"]).to(DEVICE))
+    execution.reset_launch_counts()
+    res = cg(make_operator(A), b, tol=1e-8, maxiter=3000)
+    launches = execution.launch_counts().get(KERNEL, 0)
+    relres = _colwise_relres(A, b, res.x)
+    print(f"[wide timing] column CG f64 b=4 on C={WIDE_B1_TIMED[0]}: "
+          f"{res.iters} iterations (C=32: {fw['iters64']}), {launches} B1 "
+          f"launches, true relative residual max {float(relres.max()):.2e}")
+    require(bool(res.converged.all()) and float(relres.max()) <= 1e-7,
+            f"column CG on C={WIDE_B1_TIMED[0]}: not converged")
+    row = {k: v for k, v in out[str(WIDE_B1_TIMED[0])].items() if k != "A"}
+    row["nrows"] = {k: v for k, v in out["nrows"].items() if k != "A"}
+    return row, launches
+
+
+def _wide_b4_row(card):
+    """B4 at bs = 128 on 4,194,304 rows, b = 4, float64 (4.29 GB of
+    blocks): kernel, plain version, `bmm`, bound; then block-Jacobi PCG
+    with blocks of 128, B4's wide path."""
+    bs, rows = WIDE_B4_TIMED_BS, WIDE_B4_ROWS
+    g = torch.Generator(device=DEVICE).manual_seed(44)
+    blocks = torch.randn(rows // bs, bs, bs, generator=g,
+                         dtype=torch.float64, device=DEVICE)
+    x = torch.randn(rows, 4, generator=g, dtype=torch.float64, device=DEVICE)
+    worst = [0.0, "", 0.0]
+    err = _b4_check(blocks, x, f"wide timing bs={bs}", worst)
+    kern = lambda: block_jacobi_apply(blocks, x)
+    lib = lambda: torch.bmm(blocks, x.view(-1, bs, 4))
+    ms = time_ms(kern, warmup=3, iters=20)
+    plain_ms = time_ms(lambda: block_diag_matmul_ref(blocks, x), warmup=2,
+                       iters=5)
+    lib_ms = time_ms(lib, warmup=3, iters=20)
+    nbytes = _nbytes(blocks, x, x)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[wide timing] block_diag_matmul f64 bs={bs} rows={rows} b=4: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (bmm) "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB),"
+          f" {100 * bound_ms / ms:.1f}% of bound, max abs err {err:.3e}  "
+          f"[{card}]")
+    del blocks, x
+    A = _aniso(WIDE_PCG_NX)
+    t0 = time.perf_counter()
+    M = make_preconditioner(f"block_jacobi:{bs}", matrix=A)
+    setup = time.perf_counter() - t0
+    b = A.permute(torch.randn(A.nrows, 4, generator=g, dtype=torch.float64,
+                              device=DEVICE))
+    execution.reset_launch_counts()
+    res = cg(make_operator(A), b, tol=PCG_TOL, maxiter=8 * A.nrows, M=M)
+    launches = execution.launch_counts().get("block_diag_matmul", 0)
+    relres = _colwise_relres(A, b, res.x)
+    print(f"[wide timing] block-Jacobi PCG bs={bs} on anisotropic_laplace2d"
+          f"({WIDE_PCG_NX}) f64 b=4: set-up {setup:.1f} s, {res.iters} "
+          f"iterations, {launches} B4 launches, true relative residual max "
+          f"{float(relres.max()):.2e}")
+    require(bool(res.converged.all())
+            and float(relres.max()) <= 10 * PCG_TOL,
+            f"PCG bs={bs}: not converged")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by="bytes", err=err), launches
+
+
+def _wide_b6_row(card):
+    """B6 at N = 128, B 4 x S 4096 x d_inner 16384: kernel, plain version
+    once, the bound (bytes, and the exponentials at MUFU's rate); the
+    error on the first WIDE_B6_CHECK_S timesteps; then a Mamba mixer of
+    jamba's d_model with this state size, B6's wide path."""
+    B, S, di = WIDE_B6_SHAPE
+    N = WIDE_B6_N
+    args = list(_b6_inputs(B, S, di, N, seed=61))
+    args[0] = args[0].clamp(max=1.0)          # dt as a model has it
+    y = mamba_scan(*args)
+    head = [a[:, :WIDE_B6_CHECK_S] if a.ndim == 3 else a for a in args]
+    want = mamba_scan_ref(*(t.double() for t in head))
+    diff = (y[:, :WIDE_B6_CHECK_S].double() - want).abs()
+    ratio = float((diff / scan_error_bound(*head)).max())
+    err = float(diff.max())
+    del want, diff, head
+    require(ratio <= 1.0, f"wide B6 N={N}: error {ratio:.3f} of its bound")
+    ms = time_ms(lambda: mamba_scan(*args), warmup=2, iters=10)
+    sync()
+    t0 = time.perf_counter()
+    mamba_scan_ref(*args)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = _nbytes(*args, y)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    props = torch.cuda.get_device_properties(0)
+    clock = _sm_clock_hz()
+    nexp = B * S * di * N
+    exp_ms = 1e3 * nexp / (SFU_EXP_PER_CLK * props.multi_processor_count
+                           * clock)
+    bound_ms = max(bytes_ms, exp_ms)
+    print(f"[wide timing] mamba_scan f32 B={B} S={S} di={di} N={N}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms (once), library n/a, bound "
+          f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms; {nexp / 1e9:.2f} G "
+          f"exponentials {exp_ms:.4f} ms at {SFU_EXP_PER_CLK}/clock/SM x "
+          f"{props.multi_processor_count} SMs x {clock / 1e9:.2f} GHz), "
+          f"{100 * bound_ms / ms:.1f}% of bound, max abs err {err:.3e} on "
+          f"the first {WIDE_B6_CHECK_S} steps ({ratio:.3f} of its bound)  "
+          f"[{card}]")
+    del args, y
+    # the path: a Mamba mixer (in_proj, conv, x_proj, the scan, out_proj)
+    # at jamba's d_model with 128 states, bf16 weights from a seed
+    cfg = SSM.SSMConfig(d_state=N, scan_impl="kernel")
+    d_model = di // cfg.expand
+    gen = torch.Generator(device=DEVICE).manual_seed(62)
+    p = SSM.mamba_init(gen, d_model, cfg)
+    xin = torch.randn(B, S, d_model, generator=gen, device=DEVICE,
+                      dtype=torch.float32).to(torch.bfloat16)
+    execution.reset_launch_counts()
+    with torch.no_grad():
+        out = SSM.mamba_apply(p, xin, cfg)
+    sync()
+    launches = execution.launch_counts().get("mamba_scan", 0)
+    require(bool(torch.isfinite(out.float()).all())
+            and (launches == 1 or DEVICE == "cpu"),
+            f"Mamba mixer N={N}: finite {bool(torch.isfinite(out.float()).all())}"
+            f", {launches} B6 launches")
+    print(f"[wide timing] Mamba mixer d_model={d_model} N={N} B={B} S={S} "
+          f"bf16: output {tuple(out.shape)} finite, {launches} B6 launch")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= exp_ms else "operations",
+                err=err), launches
+
+
+def phase_wide_timing(fw, bcg, card):
+    """The widened instances at full size beside their bounds, plain
+    versions and library calls, and the paths that run the ones no solver
+    of the main path reaches (B1's tall chunks, B4 at bs = 128, B6 at N =
+    128)."""
+    rows, launches = {}, {}
+    _wide_tsm_rows(fw["A64"].nrows_pad, card, rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["herm_eig"] = _wide_eig_row(bcg, card)
+    rows["sellcs_spmv"], launches["sellcs_spmv"] = _wide_b1_row(fw, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["block_diag_matmul"], launches["block_diag_matmul"] = _wide_b4_row(
+        card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["mamba_scan"], launches["mamba_scan"] = _wide_b6_row(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 # ---------------------------------------------------------------- phase 13c
@@ -6214,9 +6810,18 @@ def main() -> int:
     rows = timed("spmv timing", phase_timing, fw, card)
     tsm = timed("tsm timing", phase_tsm_timing, fw, card)
     eig = timed("block CG split", phase_block_split, fw, bcg, tsm, card)
+    bcg128 = timed(f"block CG at width {WIDE_WIDTH}", phase_block_cg_wide,
+                   fw, card)
+    wide, wide_launches = timed("wide timing", phase_wide_timing, fw, bcg128,
+                                card)
+    # the paths below need the card's memory: keep only the counts
+    bcg128 = {"launches": bcg128["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("b4 grid", phase_b4_grid)
     timed("b5 grid", phase_b5_grid)
     timed("eigensolver grid", phase_eig_grid)
+    timed("wide grid", phase_wide_grid)
     pcg = timed("preconditioned CG", phase_precond_cg, card)
     timed("complex grid", phase_complex_grid)
     cx = timed("complex solves", phase_complex_solves, fw, bcg, bminres, card)
@@ -6291,6 +6896,24 @@ def main() -> int:
              variant="complex128"),
         # the port's own kernel, on block CG's path (two calls an iteration)
         _kernel_entry("herm_eig", bcg["launches"]["herm_eig"], eig),
+        # the instances past the narrow designs (slice 19): B2, B3 and the
+        # eigensolver on block CG at width 128 (their launches there, their
+        # times at 4,096,000 x 128 and m = 128); B1's tall chunks on column
+        # CG at C = 1024, B4 at bs = 128 on block-Jacobi PCG, B6 at N = 128
+        # in a Mamba mixer (the launches of those paths)
+        dict(_kernel_entry(KERNEL, wide_launches["sellcs_spmv"],
+                           wide["sellcs_spmv"]), variant="wide"),
+        dict(_kernel_entry("tsmttsm", bcg128["launches"]["tsmttsm"],
+                           wide[("tsmttsm", "kahan")]), variant="wide"),
+        dict(_kernel_entry("tsmm", bcg128["launches"]["tsmm"],
+                           wide[("tsmm", "with W")]), variant="wide"),
+        dict(_kernel_entry("herm_eig", bcg128["launches"]["herm_eig"],
+                           wide["herm_eig"]), variant="wide"),
+        dict(_kernel_entry("block_diag_matmul",
+                           wide_launches["block_diag_matmul"],
+                           wide["block_diag_matmul"]), variant="wide"),
+        dict(_kernel_entry("mamba_scan", wide_launches["mamba_scan"],
+                           wide["mamba_scan"]), variant="wide"),
     ]
     # the LM phases need the card's memory: keep only the numbers above
     del fw, bcg, pcg, rows, tsm, pre, cxt

@@ -4,8 +4,10 @@ The CUDA port of ``repro/kernels/block_diag.py:block_diag_matmul_pallas``
 (B4), the block-Jacobi apply: ``y[k*bs:(k+1)*bs] = B_k x[k*bs:(k+1)*bs]``
 for an ``(nblocks, bs, bs)`` stack and ``x`` of shape ``(nblocks*bs, b)``.
 A thread block stages a few whole diagonal blocks and their rows of ``x``
-in shared memory and one thread forms one output row (see the note at the
-top of the CUDA source), for real blocks and for complex ones.  This
+in shared memory and one thread forms one output row; past ``bs = 64`` a
+thread block takes a 64-row tile of one diagonal block and stages it in
+slabs of 32 columns (see the note at the top of the CUDA source), for
+real blocks and for complex ones, at any ``bs``.  This
 wrapper validates the operands, allocates the result in
 ``promote_types(blocks, x)`` and launches on the current
 stream without synchronising.  It needs no padding and has no
@@ -21,19 +23,11 @@ import ctypes
 import torch
 
 from repro_torch.core import execution
-from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
 from repro_torch.kernels.sellcs_spmv import check_operand
 from repro_torch.kernels.tsmttsm import DTYPE_CODES
 
-__all__ = ["block_diag_cuda", "MAX_BS", "MAX_SMEM_BYTES", "check_shapes"]
-
-#: largest block the kernel takes (the JAX package's line-Jacobi benchmark
-#: uses 48); a thread block holds at least one whole (bs, bs) block
-MAX_BS = 64
-#: shared memory one thread block may use on an H100 (the staged block,
-#: padded to bs + 1 columns, and its bs rows of x, in the accumulation dtype)
-MAX_SMEM_BYTES = 232448
+__all__ = ["block_diag_cuda", "check_shapes"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_I, _I, _P, _P, _P, _L, _I, _I, _P]
@@ -61,7 +55,7 @@ def check_shapes(fn: str, blocks: torch.Tensor, x: torch.Tensor) -> None:
 def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Run the block-diagonal matmul kernel on the card.
 
-    ``blocks`` ``(nblocks, bs, bs)`` with ``bs <= MAX_BS`` and ``x``
+    ``blocks`` ``(nblocks, bs, bs)`` and ``x``
     ``(nblocks*bs, b)`` may have different real dtypes; complex blocks take
     an ``x`` of their dtype or a real one of their precision.  The result
     is ``(nblocks*bs, b)`` in ``promote_types(blocks, x)``, summed in its
@@ -83,13 +77,7 @@ def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     check_shapes(fn, blocks, x)
     nb, bs, _ = (int(s) for s in blocks.shape)
     n, b = (int(s) for s in x.shape)
-    if not 1 <= bs <= MAX_BS:
-        raise ValueError(f"{fn}: bs={bs} outside 1..{MAX_BS}")
     out_dtype = torch.promote_types(blocks.dtype, x.dtype)
-    acc_bytes = storage_acc_dtype(out_dtype).itemsize
-    if (bs * (bs + 1) + bs * b) * acc_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn}: one block of bs={bs} with b={b} columns "
-                         f"does not fit in shared memory")
     check_operand(fn, "blocks", blocks, device, blocks.dtype, (nb, bs, bs))
     check_operand(fn, "x", x, device, x.dtype, (n, b))
     out = torch.empty((n, b), dtype=out_dtype, device=device)

@@ -37,6 +37,20 @@
 //   No padding of x or of the stack is needed.
 // * The TPU kernel's row_tile (a VMEM tile of whole blocks) has no
 //   counterpart: the tile here is G blocks, fixed by bs and b.
+// * Past bs = 64, or where one block and its x rows do not fit in shared
+//   memory (block_diag_tiled below): a thread block owns a tile of 64
+//   rows of one diagonal block and walks its columns j in slabs of 32:
+//   the tile's 64 x 32 entries of the slab (64 runs of 32 neighbouring
+//   values, padded to 33 in shared memory) and the slab's 32 rows of x
+//   are staged, the next slab's loaded into registers meanwhile.  Four
+//   threads share a row, each with the columns sub, sub + 4, ... of a
+//   16-column block of x (an outer loop past 16 columns).  Each output
+//   still sums its bs products in order of j, so the result is the same
+//   to the bit as the staged groups' arithmetic.  Any bs: at bs = 128,
+//   b = 4 in float64 the blocks are 4.29 GB of a 4,194,304-row call.
+//   Three blocks an SM (at most 85 registers a thread): at the 128 the
+//   compiler took without the bound, two blocks an SM took 3.18 ms there
+//   against 2.93 (PERF.md, PR 29).
 
 #include <cuda_runtime.h>
 
@@ -45,10 +59,15 @@
 namespace {
 
 constexpr int kMaxRows = 256;      // G * bs, the threads of a block
-constexpr int kMaxBs = 64;
+constexpr int kMaxBs = 64;        // largest bs of the staged groups
 constexpr int kColTile = 4;        // outputs a thread keeps in registers
 constexpr int kInFlight = 16;      // loads a thread issues before storing
 constexpr int kSmemTarget = 64 * 1024;
+constexpr int kMaxSmem = 232448;   // a block's shared memory on the H100
+constexpr int kTileRows = 64;      // block_diag_tiled: rows of a tile
+constexpr int kSlab = 32;          // ... columns j of a slab
+constexpr int kColBlock = 16;      // ... columns of x a pass
+constexpr int kRowThreads = 4;     // ... threads of a row
 
 // Copies n values of src (global) into dst (shared), converted to A, at
 // dst[e + e / pad_every] (pad_every = 0: no padding): each thread issues
@@ -140,11 +159,106 @@ block_diag_rows(const TB* __restrict__ blocks, const TX* __restrict__ x,
   }
 }
 
+// y = B x for bs past 64 (see the note at the top): block blockIdx.x owns
+// row tile blockIdx.x % rtiles of diagonal block blockIdx.x / rtiles.
+template <typename TB, typename TX>
+__global__ void __launch_bounds__(kTileRows * kRowThreads, 3)
+block_diag_tiled(const TB* __restrict__ blocks, const TX* __restrict__ x,
+                 typename Promote<TB, TX>::type* __restrict__ y, int bs,
+                 int b, int rtiles) {
+  using TO = typename Promote<TB, TX>::type;
+  using A = typename Acc<TO>::type;
+  constexpr int kT = kTileRows * kRowThreads;
+  constexpr int kEachB = kTileRows * kSlab / kT;   // B values a thread a slab
+  constexpr int kEachX = kSlab * kColBlock / kT;   // x values a thread a slab
+  constexpr int kCols = kColBlock / kRowThreads;   // outputs a thread a pass
+  __shared__ A sb[kTileRows][kSlab + 1];
+  __shared__ A sx[kSlab][kColBlock];
+  const long long blk = blockIdx.x / rtiles;
+  const int i0 = (blockIdx.x % rtiles) * kTileRows;
+  const TB* B = blocks + blk * bs * bs;
+  const TX* xb = x + blk * bs * b;
+  TO* yb = y + blk * bs * b;
+  const int t = threadIdx.x;
+  const int row = t / kRowThreads, sub = t % kRowThreads;
+
+  for (int c0 = 0; c0 < b; c0 += kColBlock) {
+    const int nc = min(kColBlock, b - c0);
+    A vb[kEachB], vx[kEachX];
+    auto load = [&](int j0) {
+#pragma unroll
+      for (int u = 0; u < kEachB; ++u) {
+        const int e = u * kT + t;
+        const int r = e / kSlab, j = e % kSlab;
+        vb[u] = (i0 + r < bs && j0 + j < bs)
+                    ? load_as<A>(B[(long long)(i0 + r) * bs + j0 + j])
+                    : A(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kEachX; ++u) {
+        const int e = u * kT + t;
+        const int j = e / kColBlock, c = e % kColBlock;
+        vx[u] = (j0 + j < bs && c < nc)
+                    ? load_as<A>(xb[(long long)(j0 + j) * b + c0 + c])
+                    : A(0);
+      }
+    };
+    A acc[kCols];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) acc[q] = A(0);
+    load(0);
+#pragma unroll 1
+    for (int j0 = 0; j0 < bs; j0 += kSlab) {
+      __syncthreads();  // every thread is done with the slab before
+#pragma unroll
+      for (int u = 0; u < kEachB; ++u) {
+        const int e = u * kT + t;
+        sb[e / kSlab][e % kSlab] = vb[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kEachX; ++u) {
+        const int e = u * kT + t;
+        sx[e / kColBlock][e % kColBlock] = vx[u];
+      }
+      __syncthreads();
+      if (j0 + kSlab < bs) load(j0 + kSlab);
+      const int nj = min(kSlab, bs - j0);
+      for (int j = 0; j < nj; ++j) {
+        const A bij = sb[row][j];
+#pragma unroll
+        for (int q = 0; q < kCols; ++q)
+          acc[q] = mul_add(bij, sx[j][sub + kRowThreads * q], acc[q]);
+      }
+    }
+    if (i0 + row < bs) {
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int c = sub + kRowThreads * q;
+        if (c < nc)
+          yb[(long long)(i0 + row) * b + c0 + c] = store_as<TO>(acc[q]);
+      }
+    }
+  }
+}
+
 template <typename TB, typename TX>
 int launch(const void* blocks, const void* x, void* y, long long nblocks,
            int bs, int b, cudaStream_t stream) {
   using TO = typename Promote<TB, TX>::type;
   using A = typename Acc<TO>::type;
+  if (bs > kMaxBs ||
+      ((long long)bs * (bs + 1) + (long long)bs * b) * (long long)sizeof(A) >
+          kMaxSmem) {
+    const int rtiles = (bs + kTileRows - 1) / kTileRows;
+    if (nblocks * rtiles > 0x7fffffffLL)
+      return (int)cudaErrorInvalidConfiguration;
+    block_diag_tiled<TB, TX>
+        <<<(unsigned)(nblocks * rtiles), kTileRows * kRowThreads, 0,
+           stream>>>(static_cast<const TB*>(blocks),
+                     static_cast<const TX*>(x), static_cast<TO*>(y), bs, b,
+                     rtiles);
+    return (int)cudaGetLastError();
+  }
   const int group = group_size(bs, b, (int)sizeof(A));
   const long long grid = (nblocks + group - 1) / group;
   const size_t smem =
@@ -183,7 +297,7 @@ extern "C" int block_diag_launch(int blocks_dtype, int x_dtype,
                                  const void* blocks, const void* x, void* y,
                                  long long nblocks, int bs, int b,
                                  void* stream) {
-  if (nblocks < 1 || bs < 1 || bs > kMaxBs || b < 1)
+  if (nblocks < 1 || bs < 1 || b < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (blocks_dtype) {

@@ -48,12 +48,23 @@
 //   N <= 16 one thread owns a whole channel: no shuffle, no duplicate
 //   loads of dt and xc, and 16 independent exponentials per timestep
 //   (128 registers a thread: at B = 4, di = 16384, 512 blocks of 128
-//   threads, four per SM, in one wave).  Above N = 16, LANES = 2 or 4
-//   lanes of 16 states add their shares of y with warp shuffles.
+//   threads, four per SM, in one wave).  Above N = 16, LANES = 2, 4, 8,
+//   16 or 32 lanes of 16 states add their shares of y with warp shuffles
+//   (any N up to 512; from 8 lanes on a lane's states are interleaved
+//   with its neighbours' four at a time, so the lanes read Bc and Cc as
+//   one run: side by side they met on four banks, and N = 128 took 37.69
+//   ms at B 4 x S 4096 x d_inner 16384, PERF.md, PR 29).  Past 512 states the launcher runs the scan once
+//   a group of at most 512 of them (A, Bc and Cc read with their row
+//   stride N), the later groups adding their share to y (ADD): a state
+//   never meets another group's, so only y's sum is split, and its
+//   roundings stay within error_bound's N of them.
 // * A thread block takes CH = 128 / LANES consecutive channels d of batch
-//   row b (blockIdx.y), so its rows of dt, xc and y are contiguous.
+//   row b (blockIdx.y), so its rows of dt, xc and y are contiguous.  More
+//   than 65,535 batch rows (grid.y's limit) go in launches of 65,535.
 // * The block copies kTile timesteps of dt, xc (its CH channels), Bc and Cc
-//   (all N states) into a two-stage ring in shared memory with cp.async,
+//   (all N states; 16 timesteps, 8 at 16 lanes and 4 at 32, so the ring
+//   stays within the 48 KB of static shared memory) into a two-stage ring
+//   in shared memory with cp.async,
 //   the next stage in flight while the current one is used, so that no
 //   register holds a load in flight (dt and xc 16 bytes a copy where every
 //   row is 16-byte aligned, 4 bytes otherwise).  The entries no copy
@@ -69,8 +80,14 @@
 namespace {
 
 constexpr int kThreads = 128;   // threads per block
-constexpr int kTile = 16;       // timesteps per shared-memory stage
-constexpr int kMaxN = 64;
+constexpr int kMaxLaneStates = 32 * 16;  // states of one launch: 32 lanes
+constexpr int kMaxBatch = 65535;         // grid.y
+
+// timesteps per shared-memory stage: 16, fewer where a timestep of Bc and
+// Cc takes more than 128 states
+template <int LANES> __host__ __device__ constexpr int tile_steps() {
+  return LANES <= 8 ? 16 : 16 * 8 / LANES;
+}
 
 // 2^x by one MUFU.EX2: within 2 ulp of the rounded 2^x, results below
 // 2^-126 flushed to 0
@@ -94,19 +111,30 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                :: "r"(smem(dst)), "l"(src) : "memory");
 }
 
+// Whether a lane's states are interleaved with its neighbours' four at a
+// time (state 4 (q LANES + lane) + k is its j = 4 q + k), so that the
+// lanes of a channel read one contiguous run of Bc and Cc: at 8 lanes and
+// more, 16 states a lane side by side put every lane's float4 on the same
+// four banks of shared memory (a 4-way conflict at N = 128).
+template <int LANES> __host__ __device__ constexpr bool interleaved() {
+  return LANES >= 8;
+}
+
 // One timestep of one lane: NPL states, returns the channel's y (summed
-// over its LANES lanes).
+// over its LANES lanes).  bt and ct point at the lane's first state; its
+// float4 q lies q (interleaved: q LANES) float4s further.
 template <int LANES, int NPL>
 __device__ __forceinline__ float step(float (&h)[NPL], const float (&a2)[NPL],
                                       float dt, float x, const float* bt,
                                       const float* ct) {
+  constexpr int kQ = interleaved<LANES>() ? LANES : 1;
   const float dtx = dt * x;
   const float4* b4 = reinterpret_cast<const float4*>(bt);
   const float4* c4 = reinterpret_cast<const float4*>(ct);
   float acc[2] = {0.f, 0.f};                 // two chains of the y sum
 #pragma unroll
   for (int q = 0; q < NPL / 4; ++q) {
-    const float4 bq = b4[q], cq = c4[q];
+    const float4 bq = b4[q * kQ], cq = c4[q * kQ];
     const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
     const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
 #pragma unroll
@@ -123,12 +151,16 @@ __device__ __forceinline__ float step(float (&h)[NPL], const float (&a2)[NPL],
   return y;
 }
 
-template <int LANES, int NPL>
+// N states of this launch, read with row stride ldn (N itself, or the
+// whole state size where the launcher runs a group of them); ADD adds the
+// channel's share to y instead of storing it.
+template <int LANES, int NPL, bool ADD>
 __global__ void __launch_bounds__(kThreads, NPL > 8 ? 4 : 8)
 mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
                 const float* __restrict__ Bc, const float* __restrict__ Cc,
                 const float* __restrict__ A, float* __restrict__ y, int S,
-                int di, int N) {
+                int di, int N, int ldn) {
+  constexpr int kTile = tile_steps<LANES>();
   constexpr int NS = LANES * NPL;              // padded states per row
   constexpr int CH = kThreads / LANES;         // channels per block
   static_assert(CH % 4 == 0, "16-byte copies of whole channel rows");
@@ -144,13 +176,18 @@ mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
   const int d = d0 + c;
   const int nch = min(CH, di - d0);            // channels of this block
   const bool active = c < nch;
-  const int n0 = lane * NPL;
+  // the lane's first state, and its state j
+  const int n0 = interleaved<LANES>() ? 4 * lane : lane * NPL;
+  auto state = [&](int j) {
+    return interleaved<LANES>() ? 4 * (j / 4 * LANES + lane) + j % 4
+                                : n0 + j;
+  };
 
   float a2[NPL], h[NPL];
 #pragma unroll
   for (int j = 0; j < NPL; ++j) {
-    a2[j] = (active && n0 + j < N)
-                ? A[(long long)d * N + n0 + j] * 1.4426950408889634f
+    a2[j] = (active && state(j) < N)
+                ? A[(long long)d * ldn + state(j)] * 1.4426950408889634f
                 : 0.f;
     h[j] = 0.f;
   }
@@ -167,13 +204,13 @@ mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
                      reinterpret_cast<unsigned long long>(xc)) & 15) == 0;
   auto stage = [&](int s0) {                 // kTile timesteps of everything
     const int buf = (s0 / kTile) & 1, ts = min(kTile, S - s0);
-    const float* bb = Bc + (row0 + s0) * N;
-    const float* cb = Cc + (row0 + s0) * N;
+    const float* bb = Bc + (row0 + s0) * ldn;
+    const float* cb = Cc + (row0 + s0) * ldn;
     for (int i = threadIdx.x; i < ts * NS; i += kThreads) {
       const int t = i / NS, n = i % NS;
       if (n < N) {
-        cp_async4(&sb[buf][t][n], bb + t * N + n);
-        cp_async4(&sc[buf][t][n], cb + t * N + n);
+        cp_async4(&sb[buf][t][n], bb + t * ldn + n);
+        cp_async4(&sc[buf][t][n], cb + t * ldn + n);
       }
     }
     const float* db = dt + (row0 + s0) * di + d0;
@@ -217,14 +254,14 @@ mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
       for (int t = 0; t < kTile; ++t) {
         const float v = step<LANES, NPL>(h, a2, dp[t * CH], xp[t * CH],
                                          bt + t * NS, ct + t * NS);
-        if (store) *py = v;
+        if (store) *py = ADD ? *py + v : v;
         py += di;
       }
     } else {                                   // the ragged last stage
       for (int t = 0; t < ts; ++t) {
         const float v = step<LANES, NPL>(h, a2, dp[t * CH], xp[t * CH],
                                          bt + t * NS, ct + t * NS);
-        if (store) *py = v;
+        if (store) *py = ADD ? *py + v : v;
         py += di;
       }
     }
@@ -234,12 +271,41 @@ mamba_scan_rows(const float* __restrict__ dt, const float* __restrict__ xc,
 template <int LANES, int NPL>
 int launch(const float* dt, const float* xc, const float* Bc,
            const float* Cc, const float* A, float* y, int B, int S, int di,
-           int N, cudaStream_t stream) {
+           int N, int ldn, bool add, cudaStream_t stream) {
   constexpr int per_block = kThreads / LANES;
-  const dim3 grid((di + per_block - 1) / per_block, B);
-  mamba_scan_rows<LANES, NPL><<<grid, kThreads, 0, stream>>>(
-      dt, xc, Bc, Cc, A, y, S, di, N);
-  return (int)cudaGetLastError();
+  const long long step = (long long)S * di;  // values of one batch row
+  for (int b0 = 0; b0 < B; b0 += kMaxBatch) {
+    const dim3 grid((di + per_block - 1) / per_block, min(kMaxBatch, B - b0));
+    const long long o = b0 * step, on = (long long)b0 * S * ldn;
+    if (add)
+      mamba_scan_rows<LANES, NPL, true><<<grid, kThreads, 0, stream>>>(
+          dt + o, xc + o, Bc + on, Cc + on, A, y + o, S, di, N, ldn);
+    else
+      mamba_scan_rows<LANES, NPL, false><<<grid, kThreads, 0, stream>>>(
+          dt + o, xc + o, Bc + on, Cc + on, A, y + o, S, di, N, ldn);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// The states [n0, n0 + N) of ldn, on the instance whose lanes hold N.
+int launch_group(const float* dt, const float* xc, const float* Bc,
+                 const float* Cc, const float* A, float* y, int B, int S,
+                 int di, int N, int ldn, int n0, cudaStream_t s) {
+  const bool add = n0 > 0;
+  Bc += n0;
+  Cc += n0;
+  A += n0;
+  // (lanes per channel, states per lane)
+  if (N <= 4) return launch<1, 4>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 8) return launch<1, 8>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 16) return launch<1, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 32) return launch<2, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 64) return launch<4, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 128) return launch<8, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  if (N <= 256) return launch<16, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
+  return launch<32, 16>(dt, xc, Bc, Cc, A, y, B, S, di, N, ldn, add, s);
 }
 
 __global__ void exp2_apply(const float* __restrict__ x, float* __restrict__ r,
@@ -253,28 +319,25 @@ __global__ void exp2_apply(const float* __restrict__ x, float* __restrict__ r,
 }  // namespace
 
 // y (B, S, di) from dt, xc (B, S, di), Bc, Cc (B, S, N) and A (di, N), all
-// float32 and contiguous.  1 <= N <= 64; B, S or di of 0 launch nothing.
-// Returns the CUDA error of the launch (0 on success).
+// float32 and contiguous.  Any N >= 1 (groups of 512 states past 512) and
+// any B (launches of 65,535 rows); B, S or di of 0 launch nothing.
+// Returns the first CUDA error of the launches (0 on success).
 extern "C" int mamba_scan_launch(const void* dt, const void* xc,
                                  const void* Bc, const void* Cc,
                                  const void* A, void* y, int B, int S, int di,
                                  int N, void* stream) {
-  if (B < 0 || S < 0 || di < 0 || N < 1 || N > kMaxN || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B < 0 || S < 0 || di < 0 || N < 1) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0 || di == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* p_dt = static_cast<const float*>(dt);
-  const float* p_xc = static_cast<const float*>(xc);
-  const float* p_b = static_cast<const float*>(Bc);
-  const float* p_c = static_cast<const float*>(Cc);
-  const float* p_a = static_cast<const float*>(A);
-  float* p_y = static_cast<float*>(y);
-  // (lanes per channel, states per lane)
-  if (N <= 4) return launch<1, 4>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  if (N <= 8) return launch<1, 8>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  if (N <= 16) return launch<1, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  if (N <= 32) return launch<2, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
-  return launch<4, 16>(p_dt, p_xc, p_b, p_c, p_a, p_y, B, S, di, N, s);
+  for (int n0 = 0; n0 < N; n0 += kMaxLaneStates) {
+    const int rc = launch_group(
+        static_cast<const float*>(dt), static_cast<const float*>(xc),
+        static_cast<const float*>(Bc), static_cast<const float*>(Cc),
+        static_cast<const float*>(A), static_cast<float*>(y), B, S, di,
+        min(kMaxLaneStates, N - n0), N, n0, s);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // r[i] = the scan's exponential of x[i] (ex2.approx.ftz.f32), for i < n:

@@ -53,7 +53,11 @@
 //   (kernels/sellcs_spmv.py:dot_parts).  Complex64 and float32 at 512
 //   threads need more than the default 48 KB of shared memory.
 // * A block has at most kMaxThreads threads; a chunk whose C * TPR is
-//   larger is walked in passes of blockDim / TPR rows.
+//   larger (any C: C = 1024, or one chunk of all rows, ELLPACK) is spread
+//   over `parts` neighbouring blocks of blockDim / TPR rows each along
+//   grid.x (kernels/sellcs_spmv.py:chunk_parts), so a tall chunk fills the
+//   card instead of walking its rows in passes on one SM.  With dots,
+//   block (group, part) writes partial group * parts + part.
 // * Narrow stored values (bf16, f16, or f32 under f64 compute) are upcast in
 //   registers, so the value stream moves at the storage width.
 // * alpha, beta, delta, eta and gamma come by value (two doubles each) or,
@@ -352,9 +356,9 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
                   const CT* __restrict__ y_in, const CT* __restrict__ z_in,
                   const CT* __restrict__ gamma, CT* __restrict__ y,
                   CT* __restrict__ z, typename Dot<CT>::type* __restrict__ part,
-                  int nchunks, int C, int b, int bw, int tpr, int gamma_width,
-                  CT gval, CT alpha, CT beta, CT delta, CT eta,
-                  const CoefPtrs<CT> cp, int flags) {
+                  int nchunks, int C, int b, int bw, int tpr, int parts,
+                  int gamma_width, CT gval, CT alpha, CT beta, CT delta,
+                  CT eta, const CoefPtrs<CT> cp, int flags) {
   using DT = typename Dot<CT>::type;
   constexpr int kU = unroll<CT, CPT>();
   constexpr int K = DOTS ? kDotChunks : 1;
@@ -374,13 +378,18 @@ sellcs_spmv_fused(const VT* __restrict__ vals, const int* __restrict__ cols,
   if (cp.delta) delta = *cp.delta;
   if (cp.eta) eta = *cp.eta;
 
-  const int c_end = min(nchunks, (int)(blockIdx.x + 1) * K);
-  for (int c = blockIdx.x * K; c < c_end; ++c) {
+  // a chunk's rows [r_begin, r_end): all of them in passes where the
+  // chunk has one block, else this block's one pass of them
+  const int group = blockIdx.x / parts;
+  const int r_begin = (blockIdx.x % parts) * rows_per_pass;
+  const int r_end = parts > 1 ? min(C, r_begin + rows_per_pass) : C;
+  const int c_end = min(nchunks, (group + 1) * K);
+  for (int c = group * K; c < c_end; ++c) {
     const long long off = (long long)chunk_off[c] * C;
     const int len = chunk_len[c];
-    for (int r0 = 0; r0 < C; r0 += rows_per_pass) {
+    for (int r0 = r_begin; r0 < r_end; r0 += rows_per_pass) {
       const int lr = r0 + rip;
-      if (lr >= C || !col_ok) continue;
+      if (lr >= r_end || !col_ok) continue;
       const long long row = (long long)c * C + lr;
       const long long base = off + lr;
 
@@ -421,7 +430,7 @@ struct Args {
   void* y;
   void* z;
   void* part;
-  int nchunks, C, b, bw, tpr, threads, gamma_width, flags;
+  int nchunks, C, b, bw, tpr, threads, parts, gamma_width, flags;
   double alpha, beta, delta, eta;           // real parts
   double alpha_im, beta_im, delta_im, eta_im;  // imaginary parts
   double gamma_re, gamma_im;                // gamma by value (width 0)
@@ -435,9 +444,11 @@ template <typename VT, typename CT, int CPT>
 int launch(const Args& a, cudaStream_t stream) {
   using DT = typename Dot<CT>::type;
   const bool dots = a.flags & (kDotYY | kDotXY | kDotXX);
-  const dim3 grid(dots ? (a.nchunks + kDotChunks - 1) / kDotChunks
-                       : a.nchunks,
-                  (a.b + a.bw - 1) / a.bw);
+  const long long groups =
+      dots ? (a.nchunks + kDotChunks - 1) / kDotChunks : a.nchunks;
+  if (groups * a.parts > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)(groups * a.parts), (a.b + a.bw - 1) / a.bw);
   const size_t smem =
       dots ? (size_t)(3 * CPT * a.threads + a.threads / 32 * 3 * a.bw) *
                  sizeof(DT)
@@ -458,7 +469,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const CT*>(a.x), static_cast<const CT*>(a.y_in),
       static_cast<const CT*>(a.z_in), static_cast<const CT*>(a.gamma),
       static_cast<CT*>(a.y), static_cast<CT*>(a.z),
-      static_cast<DT*>(a.part), a.nchunks, a.C, a.b, a.bw, a.tpr,
+      static_cast<DT*>(a.part), a.nchunks, a.C, a.b, a.bw, a.tpr, a.parts,
       a.gamma_width, make_scalar<CT>(a.gamma_re, a.gamma_im),
       make_scalar<CT>(a.alpha, a.alpha_im),
       make_scalar<CT>(a.beta, a.beta_im), make_scalar<CT>(a.delta, a.delta_im),
@@ -498,7 +509,9 @@ int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
 // 0, else as gamma_width (1 or b) values on the card.  bw
 // (columns per grid.y slice, <= 16), tpr (threads per row), cpt (columns
 // per thread, tpr * cpt == bw) and threads (per block) come
-// from kernels/sellcs_spmv.py:launch_geometry; cpt > 1 needs b % cpt == 0
+// from kernels/sellcs_spmv.py:launch_geometry, parts (blocks a chunk,
+// each of threads / tpr rows, or 1) from chunk_parts; with dots part holds
+// dot_parts(nchunks, parts) rows; cpt > 1 needs b % cpt == 0
 // and x, y_in, z_in, y and z on 16-byte boundaries.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int sellcs_spmv_launch(
@@ -506,19 +519,21 @@ extern "C" int sellcs_spmv_launch(
     const void* chunk_off, const void* chunk_len, const void* x,
     const void* y_in, const void* z_in, const void* gamma, void* y, void* z,
     void* part, int nchunks, int C, int b, int bw, int tpr, int cpt,
-    int threads, int gamma_width, double alpha, double beta, double delta,
+    int threads, int parts, int gamma_width, double alpha, double beta, double delta,
     double eta, double alpha_im, double beta_im, double delta_im,
     double eta_im, double gamma_re, double gamma_im, const void* alpha_p,
     const void* beta_p, const void* delta_p, const void* eta_p, int flags,
     void* stream) {
   if (C < 1 || nchunks < 1 || b < 1 || bw < 1 || bw > kMaxBW || tpr < 1 ||
       cpt < 1 || tpr * cpt != bw || (cpt > 1 && b % cpt) || threads < 32 ||
-      threads > kMaxThreads || threads % 32 || 32 % tpr)
+      threads > kMaxThreads || threads % 32 || 32 % tpr || parts < 1 ||
+      (parts > 1 && (long long)(parts - 1) * (threads / tpr) >= C))
     return (int)cudaErrorInvalidValue;
   const Args a{vals, static_cast<const int*>(cols),
                static_cast<const int*>(chunk_off),
                static_cast<const int*>(chunk_len), x, y_in, z_in, gamma, y, z,
-               part, nchunks, C, b, bw, tpr, threads, gamma_width, flags,
+               part, nchunks, C, b, bw, tpr, threads, parts, gamma_width,
+               flags,
                alpha, beta, delta, eta, alpha_im, beta_im, delta_im, eta_im,
                gamma_re, gamma_im, alpha_p, beta_p, delta_p, eta_p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

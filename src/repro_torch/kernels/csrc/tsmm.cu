@@ -22,8 +22,9 @@
 // Design (what keeps 3.35 TB/s in flight):
 // * m and k are template parameters for the widths the repo runs: the
 //   square widths 1, 2, 4, 8, 16, 32 and 64 (every call in the repo is
-//   b x b).  Other (m, k) take the same kernel instantiated with M = K = 0,
-//   which reads m and k at run time and loads value by value.
+//   b x b).  Other (m, k) up to 64 take the same kernel instantiated with
+//   M = K = 0, which reads m and k at run time and loads value by value;
+//   wider ones take tsmm_dmma or tsmm_tiled (the last point below).
 // * A persistent grid: as many blocks as the card holds at once (the
 //   occupancy API's count times the SMs, at most one a tile).  Each block
 //   loads X into shared memory once, and walks the row tiles blockIdx.x,
@@ -54,8 +55,36 @@
 //   before: alpha * acc + beta * W_in.  The result does not depend on the
 //   grid or on R.
 // * W_out is a new buffer, so W_in may alias V (tsmm_inplace).
+// * m or k above 64 (tsmm_dmma and tsmm_tiled below): X no longer fits in
+//   one block's shared memory beside a ring (128 KB at m = k = 128 in
+//   float64), and the row-per-threads layout above runs out of threads
+//   past k = 256.  At m = k = 128 in float64 the call does 2 m k = 32,768
+//   flops a row against 3 x 128 x 8 bytes, 10.7 flops a byte: past the
+//   CUDA cores' ridge (34 TFLOP/s over 3.35 TB/s, 10), below DMMA's (67
+//   TFLOP/s, 20).  So float64 takes the FP64 tensor cores (tsmm_dmma,
+//   mma.sync m8n8k4): a block owns a 128 x 128 tile of W_out (at k <= 128
+//   V's rows are read once), its sixteen warps 32 x 32 each, and walks m in
+//   steps of 16: V's 128 x 16 and X's 16 x 128 values of the step go into
+//   shared memory (rows padded so that a fragment's 32 values take two
+//   wavefronts, the least for 256 bytes), the next step's are loaded into
+//   registers meanwhile, and a warp's step is 8 fragment loads for 16
+//   products of 8 x 8 x 4.  The other types take tsmm_tiled, a
+//   register-blocked product on the CUDA cores: a block owns 128 x 128
+//   (real values) or 64 x 64 (complex ones, whose 64 accumulators a thread
+//   would not fit in registers), thread (tx, ty) its rows ty + 16a and
+//   columns tx + 16c (a, c < 8, or 4), so a warp's reads of a step are one
+//   broadcast run of V and one contiguous run of 16 values of X (16 loads
+//   for 64 fused multiply-adds), and its stores of W_out contiguous runs.
+//   tsmm_tiled sums each output's m products in order of i from 0, as the
+//   instances above do; the tensor cores sum each group of four in their
+//   own order.  With W at 4,096,000 x 128 x 128 in float64 (PERF.md, PR
+//   29) earlier versions took 14.46 ms (CUDA cores, 4 x 4 thread tiles,
+//   64 x 64 blocks), 11.50 ms (CUDA cores, 8 x 8, 128 x 128) and 9.53 ms
+//   (DMMA, eight warps of 64 x 32, 255 registers and spills), this one
+//   7.66 (sixteen warps, 128 registers, 36 bytes of spills).
 
 #include <cuda_runtime.h>
+#include <type_traits>
 #include <stdint.h>
 
 #include "dtypes.cuh"
@@ -64,7 +93,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kStages = 4;
-constexpr int kMaxDim = 64;
+constexpr int kMaxDim = 64;       // widths of the streaming instances
+constexpr int kTileDepth = 16;    // tsmm_tiled: values of i a step
 constexpr int kStageTarget = 16384;  // bytes of V and W in one stage
 constexpr int kRegXBytes = 256;      // X's share in registers at most
 
@@ -266,6 +296,231 @@ tsmm_stream(const T* __restrict__ V, const typename Acc<T>::type* __restrict__ X
   cp_wait<0>();  // no copy outlives the block
 }
 
+// The tiled instance's thread tile (rows x columns of W_out a thread):
+// 8 x 8 for real values (a block 128 x 128), 4 x 4 for complex ones,
+// whose 64 accumulators would not fit in registers (a block 64 x 64).
+template <typename T> struct TiledTile { static constexpr int M = 8; };
+template <typename R> struct TiledTile<Complex<R>> {
+  static constexpr int M = 4;
+};
+
+// W_out = alpha V X + beta W_in for m or k above 64 (see the note at the
+// top): block blockIdx.x owns row tile blockIdx.x / kslabs and column
+// slab blockIdx.x % kslabs of W_out; thread (tx, ty) owns its rows ty +
+// 16 a and columns tx + 16 c (a, c < TM).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+tsmm_tiled(const T* __restrict__ V, const typename Acc<T>::type* __restrict__ X,
+           const T* __restrict__ W_in, T* __restrict__ W_out, long long n,
+           int m, int k, int kslabs, typename Acc<T>::type alpha,
+           typename Acc<T>::type beta,
+           const typename Acc<T>::type* __restrict__ alpha_p,
+           const typename Acc<T>::type* __restrict__ beta_p, int has_w) {
+  using A = typename Acc<T>::type;
+  constexpr int TM = TiledTile<T>::M;
+  constexpr int kRows = 16 * TM, kCols = 16 * TM;  // the block's tile
+  constexpr int kD = kTileDepth;
+  constexpr int kEach = kRows * kD / kThreads;  // loads a thread a step
+  static_assert(kRows * kD == kThreads * kEach &&
+                    kD * kCols == kThreads * kEach,
+                "each thread loads kEach values of V and of X a step");
+  __shared__ A sV[kD][kRows + 1];  // V's step, transposed
+  __shared__ A sX[kD][kCols];
+  if (alpha_p) alpha = *alpha_p;  // a coefficient on the card
+  if (beta_p) beta = *beta_p;
+  const long long r0 = (long long)(blockIdx.x / kslabs) * kRows;
+  const int c0 = (blockIdx.x % kslabs) * kCols;
+  const int t = threadIdx.x;
+  const int tx = t % 16, ty = t / 16;
+
+  A vr[kEach], xr[kEach];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = u * kThreads + t;
+      const int r = e / kD, i = e % kD;
+      vr[u] = (r0 + r < n && i0 + i < m)
+                  ? load_as<A>(V[(r0 + r) * m + i0 + i])
+                  : A(0);
+      const int xi = e / kCols, c = e % kCols;
+      xr[u] = (i0 + xi < m && c0 + c < k) ? X[(long long)(i0 + xi) * k + c0 + c]
+                                          : A(0);
+    }
+  };
+  A acc[TM][TM];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int c = 0; c < TM; ++c) acc[a][c] = A(0);
+
+  load(0);
+#pragma unroll 1
+  for (int i0 = 0; i0 < m; i0 += kD) {
+    __syncthreads();  // every thread is done with the step before
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = u * kThreads + t;
+      sV[e % kD][e / kD] = vr[u];
+      sX[e / kCols][e % kCols] = xr[u];
+    }
+    __syncthreads();
+    if (i0 + kD < m) load(i0 + kD);
+    const int steps = min(kD, m - i0);
+#pragma unroll 2
+    for (int i = 0; i < steps; ++i) {
+      A v[TM], x[TM];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) v[a] = sV[i][ty + 16 * a];
+#pragma unroll
+      for (int c = 0; c < TM; ++c) x[c] = sX[i][tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TM; ++c) acc[a][c] = mul_add(v[a], x[c], acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+    const long long row = r0 + ty + 16 * a;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < TM; ++c) {
+      const int col = c0 + tx + 16 * c;
+      if (col >= k) continue;
+      A y = alpha * acc[a][c];
+      if (has_w) y += beta * load_as<A>(W_in[row * k + col]);
+      W_out[row * k + col] = store_as<T>(y);
+    }
+  }
+}
+
+// The float64 wide instance on the FP64 tensor cores (see the note at the
+// top): mma.sync m8n8k4, a block a 128 x 128 tile of W_out, its sixteen
+// warps 4 x 4 of 32 x 32, each of 4 x 4 products of 8 x 8; m in steps of
+// kDmmaDepth through shared memory, the next step's values loaded into
+// registers meanwhile.
+constexpr int kDmmaThreads = 512;
+constexpr int kDmmaTile = 128;   // rows and columns of W_out a block
+constexpr int kDmmaDepth = 16;   // values of i a step
+constexpr int kDmmaPadV = 4;     // sV's rows: kDmmaDepth + 4 values
+constexpr int kDmmaPadX = 8;     // sX's rows: kDmmaTile + 8 values
+
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+__global__ void __launch_bounds__(kDmmaThreads, 1)
+tsmm_dmma(const double* __restrict__ V, const double* __restrict__ X,
+          const double* __restrict__ W_in, double* __restrict__ W_out,
+          long long n, int m, int k, int kslabs, double alpha, double beta,
+          const double* __restrict__ alpha_p, const double* __restrict__ beta_p,
+          int has_w) {
+  constexpr int kT = kDmmaTile, kD = kDmmaDepth, kN = kDmmaThreads;
+  constexpr int kEach = kT * kD / kN;        // loads a thread a step
+  constexpr int kMT = 4, kNT = 4;            // a warp's 8 x 8 products
+  __shared__ double sV[kT][kD + kDmmaPadV];
+  __shared__ double sX[kD][kT + kDmmaPadX];
+  if (alpha_p) alpha = *alpha_p;  // a coefficient on the card
+  if (beta_p) beta = *beta_p;
+  const long long r0 = (long long)(blockIdx.x / kslabs) * kT;
+  const int c0 = (blockIdx.x % kslabs) * kT;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wr = (warp >> 2) * 32, wc = (warp & 3) * 32;  // the warp's tile
+  const int lr = lane >> 2, lk = lane & 3;                // fragment place
+
+  double vr[kEach], xr[kEach];
+  auto load = [&](int i0) {
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = u * kN + t;
+      const int r = e / kD, i = e % kD;
+      vr[u] = (r0 + r < n && i0 + i < m) ? V[(r0 + r) * m + i0 + i] : 0.0;
+      const int xi = e / kT, c = e % kT;
+      xr[u] = (i0 + xi < m && c0 + c < k) ? X[(long long)(i0 + xi) * k + c0 + c]
+                                          : 0.0;
+    }
+  };
+  double acc[kMT][kNT][2];
+#pragma unroll
+  for (int a = 0; a < kMT; ++a)
+#pragma unroll
+    for (int b = 0; b < kNT; ++b) acc[a][b][0] = acc[a][b][1] = 0.0;
+
+  load(0);
+#pragma unroll 1
+  for (int i0 = 0; i0 < m; i0 += kD) {
+    __syncthreads();  // every warp is done with the step before
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = u * kN + t;
+      sV[e / kD][e % kD] = vr[u];
+      sX[e / kT][e % kT] = xr[u];
+    }
+    __syncthreads();
+    if (i0 + kD < m) load(i0 + kD);
+#pragma unroll
+    for (int kk = 0; kk < kD; kk += 4) {
+      double fa[kMT], fb[kNT];
+#pragma unroll
+      for (int a = 0; a < kMT; ++a) fa[a] = sV[wr + 8 * a + lr][kk + lk];
+#pragma unroll
+      for (int b = 0; b < kNT; ++b) fb[b] = sX[kk + lk][wc + 8 * b + lr];
+#pragma unroll
+      for (int a = 0; a < kMT; ++a)
+#pragma unroll
+        for (int b = 0; b < kNT; ++b)
+          dmma(acc[a][b][0], acc[a][b][1], fa[a], fb[b]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kMT; ++a) {
+    const long long row = r0 + wr + 8 * a + lr;
+    if (row >= n) continue;
+#pragma unroll
+    for (int b = 0; b < kNT; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + wc + 8 * b + 2 * lk + h;
+        if (col >= k) continue;
+        double y = alpha * acc[a][b][h];
+        if (has_w) y += beta * W_in[row * k + col];
+        W_out[row * k + col] = y;
+      }
+  }
+}
+
+template <typename T>
+int launch_tiled(const void* V, const void* X, const void* W_in, void* W_out,
+                 long long n, int m, int k, typename Acc<T>::type alpha,
+                 typename Acc<T>::type beta, const void* alpha_p,
+                 const void* beta_p, int has_w, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  constexpr bool dmma = std::is_same<T, double>::value;
+  constexpr int tile = dmma ? kDmmaTile : 16 * TiledTile<T>::M;
+  const int kslabs = (k + tile - 1) / tile;
+  const long long grid = (n + tile - 1) / tile * kslabs;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if constexpr (dmma) {
+    tsmm_dmma<<<(unsigned)grid, kDmmaThreads, 0, stream>>>(
+        static_cast<const double*>(V), static_cast<const double*>(X),
+        static_cast<const double*>(W_in), static_cast<double*>(W_out), n, m,
+        k, kslabs, alpha, beta, static_cast<const double*>(alpha_p),
+        static_cast<const double*>(beta_p), has_w);
+    return (int)cudaGetLastError();
+  }
+  tsmm_tiled<T><<<(unsigned)grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(V), static_cast<const A*>(X),
+      static_cast<const T*>(W_in), static_cast<T*>(W_out), n, m, k, kslabs,
+      alpha, beta, static_cast<const A*>(alpha_p),
+      static_cast<const A*>(beta_p), has_w);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int M, int K>
 int launch_mk(const void* V, const void* X, const void* W_in, void* W_out,
               long long n, int m, int k, typename Acc<T>::type alpha,
@@ -344,6 +599,9 @@ int launch(const void* V, const void* X, const void* W_in, void* W_out,
   TSMM_SQUARE(32)
   TSMM_SQUARE(64)
 #undef TSMM_SQUARE
+  if (m > kMaxDim || k > kMaxDim)
+    return launch_tiled<T>(V, X, W_in, W_out, n, m, k, a, b, alpha_p, beta_p,
+                           has_w, stream);
   return launch_mk<T, 0, 0>(V, X, W_in, W_out, n, m, k, a, b, alpha_p,
                             beta_p, has_w, stream);
 }
@@ -355,15 +613,15 @@ int launch(const void* V, const void* X, const void* W_in, void* W_out,
 // accumulation type.  alpha and beta come as real and imaginary parts (the
 // imaginary parts are ignored for a real dtype), or, where alpha_p /
 // beta_p is not null, as one value of the accumulation type on the card.
-// Requires n >= 1 and
-// 1 <= m, k <= 64; W_out 16-byte aligned.  Returns the first CUDA error of
+// Requires n >= 1, m, k >= 1 and W_out 16-byte aligned; m or k above 64
+// take tsmm_dmma (float64) or tsmm_tiled.  Returns the first CUDA error of
 // the launch (0 on success).
 extern "C" int tsmm_launch(int dtype, const void* V, const void* X,
                            const void* W_in, void* W_out, long long n, int m,
                            int k, double alpha, double beta, double alpha_im,
                            double beta_im, const void* alpha_p,
                            const void* beta_p, int has_w, void* stream) {
-  if (n < 1 || m < 1 || k < 1 || m > kMaxDim || k > kMaxDim ||
+  if (n < 1 || m < 1 || k < 1 ||
       (reinterpret_cast<uintptr_t>(W_out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

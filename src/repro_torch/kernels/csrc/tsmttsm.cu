@@ -41,8 +41,18 @@
 //   ceil(m/TM) * ceil(k/TN) tiles of one row are spread over G
 //   neighbouring threads; the block's L = 256 / G "row lanes" take the
 //   rows of a stage with stride L.  A row of more than 256 tiles (complex
-//   values at m * k > 2048) is split over grid.y: each block of a slab is
-//   one lane over 256 of its tiles, reading the whole rows.
+//   values at m * k > 2048, real ones past 4096) is split over grid.y:
+//   each block of a slab is one lane over 256 of its tiles, reading the
+//   whole rows.  m and k have no upper limit but
+//   shared memory: three stages of one row of V and W (m + k up to 8,320
+//   in float64) beside room for complex128's compensation tile.  Past
+//   four slabs the wrapper spreads the rows over fewer blocks (at most
+//   2,112 thread blocks in the grid, kernels/tsmttsm.py:row_partition),
+//   so the block partials' scratch stays near 2,112 x 256 tiles' values;
+//   at m = k = 128 in float64 it is 528 x 128 x 128 values, 69 MB (twice
+//   with Kahan).  Such widths are bound by the FP64 operations, not the
+//   bytes: 2 m k flops a row against (m + k) 8 bytes, 64 flops a byte at
+//   m = k = 128, where the card's ridge is about 10 at 34 TFLOP/s.
 // * Kahan (kahan=True): each lane sums groups of KG = 8 of its rows plainly
 //   and adds each group's sum with compensation, as the TPU kernel does
 //   with its 8-row micro-slabs; the lanes, the blocks and the runs of
@@ -82,7 +92,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxDim = 64;  // kernels/tsmttsm.py:MAX_DIM
 constexpr int kKG = 8;      // rows per plainly summed group
 constexpr int kStages = 3;  // shared-memory ring
 constexpr int kFinishWarps = 4;  // result entries of a finishing block
@@ -618,7 +627,7 @@ extern "C" int tsmttsm_launch(int dtype, int kahan, int conj, const void* V,
                               double alpha_im, double beta_im,
                               const void* alpha_p, const void* beta_p,
                               int has_x, void* stream) {
-  if (m < 1 || k < 1 || m > kMaxDim || k > kMaxDim || n < 0 || nblocks < 0 ||
+  if (m < 1 || k < 1 || n < 0 || nblocks < 0 ||
       (nblocks > 0 && (rows_per_block < 1 || tile_rows < 1)))
     return (int)cudaErrorInvalidValue;
   const Args a{V,  W,        part,  comp,  n,    m,     k,

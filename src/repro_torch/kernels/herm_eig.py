@@ -5,16 +5,17 @@ its ``info`` on the host after every call, so each (b, b) eigensolve of
 the block-Krylov iteration (``solvers/block.py``) stalls the host; the
 JAX package's ``jnp.linalg.eigh`` inside a jitted loop does not.  This
 kernel computes the decomposition with the flag left on the device: one
-thread block a matrix, cyclic Jacobi in shared memory (see the note at
-the top of the CUDA source).
+thread block a matrix, cyclic Jacobi in shared memory (past m =
+:data:`SHARED_DIM`, U, and A where it does not fit, in a workspace in
+device memory; see the note at the top of the CUDA source).
 
 ``herm_eig_cuda(A)`` takes ``(m, m)`` or ``(batch, m, m)`` CUDA tensors in
-float64, float32, complex128 or complex64 with ``1 <= m <=``
-:data:`MAX_DIM`, reads their lower triangles (as ``torch.linalg.eigh``
-does) and returns ``(w, U, sweeps)``: the eigenvalues ascending in the
-real dtype, the eigenvectors as U's columns, and an int32 tensor on the
-card with the Jacobi sweeps each matrix took, 0 where it did not
-converge within the kernel's sweep limit.  Nothing else runs instead.
+float64, float32, complex128 or complex64 of any ``m >= 1``, reads their
+lower triangles (as ``torch.linalg.eigh`` does) and returns ``(w, U,
+sweeps)``: the eigenvalues ascending in the real dtype, the
+eigenvectors as U's columns, and an int32 tensor on the card with the
+Jacobi sweeps each matrix took, 0 where it did not converge within the
+kernel's sweep limit.  Nothing else runs instead.
 The plain version is ``torch.linalg.eigh``.
 """
 from __future__ import annotations
@@ -27,14 +28,17 @@ from repro_torch.core import execution
 from repro_torch.kernels import _build
 from repro_torch.kernels.tsmttsm import DTYPE_CODES
 
-__all__ = ["herm_eig_cuda", "MAX_DIM", "DTYPES"]
+__all__ = ["herm_eig_cuda", "SHARED_DIM", "DTYPES"]
 
-#: largest m the kernel takes (A and U of complex128 in shared memory)
-MAX_DIM = 64
+#: largest m whose A and U the kernel keeps in shared memory (complex128
+#: at 64 takes 128 KB); wider matrices take the wide instance
+SHARED_DIM = 64
 DTYPES = (torch.float64, torch.float32, torch.complex128, torch.complex64)
+#: the dtype a wide matrix of a single-precision dtype is solved in
+_DOUBLE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _P]
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _P]
 
 
 def _entry():
@@ -60,9 +64,16 @@ def herm_eig_cuda(A: torch.Tensor):
         raise ValueError(f"{fn}: A must be (m, m) or (batch, m, m), got "
                          f"{tuple(A.shape)}")
     m = int(A.shape[-1])
-    if not 1 <= m <= MAX_DIM:
-        raise ValueError(f"{fn}: m={m} outside 1..{MAX_DIM}")
+    if m < 1:
+        raise ValueError(f"{fn}: m={m} must be at least 1")
     batch_shape = tuple(A.shape[:-2])
+    if m > SHARED_DIM and A.dtype in _DOUBLE:
+        # past the shared-memory design a float32 (complex64) matrix is
+        # solved in float64 (complex128): over the sweeps at m = 128 a
+        # float32 U drifted from orthonormal by more than 16 m eps
+        w, U, conv = herm_eig_cuda(A.to(_DOUBLE[A.dtype]))
+        return w.to(A.real.dtype if A.is_complex() else A.dtype), \
+            U.to(A.dtype), conv
     A = A.resolve_conj().contiguous()
     batch = int(A.shape[0]) if A.ndim == 3 else 1
     real = A.real.dtype if A.is_complex() else A.dtype
@@ -71,10 +82,16 @@ def herm_eig_cuda(A: torch.Tensor):
     conv = torch.empty(batch_shape, dtype=torch.int32, device=device)
     if batch == 0:
         return w, U, conv
+    # the wide instance's workspace: U, and A where it does not fit in
+    # shared memory, 2 m^2 values a matrix
+    work = (torch.empty(2 * batch * m * m, dtype=A.dtype, device=device)
+            if m > SHARED_DIM else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _entry()(DTYPE_CODES[A.dtype], A.data_ptr(), w.data_ptr(),
-                      U.data_ptr(), conv.data_ptr(), batch, m, stream)
+                      U.data_ptr(), conv.data_ptr(),
+                      None if work is None else work.data_ptr(), batch, m,
+                      stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch(fn)

@@ -27,7 +27,7 @@ values (``_own``).
   block-Krylov solvers' (b, b) eigensolves go through this one).
 * ``mamba_scan`` — the selective-SSM scan of the Mamba mixer (kernel B6).
   It has no ``d_tile`` or ``s_blk`` and pads nothing: the CUDA kernel
-  takes any shape, with ``N <= MAX_N``, in float32 only.
+  takes any shape and any state size, in float32 only.
 
 B1–B5 take complex64 and complex128 operands on the card as they take
 real ones.
@@ -211,7 +211,7 @@ def herm_eig(A: torch.Tensor):
     """``(w, U, converged)`` with ``A = U diag(w) U^H``, ``w`` ascending,
     for a Hermitian ``(m, m)`` or ``(batch, m, m)`` ``A`` (its lower
     triangle is read).  CUDA tensors launch the port's Jacobi kernel
-    (``m <= 64``; ``converged`` is a bool tensor on the card, False where
+    (any ``m``; ``converged`` is a bool tensor on the card, False where
     the kernel's sweep limit was reached, and nothing runs instead); CPU
     tensors take ``torch.linalg.eigh``, which raises where it fails, so
     ``converged`` is True there.  Eigenvectors are fixed only up to a
@@ -232,8 +232,8 @@ def mamba_scan(dt: torch.Tensor, xc: torch.Tensor, Bc: torch.Tensor,
     Cc[b,s,n]`` with ``h = exp(dt A) h + dt xc Bc``, recurrent over s.
 
     ``dt``, ``xc`` ``(B, S, di)``; ``Bc``, ``Cc`` ``(B, S, N)``; ``A``
-    ``(di, N)``.  CUDA tensors launch kernel B6 (float32 only,
-    ``N <= MAX_N``; anything else raises), on contiguous copies of
+    ``(di, N)``.  CUDA tensors launch kernel B6 (float32 only; anything
+    else raises), on contiguous copies of
     strided operands; CPU tensors, or
     ``impl="ref"``, run the plain version in the inputs' dtype.
     """

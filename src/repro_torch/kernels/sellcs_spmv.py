@@ -1,7 +1,8 @@
 """Fused SELL-C-sigma SpM(M)V on Hopper: the wrapper of ``csrc/sellcs_spmv.cu``.
 
 The CUDA port of ``repro/kernels/sellcs_spmv.py:sellcs_spmv_pallas`` (B1).
-One thread block owns one C-row chunk, and :func:`launch_geometry` spreads
+One thread block owns one C-row chunk (a taller chunk is spread over
+several, :func:`chunk_parts`), and :func:`launch_geometry` spreads
 each row over a few threads that own neighbouring columns as 16-byte
 vectors; the kernel computes ``y = alpha (A - gamma I) x + beta y_in``,
 the chained ``z = delta z_in + eta y`` and float64 partial dots of each
@@ -28,13 +29,11 @@ from repro_torch.core.spmv import dot_acc_dtype
 from repro_torch.kernels import _build
 
 __all__ = ["sellcs_spmv_cuda", "check_operand", "launch_geometry",
-           "dot_parts", "coefficient", "coefficient_arg", "Coef", "Geometry",
-           "MAX_C", "MAX_THREADS"]
+           "chunk_parts", "dot_parts", "coefficient", "coefficient_arg",
+           "Coef", "Geometry", "MAX_THREADS"]
 
-#: largest chunk height
-MAX_C = 256
-#: threads of one block at most; a chunk whose rows need more is walked
-#: in passes
+#: threads of one block at most; a chunk whose rows need more is spread
+#: over several blocks (:func:`chunk_parts`)
 MAX_THREADS = 512
 #: columns of one grid.y slice at most
 _MAX_BW = 16
@@ -51,7 +50,7 @@ _COMPUTE_CODES = {torch.float64: 0, torch.float32: 1, torch.complex128: 2,
 _HAS_YIN, _HAS_GAMMA, _CHAIN, _DOT_YY, _DOT_XY, _DOT_XX = 1, 2, 4, 8, 16, 32
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 8 + [_D] * 10 + [_P] * 4 + [_I, _P]
+_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 9 + [_D] * 10 + [_P] * 4 + [_I, _P]
 
 
 class Geometry(NamedTuple):
@@ -78,7 +77,7 @@ def launch_geometry(b: int, C: int, compute_dtype: torch.dtype,
     a row, b=4 two, b=1 one; complex128 b=16 is 8 threads without dots
     and 16 with them.  A block holds the chunk's ``C * tpr`` threads,
     rounded up to whole warps and capped at :data:`MAX_THREADS` (then the
-    chunk is walked in passes)."""
+    chunk is spread over :func:`chunk_parts` blocks)."""
     bw = 1
     while bw < min(b, _MAX_BW):
         bw *= 2
@@ -96,10 +95,19 @@ def launch_geometry(b: int, C: int, compute_dtype: torch.dtype,
     return Geometry(bw, cpt, tpr, threads, -(-b // bw))
 
 
-def dot_parts(nchunks: int) -> int:
+def chunk_parts(C: int, geo: Geometry) -> int:
+    """Thread blocks one chunk of ``C`` rows is spread over: 1 where its
+    ``C * tpr`` threads fit in one block, else one block a ``threads /
+    tpr`` rows (any ``C``: ELLPACK's one chunk of all rows spreads over
+    the whole card)."""
+    return -(-C // (geo.threads // geo.tpr))
+
+
+def dot_parts(nchunks: int, parts: int = 1) -> int:
     """Rows of dot partials the kernel writes: one a block of
-    :data:`DOT_CHUNKS` chunks."""
-    return -(-nchunks // DOT_CHUNKS)
+    :data:`DOT_CHUNKS` chunks, times the ``parts`` blocks each chunk is
+    spread over (:func:`chunk_parts`)."""
+    return -(-nchunks // DOT_CHUNKS) * parts
 
 
 def _entry():
@@ -254,8 +262,8 @@ def sellcs_spmv_cuda(
                         f"compute {ct}")
     if x.ndim != 2:
         raise ValueError(f"sellcs_spmv: x must be (n, b), got {tuple(x.shape)}")
-    if not 1 <= C <= MAX_C:
-        raise ValueError(f"sellcs_spmv: C={C} is outside 1..{MAX_C}")
+    if C < 1:
+        raise ValueError(f"sellcs_spmv: C={C} must be at least 1")
     nchunks = int(chunk_off.shape[0])
     n_pad = nchunks * C
     b = int(x.shape[1])
@@ -284,7 +292,8 @@ def sellcs_spmv_cuda(
     geo = launch_geometry(b, C, ct, all(
         t.data_ptr() % 16 == 0 for t in (x, y_in, z_in if chain else None)
         if t is not None), dots=any_dot)
-    part = (torch.empty((dot_parts(nchunks), 3, b),
+    parts = chunk_parts(C, geo)
+    part = (torch.empty((dot_parts(nchunks, parts), 3, b),
                         dtype=dot_acc_dtype(ct), device=device)
             if any_dot else None)
     coefs = [coefficient_arg("sellcs_spmv", name, v, ct, device)
@@ -305,7 +314,7 @@ def sellcs_spmv_cuda(
                 _ptr(vals), _ptr(cols), _ptr(chunk_off), _ptr(chunk_len),
                 _ptr(x), _ptr(y_in), _ptr(z_in if chain else None),
                 None if g is None else g.ptr, _ptr(y), _ptr(z), _ptr(part),
-                nchunks, C, b, geo.bw, geo.tpr, geo.cpt, geo.threads,
+                nchunks, C, b, geo.bw, geo.tpr, geo.cpt, geo.threads, parts,
                 0 if g is None else g.width,
                 *(c.re for c in coefs), *(c.im for c in coefs),
                 0.0 if g is None else g.re, 0.0 if g is None else g.im,

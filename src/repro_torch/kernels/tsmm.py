@@ -1,10 +1,13 @@
 """Tall-skinny x small GEMM on Hopper: the wrapper of ``csrc/tsmm.cu``.
 
 The CUDA port of ``repro/kernels/tsmm.py:tsmm_pallas`` (B3):
-``W_out = alpha * V X + beta * W`` for real or complex V ``(n, m)``, a
-small X ``(m, k)`` kept in shared memory, and W ``(n, k)`` or none.  Each
-row of V and W is read once and each output row written once (see the
-note at the top of the CUDA source).  This wrapper validates the operands, hands X
+``W_out = alpha * V X + beta * W`` for real or complex V ``(n, m)``, X
+``(m, k)`` and W ``(n, k)`` or none, at any widths.  Up to m = k = 64 X is
+kept in shared memory and each row of V and W is read once and each
+output row written once; wider calls take a tiled instance, a block a
+128 x 128 tile of the result (64 x 64 for complex values) walking m in
+steps, float64 on the FP64 tensor cores (see the note at the top of the
+CUDA source).  This wrapper validates the operands, hands X
 over in the accumulation dtype, allocates the result and launches on the
 current stream without synchronising.
 

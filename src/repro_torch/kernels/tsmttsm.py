@@ -28,17 +28,27 @@ from repro_torch.core.spmv import storage_acc_dtype
 from repro_torch.kernels import _build
 from repro_torch.kernels.sellcs_spmv import check_operand, coefficient_arg
 
-__all__ = ["tsmttsm_cuda", "MAX_DIM", "row_partition", "summation_depth",
+__all__ = ["tsmttsm_cuda", "row_partition", "summation_depth",
            "stage_rows", "bulk_aligned", "thread_tile", "block_runs",
            "stage_bytes",
            "DTYPE_CODES"]
 
-#: largest m and k the kernels take
-MAX_DIM = 64
 #: the number of blocks the rows are spread over, at most (a constant, not
 #: the card's SM count, so the summation order is the same on every card)
 MAX_BLOCKS = 528
+#: thread blocks of the partial kernel at most (row blocks x tile slabs)
+#: where a row's tiles need more than four slabs (m * k above 16384 for
+#: real values, 8192 for complex ones): the block partials' scratch then
+#: stays near MAX_GRID * 256 tiles' values, whatever the widths
+MAX_GRID = 4 * MAX_BLOCKS
+#: shared memory one thread block may use on an H100
+MAX_SMEM_BYTES = 232448
 _THREADS, _GROUP = 256, 8
+#: stages of the ring (``kStages`` of the CUDA source)
+_STAGES = 3
+#: complex128's Kahan compensation tile in shared memory (4 x 2 values of
+#: 16 bytes a thread), kept free beside the ring for every dtype
+_COMP_TILE_BYTES = 4 * 2 * _THREADS * 16
 #: runs of block partials the finishing kernel sums apart (a warp's lanes)
 _RUNS = 32
 #: bytes of one shared-memory stage, at most (the ring has three; see
@@ -84,20 +94,28 @@ def _tiles(m: int, k: int, dtype) -> int:
 def _lanes(m: int, k: int, dtype=None) -> int:
     """Row lanes of a block: 256 threads over the tiles of one row, or one
     lane where a row has more tiles than that (complex values at ``m * k
-    > 2048``; the kernel then splits the tiles over grid.y, slabs of 256
-    each reading the whole rows)."""
+    > 2048``, real ones past 4096; the kernel then splits the tiles over
+    grid.y, slabs of 256 each reading the whole rows)."""
     return max(1, _THREADS // _tiles(m, k, dtype))
+
+
+def tile_slabs(m: int, k: int, dtype=None) -> int:
+    """grid.y of the partial kernel: slabs of 256 of a row's tiles."""
+    return -(-_tiles(m, k, dtype) // _THREADS)
 
 
 def row_partition(n: int, m: int, k: int, dtype=None):
     """``(rows_per_block, nblocks)`` for ``n`` rows: at most
-    :data:`MAX_BLOCKS` blocks, each a whole number of the block's row-lane
-    sweeps (lanes x 8-row groups).  A function of ``(n, m, k)`` and of the
-    thread tile of ``dtype`` (None: a real dtype) alone."""
+    :data:`MAX_BLOCKS` blocks (fewer where more than four tile slabs would
+    put more than :data:`MAX_GRID` thread blocks in the grid), each a
+    whole number of the block's row-lane sweeps (lanes x 8-row groups).
+    A function of ``(n, m, k)`` and of the thread tile of ``dtype`` (None:
+    a real dtype) alone."""
     if n == 0:
         return 0, 0
     sweep = _lanes(m, k, dtype) * _GROUP
-    rows = -(-n // MAX_BLOCKS)
+    cap = max(1, min(MAX_BLOCKS, MAX_GRID // tile_slabs(m, k, dtype)))
+    rows = -(-n // cap)
     rows = -(-rows // sweep) * sweep
     return rows, -(-n // rows)
 
@@ -153,9 +171,17 @@ def bulk_aligned(V: torch.Tensor, W: torch.Tensor, rows_per_block: int,
             and all(b % 16 == 0 for b in sizes))
 
 
+def stage_smem(m: int, k: int, itemsize: int, dtype=None) -> int:
+    """Bytes of the partial kernel's ring: three stages of
+    :func:`stage_rows` rows of V and W, each 16-byte aligned."""
+    rows = stage_rows(m, k, itemsize, dtype)
+    r16 = lambda b: -(-b // 16) * 16
+    return _STAGES * (r16(rows * m * itemsize) + r16(rows * k * itemsize))
+
+
 def check_dims(fn: str, m: int, k: int) -> None:
-    if not (1 <= m <= MAX_DIM and 1 <= k <= MAX_DIM):
-        raise ValueError(f"{fn}: m={m}, k={k} outside 1..{MAX_DIM}")
+    if m < 1 or k < 1:
+        raise ValueError(f"{fn}: m={m}, k={k} must be at least 1")
 
 
 def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
@@ -185,6 +211,10 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     check_dims(fn, m, k)
     check_operand(fn, "V", V, device, V.dtype, (n, m))
     check_operand(fn, "W", W, device, V.dtype, (n, k))
+    if (stage_smem(m, k, V.element_size(), V.dtype)
+            > MAX_SMEM_BYTES - _COMP_TILE_BYTES):
+        raise ValueError(f"{fn}: three stages of one row of V and W (m + k "
+                         f"= {m + k}) exceed a block's shared memory")
     acc = storage_acc_dtype(V.dtype)
     x_in = None
     if X is not None:

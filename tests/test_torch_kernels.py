@@ -22,12 +22,12 @@ import torch
 from repro_torch.core import SpmvOpts, execution, from_coo
 from repro_torch.kernels.ops import sellcs_spmv, tsmm, tsmttsm
 from repro_torch.kernels.ref import sellcs_spmv_ref, tsmm_ref, tsmttsm_ref
-from repro_torch.kernels.sellcs_spmv import (DOT_CHUNKS, MAX_C,
+from repro_torch.kernels.sellcs_spmv import (DOT_CHUNKS,
                                              MAX_THREADS, dot_parts,
                                              launch_geometry,
                                              sellcs_spmv_cuda)
 from repro_torch.kernels.tsmm import tsmm_cuda
-from repro_torch.kernels.tsmttsm import (MAX_BLOCKS, MAX_DIM, STAGE_BYTES,
+from repro_torch.kernels.tsmttsm import (MAX_BLOCKS, STAGE_BYTES,
                                          block_runs, bulk_aligned,
                                          row_partition, stage_bytes,
                                          stage_rows,
@@ -37,6 +37,9 @@ from repro_torch.matrices import anisotropic_laplace2d, matpde
 from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,
                                  make_operator)
 
+#: the widest m, k of B2's and B3's narrow designs (wider calls take the
+#: wide instances, tests/test_torch_wide_card.py)
+NARROW = 64
 PAIRS = [(torch.float64, np.float64), (torch.float32, np.float32),
          (torch.bfloat16, np.float32), (torch.float16, np.float32),
          (torch.float32, np.float64)]
@@ -182,9 +185,9 @@ def test_complex_kernel_matches_plain_on_card(np_ct, b, flag, real_x):
 @pytest.mark.parametrize("kahan", [False, True])
 @pytest.mark.parametrize("conj", [True, False])
 @pytest.mark.parametrize("n,m,k", [(37, 3, 8), (4109, 16, 16),
-                                   (4109, MAX_DIM, MAX_DIM),
-                                   (4109, MAX_DIM, 16), (4109, 5, MAX_DIM),
-                                   (37, MAX_DIM, 1)])
+                                   (4109, 64, 64),
+                                   (4109, 64, 16), (4109, 5, 64),
+                                   (37, 64, 1)])
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
                          ids=["complex128", "complex64"])
 def test_complex_tsm_matches_plain_on_card(dtype, n, m, k, conj, kahan,
@@ -220,7 +223,7 @@ def test_complex_tsm_matches_plain_on_card(dtype, n, m, k, conj, kahan,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kahan", [False, True])
-@pytest.mark.parametrize("m,k", [(16, 16), (5, 16), (MAX_DIM, 3)])
+@pytest.mark.parametrize("m,k", [(16, 16), (5, 16), (64, 3)])
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64],
                          ids=["complex128", "complex64"])
 def test_complex_tsmttsm_views_and_chunks_give_the_same_bits_on_card(
@@ -420,9 +423,19 @@ def test_wrapper_refusals_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         sellcs_spmv_cuda(A.vals, A.cols, A.chunk_off, A.chunk_len,
                          torch.randn(2, A.nrows_pad, device="cuda").T, C=32)
-    with pytest.raises(ValueError, match="outside"):
-        sellcs_spmv_cuda(A.vals, A.cols, A.chunk_off, A.chunk_len, x,
-                         C=MAX_C + 1)
+    # a chunk taller than the old limit of 256 rows (here one chunk of all
+    # rows, ELLPACK) spreads over several blocks, held against the plain
+    # version, dots included
+    Ae = _matrix(C=A.nrows_pad, sigma=1, dtype=np.float32, device="cuda")
+    assert Ae.C > 256 and Ae.nchunks == 1
+    xe = torch.randn(Ae.nrows_pad, 2, device="cuda")
+    opts = SpmvOpts(dot_yy=True, dot_xy=True)
+    execution.reset_launch_counts()
+    got = sellcs_spmv(Ae, xe, opts=opts)
+    assert execution.launch_counts()["sellcs_spmv"] == 1
+    want = sellcs_spmv_ref(Ae, xe, opts=opts)
+    assert rel_err(got[0], want[0]) <= 1e-5
+    assert rel_err(got[2], want[2]) <= 1e-6
 
 
 def test_launch_geometry_spreads_rows_over_vector_threads():
@@ -437,7 +450,8 @@ def test_launch_geometry_spreads_rows_over_vector_threads():
     # odd widths and operands off a 16-byte boundary: one column a thread
     assert launch_geometry(3, 32, f64) == (4, 1, 4, 128, 1)
     assert launch_geometry(16, 32, f64, vectors=False) == (16, 1, 16, 512, 1)
-    # C * tpr above MAX_THREADS: the block walks the chunk in passes
+    # C * tpr above MAX_THREADS: the chunk spreads over blocks of
+    # MAX_THREADS threads (chunk_parts)
     assert launch_geometry(16, 256, f64) == (16, 2, 8, MAX_THREADS, 1)
     assert launch_geometry(20, 32, f64) == (16, 2, 8, 256, 2)
 
@@ -478,7 +492,7 @@ def test_launch_geometry_is_what_the_kernel_takes(ct, dots):
     # without dots, 32
     widths = (16, 32) if ct.is_complex and not dots else (16,)
     for b in range(1, 41):
-        for C in (1, 8, 31, 32, 100, MAX_C):
+        for C in (1, 8, 31, 32, 100, 256):
             for vectors in (True, False):
                 g = launch_geometry(b, C, ct, vectors, dots)
                 assert g.bw in (1, 2, 4, 8, 16) and g.tpr * g.cpt == g.bw
@@ -533,7 +547,7 @@ def _within(got, want, scale, dtype, tol=TSM_TOL):
 @pytest.mark.parametrize("with_x", [False, True])
 @pytest.mark.parametrize("kahan", [False, True])
 @pytest.mark.parametrize("n,m,k", [(0, 3, 8), (1, 1, 1), (37, 3, 8),
-                                   (4109, 16, 16), (4109, MAX_DIM, MAX_DIM),
+                                   (4109, 16, 16), (4109, NARROW, NARROW),
                                    (70001, 8, 3)])
 @pytest.mark.parametrize("dtype", list(TSM_TOL),
                          ids=lambda d: str(d).split(".")[-1])
@@ -607,7 +621,7 @@ def test_tsmttsm_kahan_beats_plain_sum_on_card():
     kernel that ignored ``kahan`` would give 1)."""
     need_card()
     errs = {False: [], True: []}
-    for m, k in ((1, 1), (3, 8), (16, 16), (MAX_DIM, MAX_DIM)):
+    for m, k in ((1, 1), (3, 8), (16, 16), (NARROW, NARROW)):
         V, W, _ = _tsm_inputs(1 << 20, m, k, torch.float32, m + k)
         Vd, Wd = V.double(), W.double()
         want = tsmttsm_ref(Vd, Wd)
@@ -621,8 +635,8 @@ def test_tsmttsm_kahan_beats_plain_sum_on_card():
 
 
 #: B3's template widths (square m = k), a generic width and others
-TSMM_WIDTHS = [(w, w) for w in (1, 2, 4, 8, 16, 32, MAX_DIM)] + [
-    (5, 13), (3, 8), (8, 3), (16, 4), (1, MAX_DIM), (MAX_DIM, 1)]
+TSMM_WIDTHS = [(w, w) for w in (1, 2, 4, 8, 16, 32, NARROW)] + [
+    (5, 13), (3, 8), (8, 3), (16, 4), (1, NARROW), (NARROW, 1)]
 TSMM_TOL = {**TSM_TOL, torch.complex128: 1e-13, torch.complex64: 1e-5}
 
 
@@ -759,9 +773,11 @@ def test_tsm_wrapper_refusals_on_card():
     V, W, X = _tsm_inputs(100, 4, 4, torch.float32, 0)
     with pytest.raises(TypeError, match="must be torch.float32"):
         tsmttsm_cuda(V, W.double())
-    with pytest.raises(ValueError, match="outside"):
-        tsmttsm_cuda(torch.zeros(10, MAX_DIM + 1, device="cuda"),
-                     torch.zeros(10, 2, device="cuda"))
+    # a width past the old limit of 64 launches, held against the plain
+    # version
+    Vw, Ww = (torch.randn(1000, w, device="cuda") for w in (65, 2))
+    got = tsmttsm_cuda(Vw, Ww)
+    assert rel_err(got, tsmttsm_ref(Vw.double(), Ww.double())) <= 1e-5
     with pytest.raises(ValueError, match="contiguous"):
         tsmm_cuda(torch.zeros(4, 100, device="cuda").T, X)
     with pytest.raises(TypeError, match="no wider"):
@@ -830,8 +846,8 @@ def test_tsmttsm_stage_rows(itemsize):
     assert stage_rows(64, 64, 8) == 32
     assert stage_rows(1, 1, 8) == 2048
     assert stage_rows(3, 8, 8) == 256
-    for m in range(1, MAX_DIM + 1, 3):
-        for k in range(1, MAX_DIM + 1, 5):
+    for m in range(1, NARROW + 1, 3):
+        for k in range(1, NARROW + 1, 5):
             lanes = 256 // (-(-m // 4) * -(-k // 4))
             rows = stage_rows(m, k, itemsize)
             per_lane = rows // lanes
@@ -850,8 +866,8 @@ def test_tsmttsm_complex_tiles(dtype):
     assert limit == (STAGE_BYTES // 2 if dtype == torch.complex128
                      else STAGE_BYTES)
     item = torch.empty((), dtype=dtype).element_size()
-    for m in range(1, MAX_DIM + 1, 3):
-        for k in range(1, MAX_DIM + 1, 5):
+    for m in range(1, NARROW + 1, 3):
+        for k in range(1, NARROW + 1, 5):
             tiles = -(-m // 4) * -(-k // 2)
             lanes = max(1, 256 // tiles)
             rows = stage_rows(m, k, item, dtype)
@@ -865,7 +881,7 @@ def test_tsmttsm_complex_tiles(dtype):
                 assert r % (lanes * 8) == 0 and 1 <= nb <= MAX_BLOCKS
                 assert (nb - 1) * r < n <= nb * r
     # 64 x 64: 512 tiles a row, one lane; 16 x 16: 32 tiles, 8 lanes
-    assert row_partition(4109, MAX_DIM, MAX_DIM, dtype) == (8, 514)
+    assert row_partition(4109, NARROW, NARROW, dtype) == (8, 514)
     assert row_partition(4109, 16, 16, dtype) == (64, 65)
 
 

@@ -37,7 +37,7 @@ from repro.solvers import make_operator as jmake_operator  # noqa: E402
 from repro.solvers import precond as jprecond  # noqa: E402
 from repro_torch.core import execution, from_coo, from_dense  # noqa: E402
 from repro_torch.interop import state_from_arrays, tensor_from_array  # noqa: E402
-from repro_torch.kernels.block_diag import MAX_BS, block_diag_cuda  # noqa: E402
+from repro_torch.kernels.block_diag import block_diag_cuda  # noqa: E402
 from repro_torch.kernels.ops import block_jacobi_apply  # noqa: E402
 from repro_torch.kernels.ref import block_diag_matmul_ref  # noqa: E402
 from repro_torch.matrices import anisotropic_laplace2d  # noqa: E402
@@ -573,7 +573,7 @@ def test_make_preconditioner_builds_and_refuses(bench):
 # ------------------------------------------------------------ on the card
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 3, 4, 16])
-@pytest.mark.parametrize("bs", [1, 4, 32, 48, MAX_BS])
+@pytest.mark.parametrize("bs", [1, 4, 32, 48, 64])
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32, torch.bfloat16,
                                 torch.float16])
 def test_block_diag_kernel_matches_plain_on_card(dt, bs, b):
@@ -605,10 +605,17 @@ def test_block_diag_kernel_matches_plain_on_card(dt, bs, b):
 @pytest.mark.gpu
 def test_block_diag_kernel_refuses_on_card():
     need_card()
-    with pytest.raises(ValueError, match="outside"):
-        block_jacobi_apply(torch.zeros(1, MAX_BS + 1, MAX_BS + 1,
-                                       device="cuda"),
-                           torch.zeros(MAX_BS + 1, 1, device="cuda"))
+    # a block past the old limit of 64 launches the tiled instance, held
+    # against the plain version
+    gw = torch.Generator(device="cuda").manual_seed(65)
+    bw = torch.randn(3, 65, 65, generator=gw, dtype=torch.float64,
+                     device="cuda")
+    xw = torch.randn(195, 2, generator=gw, dtype=torch.float64, device="cuda")
+    execution.reset_launch_counts()
+    got = block_jacobi_apply(bw, xw)
+    assert execution.launch_counts()["block_diag_matmul"] == 1
+    torch.testing.assert_close(got, block_diag_matmul_ref(bw, xw),
+                               rtol=1e-12, atol=1e-12)
     # complex blocks launch B4 (with a complex x, and with a real x of
     # their precision), held against the plain version in complex128
     g = torch.Generator(device="cuda").manual_seed(5)

@@ -53,12 +53,15 @@ VARIANTS = {
                  ("#pragma unroll 8", "#pragma unroll 2")],
     "unroll4": [("#pragma unroll 8", "#pragma unroll 4")],
     "unroll16": [("#pragma unroll 8", "#pragma unroll 16")],
-    "tile8": [("constexpr int kTile = 16;", "constexpr int kTile = 8;")],
+    "tile8": [("return LANES <= 8 ? 16 : 16 * 8 / LANES;",
+               "return LANES <= 8 ? 8 : 8 * 8 / LANES;")],
     "oneacc": [("acc[k & 1] = fmaf(h[j], cv[k], acc[k & 1]);",
                 "acc[0] = fmaf(h[j], cv[k], acc[0]);")],
     # blocks of two warps
+    # (32 lanes of 16 states would leave two channels a block: 16 of 32)
     "threads64": [("constexpr int kThreads = 128;", "constexpr int kThreads = 64;"),
-                  ("kThreads, NPL > 8 ? 4 : 8", "kThreads, NPL > 8 ? 8 : 16")],
+                  ("kThreads, NPL > 8 ? 4 : 8", "kThreads, NPL > 8 ? 8 : 16"),
+                  ("return launch<32, 16>(", "return launch<16, 32>(")],
     # the next stage's rows of dt and xc prefetched into L2 one stage ahead
     # of their copy
     "l2pf": [('    asm volatile("cp.async.commit_group;" ::: "memory");\n  };',
@@ -77,7 +80,7 @@ VARIANTS = {
       for (int t = 0; t < kTile; ++t) {
         const float v = step<LANES, NPL>(h, a2, dp[t * CH], xp[t * CH],
                                          bt + t * NS, ct + t * NS);
-        if (store) *py = v;
+        if (store) *py = ADD ? *py + v : v;
         py += di;
       }""", """#pragma unroll 1
       for (int t0 = 0; t0 < kTile; t0 += 8) {
@@ -90,7 +93,7 @@ VARIANTS = {
           const int t = t0 + u;
           const float v = step<LANES, NPL>(h, a2, dv[u], xv[u],
                                            bt + t * NS, ct + t * NS);
-          if (store) *py = v;
+          if (store) *py = ADD ? *py + v : v;
           py += di;
         }
       }""")],
