@@ -295,12 +295,14 @@ from repro_torch.kernels.mamba_scan import (  # noqa: E402
 from repro_torch.kernels.ops import (block_jacobi_apply,  # noqa: E402
                                      fused_axpby_dots, herm_eig, mamba_scan,
                                      sellcs_spmv, tsmm, tsmttsm)
-from repro_torch.kernels.herm_eig import herm_eig_cuda  # noqa: E402
+from repro_torch.kernels.herm_eig import (  # noqa: E402
+    BLOCK as EIG_BLOCK, herm_eig_cuda, wide_order)
 from repro_torch.kernels.sellcs_spmv import (chunk_parts,  # noqa: E402
                                              dot_parts, launch_geometry)
 from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
                                      fused_axpby_dots_ref, mamba_scan_ref,
-                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
+                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref,
+                                     tsmttsm_exact_entries)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.kernels.tsmttsm import summation_depth  # noqa: E402
 from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
@@ -650,6 +652,7 @@ def phase_build() -> None:
             if m:
                 inst = re.search(r"(sellcs_spmv_fused|"
                                  r"tsmttsm_partial|tsmttsm_finish|"
+                                 r"tsmttsm_dmma|herm_eig_wide|"
                                  r"tsmm_stream|tsmm_tiled|tsmm_dmma|"
                                  r"block_diag_rows|"
                                  r"block_diag_tiled|herm_eig_block|"
@@ -661,9 +664,10 @@ def phase_build() -> None:
                          else m.group(1))
             elif "spill" in line:
                 spill = line.strip()
-                # B6 and B2 (every instance, complex ones included) must
-                # not spill
-                require(not entry.startswith(("mamba_scan_rows", "tsmttsm_"))
+                # B6, B2 (every instance, complex ones and the DMMA one
+                # included) and the block-Jacobi eigensolver must not spill
+                require(not entry.startswith(("mamba_scan_rows", "tsmttsm_",
+                                              "herm_eig_wide"))
                         or ("0 bytes spill stores" in spill
                             and "0 bytes spill loads" in spill),
                         f"build: {entry} spills: {spill}")
@@ -983,20 +987,30 @@ TSM_COEFS = ((1.0, 0.0, False), (0.5, -2.0, True), (-1.0, 1.0, True))
 #: float32 inputs over many rows: the root-mean-square error of the Kahan
 #: sum must be at most this share of the plain sum's on the same inputs
 #: (a float32 emulation of the kernel's order gives about 1/4 at 2^20 and
-#: at 4,096,000 rows; a kernel that ignored ``kahan`` would give 1)
+#: at 4,096,000 rows; a kernel that ignored ``kahan`` would give 1).  The
+#: float64 DMMA instance is held to the same share against exact sums
+#: (:func:`_require_exact_kahan`; an emulation of its order gives 0.17 off
+#: the diagonal and 0.30 on a self-Gram's at 2^18 rows, 0.04 and 0.31 at
+#: 4,096,000; without folds, or with the compensation's sign flipped, 1 or
+#: more)
 KAHAN_GAIN = 0.5
+#: result entries of a float64 B2 call summed exactly
+EXACT_ENTRIES = 32
 
 
 def kahan_depth(n: int, m: int, k: int, dt, values=None) -> float:
     """The depth of the compensated bound of the Kahan kernel: a lane's
-    8-row group summed plainly (with the products' rounding), then three
-    compensated levels at ``2u + O(N u^2)`` each, with ``N`` at most the
-    plain depth.  Since the finishing kernel sums the blocks in runs, the
-    kernel has four such levels (the lane's groups, the lanes, a run of
-    blocks, the runs); the check keeps the three levels' bound, the
-    tighter one.  ``dt`` is the accumulation dtype, ``values`` the
-    operands' where they are complex (their tile sets the partition)."""
-    d = summation_depth(n, m, k, values)
+    8-row group summed plainly (with the products' rounding; on the FP64
+    tensor cores, float64 past 4096 entries, two mma k-steps of four rows
+    from zero, at most eight additions in the tensor core's order), then
+    three compensated levels at ``2u + O(N u^2)`` each, with ``N`` at most
+    the plain depth.  Since the finishing kernel sums the blocks in runs,
+    the 4 x 4 tiles' kernel has four such levels (the lane's groups, the
+    lanes, a run of blocks, the runs) and the DMMA one three (no lanes);
+    the check keeps the three levels' bound, the tighter one.  ``dt`` is
+    the accumulation dtype, ``values`` the operands' where they differ
+    from it (complex values, whose tile sets the partition)."""
+    d = summation_depth(n, m, k, dt if values is None else values)
     return 8 + 3 * (2 + 2 * d * d * _ACC_UNIT[dt])
 
 
@@ -1037,6 +1051,62 @@ def _require_kahan_gain(errs, tag) -> str:
             f"the plain sum's {plain:.3e}")
     return (f"rms error Kahan {kahan:.3e}, plain {plain:.3e} "
             f"({kahan / max(plain, 1e-300):.3f}, at most {KAHAN_GAIN})")
+
+
+def _exact_sample(m, k, g):
+    """``(rows, cols)`` of :data:`EXACT_ENTRIES` entries of an (m, k)
+    result: the four corners, the diagonal's ends and middle, the rest at
+    random (from ``g``)."""
+    d = min(m, k) - 1
+    rows = [0, 0, m - 1, m - 1, d, d // 2]
+    cols = [0, k - 1, 0, k - 1, d, d // 2]
+    more = EXACT_ENTRIES - len(rows)
+    rows += torch.randint(m, (more,), generator=g, device=g.device).tolist()
+    cols += torch.randint(k, (more,), generator=g, device=g.device).tolist()
+    return rows, cols
+
+
+def _require_exact_kahan(V, W, kahan, plain, g, tag) -> str:
+    """B2's float64 Kahan sum ``kahan`` and plain sum ``plain`` of V^T W
+    held against exact sums of sampled entries
+    (``tsmttsm_exact_entries``): the Kahan sum within its compensated
+    bound (``kahan_depth`` units of 2^-53 of sum |terms|, with no term for
+    a reference's own rounding), and its root-mean-square error at most
+    :data:`KAHAN_GAIN` of the plain sum's, each entry's error in units of
+    the least it could be: the exact sum's ulp plus 2^-53 sqrt(sum
+    terms^2) (one rounding a term, at random).  The float64 plain version
+    errs by up to n units and would hide a kernel that does not
+    compensate; so scaled, neither the large sums of a self-Gram's
+    diagonal (well conditioned: both sums within about an ulp) nor sums
+    that cancel to near zero drown the entries where compensation
+    tells."""
+    n, m = V.shape
+    k = W.shape[1]
+    rows, cols = _exact_sample(m, k, g)
+    hi, lo = tsmttsm_exact_entries(V, W, rows, cols)
+    ri = torch.as_tensor(rows, device=V.device)
+    ci = torch.as_tensor(cols, device=V.device)
+    scale = (V[:, ri].abs() * W[:, ci].abs()).sum(0)
+    errs = {flag: ((got[ri, ci] - hi) - lo).abs()
+            for flag, got in ((True, kahan), (False, plain))}
+    depth = kahan_depth(n, m, k, torch.float64)
+    fi = torch.finfo(torch.float64)
+    lim = (depth + 3) * 2.0 ** -53 * scale + fi.tiny * fi.eps
+    ratio = float((errs[True] / lim).max())
+    unit = (torch.ldexp(torch.ones_like(hi), torch.frexp(hi)[1] - 53)
+            + 2.0 ** -53 * (V[:, ri] * W[:, ci]).square().sum(0).sqrt())
+    k_rms, p_rms = (float((errs[f] / unit).square().mean().sqrt())
+                    for f in (True, False))
+    require(ratio <= 1.0 or DEVICE == "cpu",
+            f"{tag}: Kahan error {float(errs[True].max()):.3e} against exact "
+            f"sums above its bound ({ratio:.2f}x)")
+    require(k_rms <= KAHAN_GAIN * p_rms or DEVICE == "cpu",
+            f"{tag}: Kahan rms error {k_rms:.3f} units against exact sums "
+            f"not below {KAHAN_GAIN} x the plain sum's {p_rms:.3f}")
+    return (f"{len(rows)} entries summed exactly: Kahan max abs error "
+            f"{float(errs[True].max()):.3e} ({ratio:.4f} of its bound), rms "
+            f"{k_rms:.3f} units, plain {p_rms:.3f} units "
+            f"({k_rms / max(p_rms, 1e-300):.3f}, at most {KAHAN_GAIN})")
 
 
 def phase_tsm_grid() -> None:
@@ -1464,16 +1534,14 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
     eigh_ms = time_ms(lambda: torch.linalg.eigh(Gs), warmup=5, iters=50)
     sweeps = int(herm_eig_cuda(Gs)[2]) if DEVICE == "cuda" else 0
     mp = WIDTH + WIDTH % 2
-    flops = sweeps * (mp - 1) * (mp // 2) * WIDTH * 18.0
-    bytes_ms = 1e3 * (2 * WIDTH * WIDTH + WIDTH) * 8 / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / PEAK_FLOPS[torch.float64]
+    bound_ms, by, ops_ms, bytes_ms = eig_bound(WIDTH)
     print(f"[block cg split] herm_eig f64 m={WIDTH} (the Gram of this "
-          f"iteration): kernel {eig_ms:.4f} ms ({sweeps} sweeps), "
-          f"torch.linalg.eigh {eigh_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.6f} ms (operations {ops_ms:.6f} ms, bytes "
-          f"{bytes_ms:.6f} ms: a chain of {sweeps * (mp - 1)} dependent "
-          f"rounds bounds it, not a rate); within {worst[0]:.3f} of its "
-          f"bounds against eigh  [{card}]")
+          f"iteration): kernel {eig_ms:.4f} ms, torch.linalg.eigh "
+          f"{eigh_ms:.4f} ms, bound {bound_ms:.6f} ms (operations "
+          f"{ops_ms:.6f} ms for 9 m^3 flops at DMMA's rate, bytes "
+          f"{bytes_ms:.6f} ms); latency: {sweeps} sweeps, a chain of "
+          f"{sweeps * (mp - 1)} dependent rounds; within {worst[0]:.3f} of "
+          f"its bounds against eigh  [{card}]")
     f64 = torch.float64
     parts = [
         ("sellcs_spmv (b=16)", 1, time_ms(lambda: op.mv(P))),
@@ -1493,9 +1561,7 @@ def phase_block_split(fw, bcg, tsm, card) -> None:
           f"({100 * rest / total:.1f}%): vector arithmetic and launches "
           f"(the (b, b) algebra's two herm_eig calls are in its line)")
     return dict(ms=eig_ms, plain_ms=eigh_ms, library_ms=eigh_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                err=eig_err)
+                bound_ms=bound_ms, bound_by=by, err=eig_err)
 
 
 # ----------------------------------------------------------------- phase 12
@@ -2279,7 +2345,8 @@ def phase_eig_grid() -> None:
 #: lives in device memory; B1's chunk heights (None: one chunk of all
 #: rows, ELLPACK), the rows of a matrix a height and widths; B4's block
 #: sizes, widths, block counts and dtype pairs; B6's (B, S, d_inner, N)
-WIDE_TSM = ((65, 65), (96, 96), (128, 128), (100, 72))
+WIDE_TSM = ((65, 65), (96, 96), (128, 128), (100, 72), (72, 100),
+            (200, 136))
 WIDE_TSM_NS = (37, 4109, 1 << 18)
 WIDE_TSM_DTYPES = (torch.float64, torch.float32, torch.complex128)
 WIDE_EIG_MS = (65, 96, 128)
@@ -2302,7 +2369,9 @@ WIDE_B6 = (tuple((B, S, di, N) for N in (65, 128, 256, 520)
 def _wide_tsm_cases(g, worst) -> int:
     """B2 and B3 past width 64 against their plain versions, at the TSM
     grid's bounds (real: ``_tsm_check``, Kahan to ``kahan_depth``;
-    complex128: ``_cx_check``), each B2 call twice to the same bits."""
+    complex128: ``_cx_check``), each B2 call twice to the same bits; and
+    float64 B2 at the most rows against exact sums
+    (``_require_exact_kahan``)."""
     n_cases = 0
     for dt in WIDE_TSM_DTYPES:
         cx = dt.is_complex
@@ -2347,6 +2416,49 @@ def _wide_tsm_cases(g, worst) -> int:
                     else:
                         _tsm_check(got, want, scale, dt, m, m, tag, w)
                     n_cases += 3
+                if dt == torch.float64 and n == WIDE_TSM_NS[-1]:
+                    print(f"[wide grid] B2 float64 n={n} m={m} k={k}: "
+                          + _require_exact_kahan(
+                              V, W, tsmttsm(V, W, kahan=True), tsmttsm(V, W),
+                              g, f"wide B2 n={n} m={m} k={k}"))
+            if dt == torch.float64:
+                n_cases += _self_gram_cases(n, g, worst)
+    return n_cases
+
+
+#: (m = k) of B2's self-Gram cases (V is W) past width 64
+WIDE_SELF_GRAM = (65, 128, 200)
+
+
+def _self_gram_cases(n, g, worst) -> int:
+    """B2's self-Gram (V the same tensor as W: the DMMA instance computes
+    the 64 x 64 tiles on and above the diagonal and mirrors the rest) in
+    float64 against the plain version, Kahan on and off, at the grid's
+    bounds, symmetric to the bit, and a copy of V within the same bound;
+    at the most rows, against exact sums (``_require_exact_kahan``)."""
+    n_cases = 0
+    for m in WIDE_SELF_GRAM:
+        W = torch.randn(n, m, generator=g, dtype=torch.float64, device=DEVICE)
+        want = tsmttsm_ref(W, W)
+        scale = W.abs().T @ W.abs()
+        for kahan in (False, True):
+            tag = f"self-Gram n={n} m={m} kahan={kahan}"
+            depth = (kahan_depth(n, m, m, torch.float64) if kahan
+                     else summation_depth(n, m, m, torch.float64))
+            w = worst.setdefault(("B2 self" + (" kahan" if kahan else ""),
+                                  "float64"), [0.0, "", 0.0])
+            for V in (W, W.clone()):
+                got = tsmttsm(V, W, kahan=kahan)
+                _tsm_check(got, want, scale, torch.float64, depth, n, tag, w)
+            got = tsmttsm(W, W, kahan=kahan)
+            require(torch.equal(got, got.T),
+                    f"wide B2 {tag}: not symmetric to the bit")
+            n_cases += 1
+        if n == WIDE_TSM_NS[-1]:
+            print(f"[wide grid] B2 self-Gram n={n} m={m}: "
+                  + _require_exact_kahan(
+                      W, W, tsmttsm(W, W, kahan=True), tsmttsm(W, W), g,
+                      f"wide B2 self-Gram n={n} m={m}"))
     return n_cases
 
 
@@ -2456,7 +2568,8 @@ def phase_wide_grid() -> None:
         print(f"[wide grid] B6 N={N}: worst {r:.3f} of its bound ({tag})")
     print(f"[wide grid] {n_tsm} B2/B3 cases (n in {WIDE_TSM_NS}, (m, k) in "
           f"{WIDE_TSM}, {[str(d)[6:] for d in WIDE_TSM_DTYPES]}, Kahan on "
-          f"and off), {n_b1} B1 cases (C in 512, 4096 and nrows, b in "
+          f"and off; B2's float64 self-Gram at m in {WIDE_SELF_GRAM}), "
+          f"{n_b1} B1 cases (C in 512, 4096 and nrows, b in "
           f"{WIDE_B1_B}, every flag; float64, float32, complex128), {n_b4} "
           f"B4 cases (bs in {WIDE_B4_BS}), {n_eig} eigensolver cases (m in "
           f"{WIDE_EIG_MS}, four dtypes; m = {WIDE_EIG_DEVICE_A} float64), "
@@ -2565,9 +2678,11 @@ WIDE_B6_SHAPE, WIDE_B6_N, WIDE_B6_CHECK_S = (4, 4096, 16384), 128, 256
 
 
 def _wide_tsm_rows(n, card, rows):
-    """B2 (Kahan and plain) and B3 (with and without W) at n x 128 in
-    float64: kernel, plain version, `addmm`/`mm`, and the bound at DMMA's
-    FP64 rate."""
+    """B2 (Kahan, its self-Gram W^T W, and plain) and B3 (with and without
+    W) at n x 128 in float64: kernel, plain version, `addmm`/`mm`, and the
+    bound at DMMA's FP64 rate (a self-Gram reads W once and needs the
+    products on and above the diagonal); the Kahan sums also against exact
+    sums (``_require_exact_kahan``)."""
     m = WIDE_WIDTH
     f64 = torch.float64
     g = torch.Generator(device=DEVICE).manual_seed(12)
@@ -2581,19 +2696,36 @@ def _wide_tsm_rows(n, card, rows):
          lambda: tsmttsm_ref(V, W, kahan=True),
          lambda: torch.addmm(X, V.mT, W, beta=0.0, alpha=1.0),
          (V, W), kahan_depth(n, m, m, f64)),
+        ("tsmttsm", "self-Gram kahan", lambda: tsmttsm(W, W, kahan=True),
+         lambda: tsmttsm_ref(W, W, kahan=True),
+         lambda: torch.addmm(X, W.mT, W, beta=0.0, alpha=1.0),
+         (W,), kahan_depth(n, m, m, f64)),
         ("tsmttsm", "plain sum", lambda: tsmttsm(V, W),
          lambda: tsmttsm_ref(V, W),
          lambda: torch.addmm(X, V.mT, W, beta=0.0, alpha=1.0),
-         (V, W), summation_depth(n, m, m)),
+         (V, W), summation_depth(n, m, m, f64)),
         ("tsmm", "with W", lambda: tsmm(V, X, W, 1.0, 1.0),
          lambda: tsmm_ref(V, X, W, 1.0, 1.0),
          lambda: torch.addmm(W, V, X, beta=1.0, alpha=1.0), (V, X, W), m),
         ("tsmm", "without W", lambda: tsmm(V, X), lambda: tsmm_ref(V, X),
          lambda: torch.mm(V, X), (V, X), m),
     ]
+    ww = W.abs().T @ W.abs()
     for name, variant, kern, plain, lib, inputs, depth in cases:
         got = kern()
-        if name == "tsmttsm":
+        if variant == "self-Gram kahan":
+            want, scale = tsmttsm_ref(W, W), ww
+            require(torch.equal(got, got.T), "wide B2 self-Gram: not "
+                    "symmetric to the bit")
+            print(f"[wide timing] tsmttsm {variant} f64 n={n} m=k={m}: "
+                  + _require_exact_kahan(W, W, got, tsmttsm(W, W), g,
+                                         f"wide B2 {variant} n={n}"))
+        elif variant == "kahan":
+            want, scale = tsmttsm_ref(V, W), vw
+            print(f"[wide timing] tsmttsm {variant} f64 n={n} m=k={m}: "
+                  + _require_exact_kahan(V, W, got, tsmttsm(V, W), g,
+                                         f"wide B2 {variant} n={n}"))
+        elif name == "tsmttsm":
             want, scale = tsmttsm_ref(V, W), vw
         else:
             want = plain()
@@ -2603,19 +2735,21 @@ def _wide_tsm_rows(n, card, rows):
                                f"wide {name} {variant} n={n}").max())
         del want, scale
         ms = time_ms(kern, warmup=3, iters=20)
-        slow = variant == "kahan"            # a Python loop over blocks
+        slow = "kahan" in variant            # a Python loop over blocks
         plain_ms = time_ms(plain, warmup=1 if slow else 3,
                            iters=1 if slow else 10)
         lib_ms = time_ms(lib, warmup=3, iters=20)
         nbytes = _nbytes(*inputs, got)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        ops_ms = 1e3 * flops / DMMA_FLOPS_F64
+        # a self-Gram needs the products on and above the diagonal
+        ops = flops * (m + 1) / (2 * m) if len(inputs) == 1 else flops
+        ops_ms = 1e3 * ops / DMMA_FLOPS_F64
         core_ms = 1e3 * flops / PEAK_FLOPS[f64]
         bound_ms = max(bytes_ms, ops_ms)
         print(f"[wide timing] {name} {variant} f64 n={n} m=k={m}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f} ms for "
-              f"{nbytes / 1e9:.3f} GB; {flops / 1e9:.1f} GFLOP {ops_ms:.4f} "
+              f"{nbytes / 1e9:.3f} GB; {ops / 1e9:.1f} GFLOP {ops_ms:.4f} "
               f"ms at DMMA's 67 TFLOP/s, {core_ms:.4f} ms at the CUDA cores' "
               f"34), {100 * bound_ms / ms:.1f}% of bound, "
               f"{100 * core_ms / ms:.1f}% of the CUDA cores' rate, max abs "
@@ -2623,6 +2757,19 @@ def _wide_tsm_rows(n, card, rows):
         rows[(name, variant)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
             bound_by="bytes" if bytes_ms >= ops_ms else "operations", err=err)
+
+
+def eig_bound(m):
+    """``(bound_ms, bound_by, ops_ms, bytes_ms)`` of a real symmetric
+    eigendecomposition with vectors at order m, from the function alone
+    and so the same whatever the design: about 9 m^3 flops (the symmetric
+    QR algorithm's count with vectors, Golub and Van Loan 8.3) at DMMA's
+    FP64 rate, and its bytes (A read, U and the eigenvalues written:
+    2 m^2 + m values)."""
+    ops_ms = 1e3 * 9.0 * m ** 3 / DMMA_FLOPS_F64
+    bytes_ms = 1e3 * (2 * m * m + m) * 8 / HBM_BYTES_PER_S
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(ops_ms, bytes_ms), by, ops_ms, bytes_ms
 
 
 def _wide_eig_row(bcg, card):
@@ -2637,20 +2784,22 @@ def _wide_eig_row(bcg, card):
     ms = time_ms(lambda: herm_eig(Gs), warmup=3, iters=20)
     eigh_ms = time_ms(lambda: torch.linalg.eigh(Gs), warmup=3, iters=20)
     sweeps = int(herm_eig_cuda(Gs)[2]) if DEVICE == "cuda" else 0
-    flops = sweeps * (m - 1) * (m // 2) * m * 18.0
-    bytes_ms = 1e3 * (2 * m * m + m) * 8 / HBM_BYTES_PER_S
-    ops_ms = 1e3 * flops / PEAK_FLOPS[torch.float64]
+    # block Jacobi's sweeps are wide_order(m) / BLOCK - 1 rounds, each a
+    # pair's 2 BLOCK - 1 inner rounds on one warp
+    rounds = sweeps * (wide_order(m) // EIG_BLOCK - 1)
+    bound_ms, by, ops_ms, bytes_ms = eig_bound(m)
+    per_round = 1e3 * ms / rounds if rounds else float("nan")
     print(f"[wide timing] herm_eig f64 m={m} (a block-CG Gram): kernel "
-          f"{ms:.4f} ms ({sweeps} sweeps, A in shared memory, U in device "
-          f"memory), torch.linalg.eigh {eigh_ms:.4f} ms (with its host "
-          f"sync), bound {max(bytes_ms, ops_ms):.6f} ms (operations "
-          f"{ops_ms:.6f}, bytes {bytes_ms:.6f}: a chain of "
-          f"{sweeps * (m - 1)} dependent rounds bounds it, not a rate); "
-          f"within {worst[0]:.3f} of its bounds against eigh  [{card}]")
+          f"{ms:.4f} ms, torch.linalg.eigh {eigh_ms:.4f} ms (with its host "
+          f"sync), bound {bound_ms:.6f} ms (operations {ops_ms:.6f} for "
+          f"9 m^3 flops at DMMA's 67 TFLOP/s, bytes {bytes_ms:.6f}), "
+          f"{100 * bound_ms / ms:.1f}% of bound; latency: {sweeps} sweeps of "
+          f"block Jacobi, a chain of {rounds} rounds ({per_round:.2f} us a "
+          f"round, {(2 * EIG_BLOCK - 1) * rounds} dependent inner rounds a "
+          f"warp); within {worst[0]:.3f} of its bounds against eigh  "
+          f"[{card}]")
     return dict(ms=ms, plain_ms=eigh_ms, library_ms=eigh_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                err=err)
+                bound_ms=bound_ms, bound_by=by, err=err)
 
 
 def _wide_b1_row(fw, card):

@@ -43,16 +43,13 @@
 //   rows of a stage with stride L.  A row of more than 256 tiles (complex
 //   values at m * k > 2048, real ones past 4096) is split over grid.y:
 //   each block of a slab is one lane over 256 of its tiles, reading the
-//   whole rows.  m and k have no upper limit but
-//   shared memory: three stages of one row of V and W (m + k up to 8,320
-//   in float64) beside room for complex128's compensation tile.  Past
-//   four slabs the wrapper spreads the rows over fewer blocks (at most
-//   2,112 thread blocks in the grid, kernels/tsmttsm.py:row_partition),
-//   so the block partials' scratch stays near 2,112 x 256 tiles' values;
-//   at m = k = 128 in float64 it is 528 x 128 x 128 values, 69 MB (twice
-//   with Kahan).  Such widths are bound by the FP64 operations, not the
-//   bytes: 2 m k flops a row against (m + k) 8 bytes, 64 flops a byte at
-//   m = k = 128, where the card's ridge is about 10 at 34 TFLOP/s.
+//   whole rows (float64 takes the DMMA instance instead, the last point).
+//   m and k have no upper limit but shared memory: three stages of one
+//   row of V and W (m + k up to 16,640 in float32) beside room for
+//   complex128's compensation tile.  Past four slabs the wrapper spreads
+//   the rows over fewer blocks (at most 2,112 thread blocks in the grid,
+//   kernels/tsmttsm.py:row_partition), so the block partials' scratch
+//   stays near 2,112 x 256 tiles' values.
 // * Kahan (kahan=True): each lane sums groups of KG = 8 of its rows plainly
 //   and adds each group's sum with compensation, as the TPU kernel does
 //   with its 8-row micro-slabs; the lanes, the blocks and the runs of
@@ -83,9 +80,50 @@
 //   (chip_smoke.py's build phase holds every instance to that).  A 2 x 2
 //   tile (three tiles in registers) read twice the operand bytes from
 //   shared memory a row and was slower.
+// * Float64 rows of more than 256 thread tiles (m * k past about 4096;
+//   kernels/tsmttsm.py:uses_dmma) take tsmttsm_dmma on the FP64 tensor
+//   cores.  At m = k = 128 the call does 64 flops a byte: its bound is the
+//   bytes (2.504 ms at 4,096,000 rows; DMMA's operations 2.003 ms), but
+//   the CUDA cores' floor is 3.948 ms, so the slab path (4 x 4 tiles,
+//   every row read once a slab) could not reach it (16.77 ms with Kahan,
+//   PR 29).  A block owns a result tile of M x N for its row block (Kahan
+//   128 x 64, the plain sum 128 x 128; a self-Gram 64 x 64 on and above
+//   the diagonal): each row of V's and W's slices is read once a tile, the
+//   tiles over grid.x beside the row blocks, so m and k have no limit.  A
+//   stage of 32 rows fills by one bulk copy a row slice (cp.async value by
+//   value where a row is not on 16 bytes; everywhere, it measured 17 %
+//   slower with Kahan and 30 % for the plain sum, tools/b2_trials.py's
+//   `cpasync`) into rows padded by 4 values, so that the fragment loads
+//   of four rows meet distinct banks; three stages.  Its warps own 32 x WN tiles of mma.sync m16n8k8 fragments
+//   (16 x 8 x 8): one instruction is a whole 8-row group.
+//   Kahan keeps the TPU kernel's 8-row groups: the group's products and
+//   the compensation enter the mma together (its accumulator holds -c, so
+//   it returns y = p - c, the nine terms summed in the tensor core's
+//   order), then u = s + y, -c = y - (u - s), s = u on the CUDA cores:
+//   kahan_add with its first subtraction in the tensor core.  The plain
+//   sum accumulates s in the mma.  Registers set the tiles: s and c of a
+//   32 x 32 warp tile take 128 registers, so Kahan blocks are 128 x 64
+//   (the two column halves of a 128 x 128 result adjacent in the grid,
+//   V's rows read twice through L2) in sixteen warps of 32 x 16.  A
+//   self-Gram (V is W: block CG's SVQB Gram) computes the 64 x 64 tiles on
+//   and above the diagonal (eight warps of 32 x 16 a block, two blocks an
+//   SM) and the finishing kernel mirrors the rest.  Measured on an H100
+//   80GB HBM3 at 700 W at 4,096,000 x 128 x 128 (PERF.md, PR 30;
+//   tools/b2_trials.py): Kahan 6.7 ms, its self-Gram 5.3-5.5, the plain sum
+//   3.0-3.6 (addmm 3.0-3.2).  Eight Kahan warps of 32 x 32 took 7.7 ms;
+//   the fold as four additions after a group sum from zero 9.6; the
+//   compensation tile in shared memory 13.8; m8n8k4 products 10.3 (the
+//   plain sum 5.5 against 3.8 with m16n8k8); unrolling a stage's groups
+//   spilled or measured slower, deeper rings slower too.  The Kahan
+//   blocks without their folds take 5.4 ms against 3.1 for the plain
+//   sum's 128 x 128 blocks of as many warps: the half-width blocks (twice
+//   the blocks, each stage's copies, barriers and V's rows for half the
+//   products), which the registers of s and c force, cost more than the
+//   folds (1.3 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "dtypes.cuh"
 
@@ -492,10 +530,13 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
                int mk, const typename Acc<T>::type* __restrict__ x_in,
                T* __restrict__ x_out, A alpha, A beta,
                const A* __restrict__ alpha_p, const A* __restrict__ beta_p,
-               int has_x) {
+               int has_x, int sym) {
   const int o = blockIdx.x * kFinishWarps + threadIdx.x / 32;
   const int l = threadIdx.x & 31;
   if (o >= mk) return;  // the whole warp
+  // sym: the partials of a self-Gram (V is W, m = k = sym) hold the
+  // entries on and above the diagonal; entry (i, j) below it is (j, i)
+  const int src = sym && o / sym > o % sym ? (o % sym) * sym + o / sym : o;
   const int run = (nblocks + 31) / 32;
   const int b_end = min(nblocks, (l + 1) * run);
   A S = A(0), C = A(0);
@@ -504,8 +545,8 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
 #pragma unroll
     for (int u = 0; u < kFinishChunk; ++u) {
       const bool in = b0 + u < b_end;
-      pv[u] = in ? part[(long long)(b0 + u) * mk + o] : A(0);
-      cv[u] = (KAHAN && in) ? comp[(long long)(b0 + u) * mk + o] : A(0);
+      pv[u] = in ? part[(long long)(b0 + u) * mk + src] : A(0);
+      cv[u] = (KAHAN && in) ? comp[(long long)(b0 + u) * mk + src] : A(0);
     }
 #pragma unroll
     for (int u = 0; u < kFinishChunk; ++u) {
@@ -536,6 +577,275 @@ tsmttsm_finish(const typename Acc<T>::type* __restrict__ part,
   }
 }
 
+// The wide float64 instance on the FP64 tensor cores (see the note at the
+// top).  A block owns a result tile of M rows of the result (columns of
+// V) by N columns (of W) for the rows of its row block: warps M / 32
+// along the tile's rows by N / WN along its columns, each a 32 x WN tile
+// of 16 x 8 fragments of mma.sync m16n8k8.  A stage holds kRows rows of
+// V's and W's slices, rows padded by kDmmaPad values so that the
+// fragment loads of four rows meet distinct banks.
+constexpr int kDmmaPad = 4;
+
+template <bool KAHAN, bool SYM> struct DmmaTile;
+// Kahan: 128 x 64 a block, sixteen warps of 32 x 16 (s and c are 32
+// values a thread), three stages of 32 rows
+template <> struct DmmaTile<true, false> {
+  static constexpr int M = 128, N = 64, WN = 16, kRows = 32, kStages = 3;
+  static constexpr int kMinBlocks = 1;
+};
+// plain: 128 x 128 a block, sixteen warps of 32 x 32, three stages of 32
+// rows
+template <> struct DmmaTile<false, false> {
+  static constexpr int M = 128, N = 128, WN = 32, kRows = 32, kStages = 3;
+  static constexpr int kMinBlocks = 1;
+};
+// a self-Gram (V is W): 64 x 64 blocks on and above the diagonal, eight
+// warps of 32 x 16, two blocks an SM, three stages of 32 rows
+template <bool KAHAN> struct DmmaTile<KAHAN, true> {
+  static constexpr int M = 64, N = 64, WN = 16, kRows = 32, kStages = 3;
+  static constexpr int kMinBlocks = 2;
+};
+template <bool KAHAN, bool SYM>
+constexpr int dmma_threads = DmmaTile<KAHAN, SYM>::M / 32 *
+                             (DmmaTile<KAHAN, SYM>::N /
+                              DmmaTile<KAHAN, SYM>::WN) * 32;
+
+// d (16 x 8) += a (16 x 8) b (8 x 8): a0..a3 at rows (g, g + 8, g, g + 8)
+// and columns (q, q, q + 4, q + 4), b0, b1 at rows q, q + 4 and column g,
+// d0, d1 at row g and d2, d3 at row g + 8, columns 2q and 2q + 1
+__device__ __forceinline__ void dmma16(double* d, double a0, double a1,
+                                       double a2, double a3, double b0,
+                                       double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Pass 1 of the wide float64 instance: part[blk] (and comp[blk]) over the
+// result tile (blockIdx.x % ktiles along k, then along m) of row block
+// blk = blockIdx.x / (mtiles * ktiles); SYM (V is W, m = k): over the
+// tiles on and above the diagonal, blockIdx.x % (mtiles (mtiles + 1) / 2)
+// row by row, whose entries below the diagonal are not written.  `vec`:
+// m and k are even and V and W start on 16 bytes, so the stages fill by
+// bulk copies, else value by value.
+template <bool KAHAN, bool SYM>
+__global__ void __launch_bounds__(dmma_threads<KAHAN, SYM>,
+                                  DmmaTile<KAHAN, SYM>::kMinBlocks)
+tsmttsm_dmma(const double* __restrict__ V, const double* __restrict__ W,
+             double* __restrict__ part, double* __restrict__ comp,
+             long long n, int m, int k, long long rows_per_block, int mtiles,
+             int ktiles, int vec) {
+  using Tl = DmmaTile<KAHAN, SYM>;
+  constexpr int TM = Tl::M, TN = Tl::N, NT = dmma_threads<KAHAN, SYM>;
+  constexpr int R = Tl::kRows, kStages = Tl::kStages;
+  constexpr int SV = TM + kDmmaPad, SW = TN + kDmmaPad;
+  constexpr int kStage = R * (SV + SW);  // values of one stage
+  constexpr int NA = 4, NB = Tl::WN / 8;  // a warp's fragments
+  // groups of a stage not unrolled (unrolled by two, they measured slower
+  // or spilled)
+  constexpr int kGroupUnroll = 1;
+  extern __shared__ __align__(16) double ring[];
+
+  int mt, kt;
+  long long blk;
+  if (SYM) {
+    const int ntri = mtiles * (mtiles + 1) / 2;
+    int tt = (int)(blockIdx.x % ntri);
+    blk = blockIdx.x / ntri;
+    mt = 0;
+    while (tt >= mtiles - mt) tt -= mtiles - mt++;
+    kt = mt + tt;
+  } else {
+    kt = blockIdx.x % ktiles;
+    mt = (blockIdx.x / ktiles) % mtiles;
+    blk = blockIdx.x / ((long long)ktiles * mtiles);
+  }
+  const int i0 = mt * TM, j0 = kt * TN;
+  const int mc = min(TM, m - i0), kc = min(TN, k - j0);
+  const long long r_begin = blk * rows_per_block;
+  const long long nrows =
+      min(rows_per_block, n - r_begin);  // at least 1 (row_partition)
+  const int ntiles = (int)((nrows + R - 1) / R);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wr = (warp % (TM / 32)) * 32, wc = (warp / (TM / 32)) * Tl::WN;
+  const int g = lane >> 2, q = lane & 3;  // fragment place
+  // a warp whose tile lies below the diagonal of a self-Gram waits
+  const bool active =
+      wr < mc && wc < kc && !(SYM && i0 + wr > j0 + wc + Tl::WN - 1);
+
+  // vec: each stage fills by one bulk copy a row of V's and of W's
+  // slices (warp 0's lanes issue them), completing on the stage's barrier
+  __shared__ __align__(8) uint64_t bars[kStages];
+  // columns past mc (kc) are never filled: zero the ring once
+  for (int o = t; o < kStages * kStage; o += NT) ring[o] = 0.0;
+  if (t == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&bars[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  auto rows_of = [&](int tile) -> int {
+    const long long left = nrows - (long long)tile * R;
+    return left < R ? (int)left : R;
+  };
+  auto issue = [&](int tile) {
+    if (tile < ntiles) {
+      double* sv = ring + (tile % kStages) * kStage;
+      double* sw = sv + R * SV;
+      const long long r0 = r_begin + (long long)tile * R;
+      const int rows = rows_of(tile);
+      if (vec) {
+        // rows past the block's end: zeros (the last tile only)
+        for (int e = t; e < (R - rows) * (SV + SW); e += NT) {
+          const int r = rows + e / (SV + SW), c = e % (SV + SW);
+          if (c < SV)
+            sv[r * SV + c] = 0.0;
+          else
+            sw[r * SW + c - SV] = 0.0;
+        }
+        if (warp == 0) {
+          const int st = tile % kStages;
+          if (lane == 0)
+            mbar_expect(&bars[st],
+                        (uint32_t)(rows * (mc + kc) * (int)sizeof(double)));
+          __syncwarp();
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          for (int r = lane; r < rows; r += 32) {
+            bulk_load(sv + r * SV, V + (r0 + r) * m + i0,
+                      (uint32_t)(mc * sizeof(double)), &bars[st]);
+            bulk_load(sw + r * SW, W + (r0 + r) * k + j0,
+                      (uint32_t)(kc * sizeof(double)), &bars[st]);
+          }
+        }
+      } else {
+        for (int e = t; e < R * TM; e += NT) {
+          const int r = e / TM, c = e % TM;
+          if (r >= rows)
+            sv[r * SV + c] = 0.0;
+          else if (c < mc)
+            cp_async8(sv + r * SV + c, V + (r0 + r) * m + i0 + c);
+        }
+        for (int e = t; e < R * TN; e += NT) {
+          const int r = e / TN, c = e % TN;
+          if (r >= rows)
+            sw[r * SW + c] = 0.0;
+          else if (c < kc)
+            cp_async8(sw + r * SW + c, W + (r0 + r) * k + j0 + c);
+        }
+      }
+    }
+    if (!vec) cp_commit();  // empty groups keep the count uniform
+  };
+
+  double s[NA][NB][2], c[KAHAN ? NA : 1][KAHAN ? NB : 1][2];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      s[a][b][0] = s[a][b][1] = 0.0;
+      if constexpr (KAHAN) c[a][b][0] = c[a][b][1] = 0.0;
+    }
+
+#pragma unroll 1
+  for (int st = 0; st < kStages - 1; ++st) issue(st);
+  uint32_t phase = 0;  // bit st: parity of stage st's next bulk fill
+#pragma unroll 1
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (vec) {
+      __syncthreads();  // every warp is done with the stage of tile - 1
+      issue(tile + kStages - 1);
+      const int st = tile % kStages;
+      mbar_wait(&bars[st], (phase >> st) & 1u);
+      phase ^= 1u << st;
+    } else {
+      cp_wait<kStages - 2>();
+      __syncthreads();  // tile `tile` is in; the stage of tile - 1 is free
+      issue(tile + kStages - 1);
+    }
+    if (!active) continue;
+    const double* sv = ring + (tile % kStages) * kStage;
+    const double* sw = sv + R * SV;
+    const int rows = rows_of(tile);
+#pragma unroll kGroupUnroll
+    for (int g0 = 0; g0 < R; g0 += 8) {  // one 8-row group
+      if (g0 >= rows) break;
+      double fa[2][NA], fb[2][NB];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = g0 + 4 * h + q;
+#pragma unroll
+        for (int a = 0; a < NA; ++a) fa[h][a] = sv[r * SV + wr + 8 * a + g];
+#pragma unroll
+        for (int b = 0; b < NB; ++b) fb[h][b] = sw[r * SW + wc + 8 * b + g];
+      }
+#pragma unroll
+      for (int a = 0; a < NA; a += 2)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          // fragments a and a + 1 (16 x 8) of the warp's tile
+          double d[4];
+          if constexpr (KAHAN) {
+            // kahan_add of the group's sum p: y = p - c in the tensor core
+            // (c holds -c), then u = s + y, c = (u - s) - y, s = u
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[e] = c[a + (e >> 1)][b][e & 1];
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[e] = s[a + (e >> 1)][b][e & 1];
+          }
+          dmma16(d, fa[0][a], fa[0][a + 1], fa[1][a], fa[1][a + 1], fb[0][b],
+                 fb[1][b]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            double& se = s[a + (e >> 1)][b][e & 1];
+            if constexpr (KAHAN) {
+              const double u = se + d[e];
+              c[a + (e >> 1)][b][e & 1] = d[e] - (u - se);
+              se = u;
+            } else {
+              se = d[e];
+            }
+          }
+        }
+    }
+  }
+  if (!vec) cp_wait<0>();  // no copy outlives the block (the bulk copies
+                          // of the last tiles were waited for)
+  if (!active) return;
+  const long long base = blk * (long long)m * k;
+#pragma unroll
+  for (int a = 0; a < NA; ++a) {
+    const int i = wr + 8 * a + g;
+    if (i >= mc) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = wc + 8 * b + 2 * q + h;
+        if (j >= kc) continue;
+        const long long o = base + (long long)(i0 + i) * k + j0 + j;
+        part[o] = s[a][b][h];
+        if constexpr (KAHAN) comp[o] = -c[a][b][h];
+      }
+  }
+}
+
 struct Args {
   const void* V;
   const void* W;
@@ -549,10 +859,25 @@ struct Args {
   void* x_out;
   double alpha, beta, alpha_im, beta_im;
   const void *alpha_p, *beta_p;
-  int has_x, conj;
+  int has_x, conj, sym;
 };
 
 inline int round16(long long bytes) { return (int)((bytes + 15) / 16 * 16); }
+
+// Pass 2 over the block partials of a.nblocks row blocks.
+template <typename T, bool KAHAN>
+int finish(const Args& a, cudaStream_t stream) {
+  using A = typename Acc<T>::type;
+  const int mk = a.m * a.k;
+  tsmttsm_finish<T, KAHAN><<<(mk + kFinishWarps - 1) / kFinishWarps,
+                             32 * kFinishWarps, 0, stream>>>(
+      static_cast<const A*>(a.part), static_cast<const A*>(a.comp),
+      a.nblocks, mk, static_cast<const A*>(a.x_in), static_cast<T*>(a.x_out),
+      make_scalar<A>(a.alpha, a.alpha_im), make_scalar<A>(a.beta, a.beta_im),
+      static_cast<const A*>(a.alpha_p), static_cast<const A*>(a.beta_p),
+      a.has_x, a.sym);
+  return (int)cudaGetLastError();
+}
 
 template <typename T, bool KAHAN, bool VEC>
 int launch(const Args& a, cudaStream_t stream) {
@@ -583,20 +908,58 @@ int launch(const Args& a, cudaStream_t stream) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  tsmttsm_finish<T, KAHAN><<<(mk + kFinishWarps - 1) / kFinishWarps,
-                             32 * kFinishWarps, 0, stream>>>(
-      static_cast<const A*>(a.part), static_cast<const A*>(a.comp),
-      a.nblocks, mk, static_cast<const A*>(a.x_in), static_cast<T*>(a.x_out),
-      make_scalar<A>(a.alpha, a.alpha_im), make_scalar<A>(a.beta, a.beta_im),
-      static_cast<const A*>(a.alpha_p), static_cast<const A*>(a.beta_p),
-      a.has_x);
-  return (int)cudaGetLastError();
+  return finish<T, KAHAN>(a, stream);
+}
+
+// The wide float64 instance: tsmttsm_dmma over the row blocks and result
+// tiles (a self-Gram's on and above the diagonal), then the finishing
+// kernel.
+template <bool KAHAN, bool SYM>
+int launch_dmma(const Args& a, cudaStream_t stream) {
+  using Tl = DmmaTile<KAHAN, SYM>;
+  if (a.nblocks > 0) {
+    const int mtiles = (a.m + Tl::M - 1) / Tl::M;
+    const int ktiles = (a.k + Tl::N - 1) / Tl::N;
+    const long long tiles =
+        SYM ? (long long)mtiles * (mtiles + 1) / 2 : (long long)mtiles * ktiles;
+    const long long grid = (long long)a.nblocks * tiles;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const int smem = Tl::kStages * Tl::kRows *
+                     (Tl::M + kDmmaPad + Tl::N + kDmmaPad) *
+                     (int)sizeof(double);
+    auto kern = tsmttsm_dmma<KAHAN, SYM>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    const int vec = a.m % 2 == 0 && a.k % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(a.V) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(a.W) & 15) == 0;
+    kern<<<(unsigned)grid, dmma_threads<KAHAN, SYM>, smem, stream>>>(
+        static_cast<const double*>(a.V), static_cast<const double*>(a.W),
+        static_cast<double*>(a.part), static_cast<double*>(a.comp), a.n, a.m,
+        a.k, a.rows_per_block, mtiles, ktiles, vec);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return finish<double, KAHAN>(a, stream);
 }
 
 template <typename T>
-int launch_t(int kahan, const Args& a, cudaStream_t s) {
+int launch_t(int kahan, const Args& args, cudaStream_t s) {
   // a stage holds whole sweeps of the row lanes
-  const int G = tiles_of<T>(a.m, a.k);
+  const int G = tiles_of<T>(args.m, args.k);
+  if constexpr (std::is_same<T, double>::value) {
+    // float64 rows of more than kThreads tiles: the FP64 tensor cores
+    if (G > kThreads) {
+      if (args.sym)
+        return kahan ? launch_dmma<true, true>(args, s)
+                     : launch_dmma<false, true>(args, s);
+      return kahan ? launch_dmma<true, false>(args, s)
+                   : launch_dmma<false, false>(args, s);
+    }
+  }
+  Args a = args;
+  a.sym = 0;  // the other instances compute every entry
   if (a.nblocks > 0 && a.tile_rows % (G > kThreads ? 1 : kThreads / G))
     return (int)cudaErrorInvalidValue;
   const bool vec = a.m % Tile<T>::M == 0 && a.k % Tile<T>::N == 0;
@@ -614,6 +977,8 @@ int launch_t(int kahan, const Args& a, cudaStream_t s) {
 // accumulation type on the card.  part and comp hold
 // nblocks * m * k values of the accumulation type (comp only for kahan);
 // x_in holds m * k values of the accumulation type (read when has_x).
+// sym says V is W (same pointer, m = k): the float64 DMMA instance then
+// computes the entries on and above the diagonal and mirrors the rest.
 // tile_rows is a multiple of the row lanes (kernels/tsmttsm.py:stage_rows);
 // bulk says V and W start on 16-byte boundaries and rows_per_block and
 // tile_rows rows of each are whole multiples of 16 bytes.
@@ -626,13 +991,15 @@ extern "C" int tsmttsm_launch(int dtype, int kahan, int conj, const void* V,
                               void* x_out, double alpha, double beta,
                               double alpha_im, double beta_im,
                               const void* alpha_p, const void* beta_p,
-                              int has_x, void* stream) {
+                              int has_x, int sym, void* stream) {
   if (m < 1 || k < 1 || n < 0 || nblocks < 0 ||
       (nblocks > 0 && (rows_per_block < 1 || tile_rows < 1)))
     return (int)cudaErrorInvalidValue;
-  const Args a{V,  W,        part,  comp,  n,    m,     k,
-               rows_per_block, nblocks, tile_rows, bulk, x_in, x_out,
-               alpha, beta, alpha_im, beta_im, alpha_p, beta_p, has_x, conj};
+  // sym: V is W (m = k), which the DMMA instance uses
+  const Args a{V,       W,        part,      comp,     n,       m,
+               k,       rows_per_block, nblocks, tile_rows, bulk, x_in,
+               x_out,   alpha,    beta,      alpha_im, beta_im, alpha_p,
+               beta_p,  has_x,    conj,      sym && m == k ? m : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_t<double>(kahan, a, s);

@@ -5,8 +5,10 @@ its ``info`` on the host after every call, so each (b, b) eigensolve of
 the block-Krylov iteration (``solvers/block.py``) stalls the host; the
 JAX package's ``jnp.linalg.eigh`` inside a jitted loop does not.  This
 kernel computes the decomposition with the flag left on the device: one
-thread block a matrix, cyclic Jacobi in shared memory (past m =
-:data:`SHARED_DIM`, U, and A where it does not fit, in a workspace in
+thread block a matrix, cyclic Jacobi in shared memory up to m =
+:data:`SHARED_DIM`, block Jacobi past it (pairs of blocks of
+:data:`BLOCK` indices solved a warp each, their factors applied as small
+products; U, and what shared memory cannot hold, in a workspace in
 device memory; see the note at the top of the CUDA source).
 
 ``herm_eig_cuda(A)`` takes ``(m, m)`` or ``(batch, m, m)`` CUDA tensors in
@@ -28,17 +30,40 @@ from repro_torch.core import execution
 from repro_torch.kernels import _build
 from repro_torch.kernels.tsmttsm import DTYPE_CODES
 
-__all__ = ["herm_eig_cuda", "SHARED_DIM", "DTYPES"]
+__all__ = ["herm_eig_cuda", "SHARED_DIM", "DTYPES", "BLOCK", "wide_order",
+           "work_values"]
 
 #: largest m whose A and U the kernel keeps in shared memory (complex128
 #: at 64 takes 128 KB); wider matrices take the wide instance
 SHARED_DIM = 64
 DTYPES = (torch.float64, torch.float32, torch.complex128, torch.complex64)
+#: indices a block of the wide instance's order (``kBW`` of the CUDA
+#: source); a pair of blocks is one warp's subproblem
+BLOCK = 8
 #: the dtype a wide matrix of a single-precision dtype is solved in
 _DOUBLE = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _P]
+
+
+def wide_order(m: int) -> int:
+    """The order the wide instance solves at: ``m`` rounded up to whole
+    pairs of blocks (zero rows and columns, never rotated)."""
+    return -(-m // (2 * BLOCK)) * 2 * BLOCK
+
+
+def work_values(m: int) -> int:
+    """Values of the workspace one matrix takes (0 up to
+    :data:`SHARED_DIM`): U^T (mp x m), A (mp x (mp + 4)), and for each of
+    the mp / 16 pairs its subproblem (16 x 17) and two rounds' factors (16
+    x 18 each), as ``herm_eig_work_values`` of the CUDA source counts
+    them."""
+    if m <= SHARED_DIM:
+        return 0
+    mp = wide_order(m)
+    pairs = mp // (2 * BLOCK)
+    return m * mp + mp * (mp + 4) + pairs * (16 * 17 + 2 * 16 * 18)
 
 
 def _entry():
@@ -82,9 +107,8 @@ def herm_eig_cuda(A: torch.Tensor):
     conv = torch.empty(batch_shape, dtype=torch.int32, device=device)
     if batch == 0:
         return w, U, conv
-    # the wide instance's workspace: U, and A where it does not fit in
-    # shared memory, 2 m^2 values a matrix
-    work = (torch.empty(2 * batch * m * m, dtype=A.dtype, device=device)
+    # the wide instance's workspace: U, and what shared memory cannot hold
+    work = (torch.empty(batch * work_values(m), dtype=A.dtype, device=device)
             if m > SHARED_DIM else None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -12,8 +12,8 @@ from repro_torch.core import blockvec
 from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, spmv_ref, storage_acc_dtype
 
-__all__ = ["sellcs_spmv_ref", "tsmttsm_ref", "tsmm_ref",
-           "block_diag_matmul_ref", "fused_axpby_dots_ref", "mamba_scan_ref"]
+__all__ = ["sellcs_spmv_ref", "tsmttsm_ref", "tsmttsm_exact_entries",
+           "tsmm_ref", "block_diag_matmul_ref", "fused_axpby_dots_ref", "mamba_scan_ref"]
 
 
 def sellcs_spmv_ref(A: SellCS, x, y=None, z=None, opts: SpmvOpts = SpmvOpts()):
@@ -39,6 +39,78 @@ def tsmttsm_ref(V, W, X=None, alpha=1.0, beta=0.0, *, kahan: bool = False,
     if X is not None:
         res = res + beta * X.to(res.dtype)
     return res.to(out_dtype)
+
+
+#: values of one operand that :func:`tsmttsm_exact_entries` forms at once
+#: (128 MB in float64)
+EXACT_CHUNK = 1 << 24
+
+
+def _two_sum(a, b):
+    """``(s, e)`` with ``s = fl(a + b)`` and ``s + e = a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fast_two_sum(a, b):
+    """:func:`_two_sum` for ``|a| >= |b|``."""
+    s = a + b
+    return s, b - (s - a)
+
+
+def _two_prod(a, b):
+    """``(p, e)`` with ``p = fl(a b)`` and ``p + e = a b`` exactly
+    (Dekker's product: each factor split into halves of 26 bits, whose
+    products are exact, with no fused multiply-add needed)."""
+    def split(x):
+        t = x * 134217729.0                     # 2^27 + 1
+        hi = t - (t - x)
+        return hi, x - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _dd_sum(hi, lo):
+    """The sums over dim 0 of the double-double values ``hi + lo``, as
+    double-double ``(hi, lo)``: pairs added in a tree, each addition
+    accurate to a few units of 2^-106 of its operands' magnitudes."""
+    while hi.shape[0] > 1:
+        if hi.shape[0] % 2:
+            zero = torch.zeros_like(hi[:1])
+            hi, lo = torch.cat([hi, zero]), torch.cat([lo, zero])
+        s, e = _two_sum(hi[0::2], hi[1::2])
+        t, f = _two_sum(lo[0::2], lo[1::2])
+        s, e = _fast_two_sum(s, e + t)
+        hi, lo = _fast_two_sum(s, e + f)
+    return hi[0], lo[0]
+
+
+def tsmttsm_exact_entries(V: torch.Tensor, W: torch.Tensor, rows, cols):
+    """Entries ``(V^T W)[rows[i], cols[i]]`` of real float64 ``V`` (n, m)
+    and ``W`` (n, k), summed as if exactly: ``(hi, lo)`` float64 tensors
+    whose sum ``hi + lo`` errs by a few units of 2^-106 times
+    ``log2(n) * sum |terms|`` (each product split exactly into two
+    doubles, the 2 n parts summed in double-double).  The oracle for a
+    compensated kernel, whose error the float64 plain version's own
+    rounding (n units of 2^-53) would hide.  Runs on V's device."""
+    if V.dtype != torch.float64 or W.dtype != torch.float64:
+        raise TypeError(f"tsmttsm_exact_entries: float64 V and W, got "
+                        f"{V.dtype} and {W.dtype}")
+    rows = torch.as_tensor(rows, device=V.device).reshape(-1)
+    cols = torch.as_tensor(cols, device=V.device).reshape(-1)
+    n = V.shape[0]
+    hi = torch.zeros(rows.numel(), dtype=torch.float64, device=V.device)
+    lo = torch.zeros_like(hi)
+    if n == 0:
+        return hi, lo
+    step = max(1, EXACT_CHUNK // n)
+    for e0 in range(0, rows.numel(), step):
+        p, e = _two_prod(V[:, rows[e0:e0 + step]], W[:, cols[e0:e0 + step]])
+        hi[e0:e0 + step], lo[e0:e0 + step] = _dd_sum(p, e)
+    return hi, lo
 
 
 def tsmm_ref(V, X, W=None, alpha=1.0, beta=0.0):

@@ -8,6 +8,10 @@ compensation.  Blocks reduce row ranges
 into ``(m, k)`` partials, streaming their rows through a ring of
 shared-memory stages filled by bulk copies, and a second kernel sums the
 partials in block order (see the note at the top of the CUDA source).
+Float64 rows of more than 256 thread tiles (:func:`uses_dmma`) take the
+FP64 tensor cores: a block a 128 x 64 (Kahan) or 128 x 128 result tile
+of its row block, each row of V and W read once a tile; a self-Gram
+(:func:`self_gram`) the 64 x 64 tiles on and above the diagonal.
 This wrapper validates the operands, picks the row partition from the
 shapes alone and the stage size from the shapes and the dtype, allocates
 the partials and the result, and launches on the current stream without
@@ -30,7 +34,7 @@ from repro_torch.kernels.sellcs_spmv import check_operand, coefficient_arg
 
 __all__ = ["tsmttsm_cuda", "row_partition", "summation_depth",
            "stage_rows", "bulk_aligned", "thread_tile", "block_runs",
-           "stage_bytes",
+           "stage_bytes", "uses_dmma", "dmma_tiles", "self_gram",
            "DTYPE_CODES"]
 
 #: the number of blocks the rows are spread over, at most (a constant, not
@@ -62,7 +66,7 @@ DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _P, _P,
-             _D, _D, _D, _D, _P, _P, _I, _P]
+             _D, _D, _D, _D, _P, _P, _I, _I, _P]
 
 
 def _entry():
@@ -104,17 +108,51 @@ def tile_slabs(m: int, k: int, dtype=None) -> int:
     return -(-_tiles(m, k, dtype) // _THREADS)
 
 
+#: the DMMA instance's result tile: rows (V's columns) by columns (W's) of
+#: a thread block with Kahan (the plain sum's blocks are 128 x 128)
+DMMA_TILE = (128, 64)
+
+
+def self_gram(V: torch.Tensor, W: torch.Tensor) -> bool:
+    """Whether ``V^T W`` is a self-Gram (``W^T W``: the same storage,
+    shape and strides), whose DMMA instance computes the entries on and
+    above the diagonal and mirrors the rest."""
+    return (V.data_ptr() == W.data_ptr() and V.shape == W.shape
+            and V.stride() == W.stride())
+
+
+def uses_dmma(m: int, k: int, dtype=None) -> bool:
+    """Whether the call takes the FP64 tensor cores (``tsmttsm_dmma``):
+    float64 rows of more than 256 thread tiles (m * k past 4096 or so),
+    which the other dtypes split into slabs.  ``dtype`` None means a real
+    dtype other than float64."""
+    return dtype == torch.float64 and _tiles(m, k, dtype) > _THREADS
+
+
+def dmma_tiles(m: int, k: int) -> int:
+    """Result tiles of :data:`DMMA_TILE` a row block has: the thread blocks
+    of a row block with Kahan, which cap the row blocks (the plain sum's
+    blocks are half as many or fewer, a self-Gram's 64 x 64 tiles on and
+    above the diagonal about as many: 3 against 2 at 128 x 128)."""
+    tm, tn = DMMA_TILE
+    return -(-m // tm) * -(-k // tn)
+
+
 def row_partition(n: int, m: int, k: int, dtype=None):
     """``(rows_per_block, nblocks)`` for ``n`` rows: at most
     :data:`MAX_BLOCKS` blocks (fewer where more than four tile slabs would
     put more than :data:`MAX_GRID` thread blocks in the grid), each a
     whole number of the block's row-lane sweeps (lanes x 8-row groups).
+    The DMMA instance (:func:`uses_dmma`) has one lane and caps its row
+    blocks by its result tiles (:func:`dmma_tiles`) as the slabs do.
     A function of ``(n, m, k)`` and of the thread tile of ``dtype`` (None:
-    a real dtype) alone."""
+    a real dtype other than float64) alone."""
     if n == 0:
         return 0, 0
     sweep = _lanes(m, k, dtype) * _GROUP
-    cap = max(1, min(MAX_BLOCKS, MAX_GRID // tile_slabs(m, k, dtype)))
+    tiles = (dmma_tiles(m, k) if uses_dmma(m, k, dtype)
+             else tile_slabs(m, k, dtype))
+    cap = max(1, min(MAX_BLOCKS, MAX_GRID // tiles))
     rows = -(-n // cap)
     rows = -(-rows // sweep) * sweep
     return rows, -(-n // rows)
@@ -137,8 +175,14 @@ def summation_depth(n: int, m: int, k: int, dtype=None) -> int:
     the shared-memory stages do not change that order), then the lanes
     in lane order, then a run of blocks in block order, then the runs in
     run order (the ``depth`` of the standard bound ``depth * u * sum
-    |terms|``)."""
+    |terms|``).  The DMMA instance has no lanes: a block's rows pass
+    through one chain of mma k-steps, each adding four rows' products to
+    the running sum in the tensor core's own order, so a product passes
+    at most the block's rows' additions (with Kahan, 8-row groups of two
+    k-steps from zero, then added in order)."""
     rows, nblocks = row_partition(n, m, k, dtype)
+    if uses_dmma(m, k, dtype):
+        return rows + sum(block_runs(nblocks))
     lanes = _lanes(m, k, dtype)
     return -(-rows // lanes) + lanes + sum(block_runs(nblocks))
 
@@ -211,8 +255,9 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     check_dims(fn, m, k)
     check_operand(fn, "V", V, device, V.dtype, (n, m))
     check_operand(fn, "W", W, device, V.dtype, (n, k))
-    if (stage_smem(m, k, V.element_size(), V.dtype)
-            > MAX_SMEM_BYTES - _COMP_TILE_BYTES):
+    dmma = uses_dmma(m, k, V.dtype)
+    if not dmma and (stage_smem(m, k, V.element_size(), V.dtype)
+                     > MAX_SMEM_BYTES - _COMP_TILE_BYTES):
         raise ValueError(f"{fn}: three stages of one row of V and W (m + k "
                          f"= {m + k}) exceed a block's shared memory")
     acc = storage_acc_dtype(V.dtype)
@@ -225,8 +270,10 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
             raise TypeError(f"{fn}: X must be real for real V, got {X.dtype}")
         x_in = X.resolve_conj().to(acc).contiguous()
     rows, nblocks = row_partition(n, m, k, V.dtype)
+    # the DMMA instance ignores both: it fills its stages by bulk copies
+    # where V and W start on 16 bytes and m and k are even, else by cp.async
     tile_rows = stage_rows(m, k, V.element_size(), V.dtype)
-    bulk = bulk_aligned(V, W, rows, tile_rows)
+    bulk = not dmma and bulk_aligned(V, W, rows, tile_rows)
     part = torch.empty((nblocks, m, k), dtype=acc, device=device)
     comp = torch.empty_like(part) if kahan else None
     out = torch.empty((m, k), dtype=V.dtype, device=device)
@@ -241,7 +288,7 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
             n, m, k, rows, nblocks, tile_rows, int(bulk),
             None if x_in is None else x_in.data_ptr(), out.data_ptr(),
             ca.re, cb.re, ca.im, cb.im, ca.ptr, cb.ptr,
-            int(x_in is not None), stream)
+            int(x_in is not None), int(dmma and self_gram(V, W)), stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     execution.count_launch("tsmttsm")

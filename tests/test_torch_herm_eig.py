@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import execution
 from repro_torch.kernels import ops
+from repro_torch.kernels import herm_eig as he
 from repro_torch.kernels.herm_eig import herm_eig_cuda
 
 DTYPES = [torch.float64, torch.float32, torch.complex128, torch.complex64]
@@ -61,6 +62,20 @@ def test_cpu_takes_torch_eigh(dtype):
     assert execution.launch_counts().get("herm_eig", 0) == 0
     w3, _, conv3 = ops.herm_eig(torch.stack([A, 2 * A]))
     assert w3.shape == (2, 7) and conv3.shape == (2,)
+
+
+@pytest.mark.parametrize("m,order,values", [
+    (1, 16, 0), (64, 64, 0), (65, 80, 65 * 80 + 80 * 84 + 5 * 848),
+    (96, 96, 96 * 96 + 96 * 100 + 6 * 848),
+    (128, 128, 128 * 128 + 128 * 132 + 8 * 848),
+    (200, 208, 200 * 208 + 208 * 212 + 13 * 848)])
+def test_wide_order_and_workspace(m, order, values):
+    """The block-Jacobi instance solves at m rounded up to whole pairs of
+    8-index blocks, and its workspace holds U, A and the pairs'
+    subproblems and factors (none up to the narrow design's 64)."""
+    assert he.wide_order(m) == order
+    assert he.work_values(m) == values
+    assert order % (2 * he.BLOCK) == 0 and order - m < 2 * he.BLOCK
 
 
 def test_wrapper_takes_cuda_tensors_only():
@@ -122,3 +137,44 @@ def test_batched_kernel_on_card(dtype):
     junk = A[0].masked_fill(upper, 7.0)
     w0, U0, _ = ops.herm_eig(junk)
     assert torch.equal(w0, w[0]) and torch.equal(U0, U[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gram", "rank_deficient", "repeated"])
+@pytest.mark.parametrize("m", [65, 96, 128, 200])
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_block_jacobi_batch_equals_one_at_a_time(dtype, m, kind):
+    """The block-Jacobi instance: a batch of three matrices (a block and a
+    workspace slice each) equals the matrices one at a time to the bit,
+    every flag is set, and each is within the bounds above."""
+    need_card()
+    A = torch.stack([_matrix(kind, m, dtype, "cuda", seed=s)
+                     for s in range(3)])
+    w, U, conv = herm_eig_cuda(A)
+    assert bool((conv > 0).all())
+    real = A.real.dtype if dtype.is_complex else dtype
+    eps = torch.finfo(real).eps
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    eye = torch.eye(m, dtype=wide, device="cuda")
+    for i in range(3):
+        wi, Ui, ci = herm_eig_cuda(A[i])
+        assert torch.equal(wi, w[i]) and torch.equal(Ui, U[i])
+        assert int(ci) == int(conv[i])
+        Ad = A[i].to(wide)
+        norm = float(torch.linalg.norm(Ad))
+        want = torch.linalg.eigvalsh(Ad)
+        assert float((wi.double() - want).abs().max()) <= 4 * m * eps * norm
+        Ud = Ui.to(wide)
+        assert float(torch.linalg.norm(Ud.mH @ Ud - eye)) <= 16 * m * eps
+
+
+@pytest.mark.gpu
+def test_block_jacobi_workspace_matches_the_kernel():
+    """The wrapper's workspace size is the one the CUDA source counts."""
+    need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = _build.load("herm_eig").herm_eig_work_values
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    for m in (1, 64, 65, 96, 128, 200, 1000):
+        assert fn(m) == he.work_values(m)

@@ -214,7 +214,74 @@ def test_tsmttsm_wide_partition_caps_the_grid(m, k, dtype):
 
 def test_tsmttsm_refuses_only_rows_wider_than_shared_memory():
     """The one width B2 cannot take: three stages of one row of V and W
-    beyond a block's shared memory (m + k past 8,320 in float64)."""
+    beyond a block's shared memory (m + k past 8,320 at 8 bytes a value,
+    complex64; float64 takes the DMMA instance at any width)."""
     limit = b2.MAX_SMEM_BYTES - b2._COMP_TILE_BYTES
     assert b2.stage_smem(4100, 4200, 8) <= limit
     assert b2.stage_smem(4200, 4200, 8) > limit
+
+
+# ------------------------- B2's float64 instance on DMMA (Python, PR 30)
+@pytest.mark.parametrize("m,k,dtype,want", [
+    (64, 64, torch.float64, False), (65, 64, torch.float64, True),
+    (61, 67, torch.float64, True), (60, 67, torch.float64, False),
+    (128, 128, torch.float64, True), (200, 136, torch.float64, True),
+    (128, 1, torch.float64, False), (3, 4100, torch.float64, True),
+    (128, 128, torch.float32, False), (128, 128, torch.complex128, False),
+    (128, 128, None, False)])
+def test_tsmttsm_dmma_takes_the_float64_slab_shapes(m, k, dtype, want):
+    """Float64 rows of more than 256 thread tiles of 4 x 4 (the shapes the
+    slab path took) take the FP64 tensor cores; every other dtype, and
+    every narrower row, keeps its design."""
+    assert b2.uses_dmma(m, k, dtype) == want
+    tiles = -(-m // 4) * -(-k // 4)
+    assert want == (dtype == torch.float64 and tiles > 256)
+
+
+@pytest.mark.parametrize("n", [0, 1, 37, 4109, 1 << 18, 4_096_000])
+@pytest.mark.parametrize("m,k", [(65, 65), (72, 100), (128, 128),
+                                 (200, 136), (4100, 4200)])
+def test_tsmttsm_dmma_partition_and_depth(m, k, n):
+    """The DMMA instance's row blocks: whole 8-row groups, at most
+    MAX_BLOCKS, and at most MAX_GRID thread blocks with Kahan (one a
+    128 x 64 result tile and row block); its summation depth is a row
+    block's rows (one chain of mma k-steps) plus the finishing kernel's
+    run and runs, with no lane term."""
+    f64 = torch.float64
+    rows, nblocks = b2.row_partition(n, m, k, f64)
+    if n == 0:
+        assert (rows, nblocks) == (0, 0)
+        assert b2.summation_depth(n, m, k, f64) == 0
+        return
+    tiles = b2.dmma_tiles(m, k)
+    assert tiles == -(-m // 128) * -(-k // 64)
+    assert rows % 8 == 0 and (nblocks - 1) * rows < n <= nblocks * rows
+    assert nblocks <= b2.MAX_BLOCKS
+    assert nblocks * tiles <= max(b2.MAX_GRID, tiles)
+    assert b2.summation_depth(n, m, k, f64) == rows + sum(
+        b2.block_runs(nblocks))
+    if (n, m, k) == (4_096_000, 128, 128):
+        assert (rows, nblocks) == (7760, 528)
+        assert b2.summation_depth(n, m, k, f64) == 7760 + 17 + 32
+
+
+def test_tsmttsm_dmma_lifts_the_float64_width_limit():
+    """Float64 takes any width (the DMMA stages hold 16 rows of 128 + 64
+    columns whatever m and k are); the refusal of rows wider than three
+    shared-memory stages stays with the slab path's dtypes."""
+    limit = b2.MAX_SMEM_BYTES - b2._COMP_TILE_BYTES
+    assert b2.uses_dmma(4200, 4200, torch.float64)
+    assert b2.stage_smem(4200, 4200, 8, torch.float64) > limit
+    assert b2.stage_smem(8400, 8400, 4, torch.float32) > limit
+    assert not b2.uses_dmma(8400, 8400, torch.float32)
+
+
+def test_tsmttsm_self_gram_is_the_same_storage():
+    """The self-Gram path (V is W: same storage, shape and strides) is told
+    apart from a copy and from views of other columns."""
+    W = torch.randn(50, 8, dtype=torch.float64)
+    assert b2.self_gram(W, W)
+    assert b2.self_gram(W[:, :5], W[:, :5])
+    assert not b2.self_gram(W, W.clone())
+    assert not b2.self_gram(W[:, :5], W[:, 1:6])
+    assert not b2.self_gram(W[:, :4], W[:, :5])

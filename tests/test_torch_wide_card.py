@@ -2,7 +2,9 @@
 and B3 past m, k = 64, the eigensolver past m = 64, B1 past C = 256
 (ELLPACK included), B4 past bs = 64 and B6 past N = 64 and B = 65535,
 each held against its plain version computed in float64 (complex128) from
-the same inputs, and block CG at width 72.
+the same inputs, and block CG at width 72; and the redesigned wide
+instances (B2 in float64 on the FP64 tensor cores, the eigensolver as
+block Jacobi) at the shapes the block-Krylov path gives them.
 
 Every test here is ``gpu``-marked and skips without a card (run with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_wide_card.py``);
@@ -12,9 +14,17 @@ parity of the same sizes against the JAX package is
 
 * B2 and B3: ``|kernel - plain| <= TOL * (|V|^T |W|)`` (``|V| |X|``)
   entry by entry, TOL = (depth + 2) units of the accumulation dtype, with
-  depth the longest chain of additions (B2: ``summation_depth``; B3: m,
+  depth the longest chain of additions (B2: ``summation_depth``, Kahan
+  to the compensated depth 8 + 3 (2 + 2 d^2 u) of ``chip_smoke.py``'s
+  ``kahan_depth``, plus the float64 plain version's n; B3: m,
   twice that for complex values, whose products round up to sqrt(5)
   units, and half a unit of a bfloat16 result);
+* B2's float64 Kahan sums at 2^18 rows also against exact sums of
+  sampled entries (``tsmttsm_exact_entries``): within (kahan depth + 3)
+  units of sum |terms| with no term for a reference's rounding, and a
+  root-mean-square error at most KAHAN_GAIN of the plain sum's, each
+  entry's error in units of its exact sum's ulp plus 2^-53 sqrt(sum
+  terms^2) (``chip_smoke.py:_require_exact_kahan``);
 * B1: max |kernel - plain| / max |plain| at most 1e-12 (float64,
   complex128) and 1e-5 (float32), dots 1e-12 / 1e-6 (the sums run in
   another order);
@@ -32,10 +42,11 @@ from repro_torch.kernels.ops import (block_jacobi_apply, herm_eig,
                                      mamba_scan, sellcs_spmv, tsmm,
                                      tsmm_inplace, tsmttsm)
 from repro_torch.kernels.ref import (block_diag_matmul_ref, mamba_scan_ref,
-                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref)
-from repro_torch.kernels.tsmttsm import summation_depth
+                                     sellcs_spmv_ref, tsmm_ref, tsmttsm_ref,
+                                     tsmttsm_exact_entries)
+from repro_torch.kernels.tsmttsm import summation_depth, uses_dmma
 from repro_torch.matrices import laplace3d
-from repro_torch.solvers import cg, make_operator
+from repro_torch.solvers import cg, cg_finalize, cg_init, cg_step, make_operator
 
 pytestmark = pytest.mark.gpu
 
@@ -303,3 +314,174 @@ def test_block_cg_at_width_72():
     Ax, _, _ = sellcs_spmv_ref(A, res.x)
     relres = (b - Ax).norm(dim=0) / b.norm(dim=0)
     assert float(relres.max()) <= 1e-7
+
+
+# ------------------------------------ B2's float64 instance on DMMA (PR 30)
+DMMA_DIMS = [(65, 65), (72, 100), (128, 128), (200, 136)]
+DMMA_NS = [0, 1, 37, 4109, 1 << 18]
+
+
+def _dmma_bound(V, W, X, alpha, beta, kahan):
+    """|kernel - plain| allowed entry by entry in float64: the kernel's
+    depth (compensated with Kahan) and the plain version's n additions,
+    each in units of 2^-53 of sum |terms|."""
+    n, m = V.shape
+    k = W.shape[1]
+    d = summation_depth(n, m, k, torch.float64)
+    depth = 8 + 3 * (2 + 2 * d * d * 2.0 ** -53) if kahan else d
+    scale = abs(float(alpha)) * (V.abs().T @ W.abs())
+    if X is not None:
+        scale = scale + abs(float(beta)) * X.abs()
+    return ((depth + 3) + (n + 3)) * 2.0 ** -53 * scale + 1e-300
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+@pytest.mark.parametrize("n", DMMA_NS)
+@pytest.mark.parametrize("m,k", DMMA_DIMS)
+def test_dmma_tsmttsm_matches_plain(m, k, n, kahan):
+    """The FP64 tensor-core instance against the float64 plain version,
+    with X, alpha and beta, and a second call to the same bits."""
+    need_card()
+    assert uses_dmma(m, k, torch.float64)
+    g = torch.Generator(device="cuda").manual_seed(30 + n + m + k)
+    V, W, X = (torch.randn(*s, generator=g, dtype=torch.float64,
+                           device="cuda") for s in ((n, m), (n, k), (m, k)))
+    execution.reset_launch_counts()
+    got = tsmttsm(V, W, X, 0.5, -2.0, kahan=kahan)
+    assert execution.launch_counts()["tsmttsm"] == 1
+    want = tsmttsm_ref(V, W, X, 0.5, -2.0)
+    assert bool(((got - want).abs()
+                 <= _dmma_bound(V, W, X, 0.5, -2.0, kahan)).all())
+    assert torch.equal(tsmttsm(V, W, X, 0.5, -2.0, kahan=kahan), got)
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+@pytest.mark.parametrize("m,k", DMMA_DIMS)
+def test_dmma_tsmttsm_coefficients_on_the_card(m, k, kahan):
+    """alpha and beta as 0-d tensors on the card give the bits that the
+    same numbers give."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m * k)
+    V, W, X = (torch.randn(*s, generator=g, dtype=torch.float64,
+                           device="cuda") for s in ((4109, m), (4109, k),
+                                                    (m, k)))
+    a = torch.tensor(-0.75, dtype=torch.float64, device="cuda")
+    b = torch.tensor(1.5, dtype=torch.float64, device="cuda")
+    got = tsmttsm(V, W, X, a, b, kahan=kahan)
+    assert torch.equal(got, tsmttsm(V, W, X, -0.75, 1.5, kahan=kahan))
+    want = tsmttsm_ref(V, W, X, -0.75, 1.5)
+    assert bool(((got - want).abs()
+                 <= _dmma_bound(V, W, X, -0.75, 1.5, kahan)).all())
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+@pytest.mark.parametrize("shift", [(1, 0), (0, 1), (1, 1)],
+                         ids=["V", "W", "both"])
+@pytest.mark.parametrize("m,k", DMMA_DIMS)
+def test_dmma_tsmttsm_views_off_16_bytes(m, k, shift, kahan):
+    """Operands one value past a 16-byte boundary fill the stages value by
+    value; the sums, and so the bits, are those of aligned copies."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m + 7 * k)
+    n = 4109
+    V, W = (torch.randn(n, d, generator=g, dtype=torch.float64,
+                        device="cuda") for d in (m, k))
+
+    def shifted(T, off):
+        buf = torch.empty(T.numel() + off, dtype=T.dtype, device="cuda")
+        view = buf[off:].view(T.shape)
+        view.copy_(T)
+        return view
+
+    Vs, Ws = shifted(V, shift[0]), shifted(W, shift[1])
+    assert (Vs.data_ptr() % 16 != 0) == bool(shift[0])
+    assert torch.equal(tsmttsm(Vs, Ws, kahan=kahan),
+                       tsmttsm(V, W, kahan=kahan))
+
+
+@pytest.mark.parametrize("kahan", [False, True], ids=["plain", "kahan"])
+@pytest.mark.parametrize("m", [65, 128, 200])
+def test_dmma_tsmttsm_self_gram(m, kahan):
+    """V the same tensor as W (block CG's SVQB Gram: the entries on and
+    above the diagonal, mirrored) and V a copy of W (every entry) are both
+    within the bound of the plain version; the self-Gram is symmetric to
+    the bit, with X and beta too."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m)
+    W = torch.randn(1 << 18, m, generator=g, dtype=torch.float64,
+                    device="cuda")
+    want = tsmttsm_ref(W, W)
+    bound = _dmma_bound(W, W, None, 1.0, 0.0, kahan)
+    same = tsmttsm(W, W, kahan=kahan)
+    copy = tsmttsm(W.clone(), W, kahan=kahan)
+    for got in (same, copy):
+        assert bool(((got - want).abs() <= bound).all())
+    assert torch.equal(same, same.T)
+    X = torch.randn(m, m, generator=g, dtype=torch.float64, device="cuda")
+    X = X + X.T
+    got = tsmttsm(W, W, X, 0.5, -2.0, kahan=kahan)
+    assert torch.equal(got, got.T)
+    assert bool(((got - tsmttsm_ref(W, W, X, 0.5, -2.0)).abs()
+                 <= _dmma_bound(W, W, X, 0.5, -2.0, kahan)).all())
+
+
+def test_block_cg_at_width_128_chunked_equals_monolithic():
+    """Block CG at width 128 (B2 on DMMA, the block-Jacobi eigensolver on
+    its path) in cg_step chunks is the monolithic solve, bit for bit:
+    every sum on the path has a fixed order."""
+    need_card()
+    r, c, v, n = laplace3d(10)
+    A = from_coo(r, c, v, (n, n), C=32, sigma=64, dtype=np.float64,
+                 device="cuda")
+    op = make_operator(A)
+    g = torch.Generator(device="cuda").manual_seed(128)
+    b = A.permute(torch.randn(n, 128, generator=g, dtype=torch.float64,
+                              device="cuda"))
+    res = cg(op, b, tol=1e-8, maxiter=300, block=True)
+    st = cg_init(op, b, tol=1e-8, maxiter=300, block=True)
+    while st.it < st.maxiter and not bool(st.done.all()):
+        st = cg_step(op, st, 7)
+    ch = cg_finalize(st)
+    assert bool(res.converged.all()) and ch.iters == res.iters
+    assert torch.equal(ch.x, res.x)
+
+
+#: the Kahan sum's root-mean-square error against exact sums at most this
+#: share of the plain sum's (chip_smoke.py's KAHAN_GAIN; an emulation of
+#: the DMMA order gives 0.17 off the diagonal and 0.30 on it at 2^18 rows,
+#: a kernel that does not compensate 1)
+KAHAN_GAIN = 0.5
+
+
+@pytest.mark.parametrize("self_gram", [False, True],
+                         ids=["VtW", "self-Gram"])
+@pytest.mark.parametrize("m,k", DMMA_DIMS)
+def test_dmma_kahan_against_exact_sums(m, k, self_gram):
+    """The Kahan sum against exact sums of its diagonal and 64 random
+    entries: within its compensated bound and well below the plain sum's
+    error, which the float64 plain version's own rounding would hide (a
+    self-Gram's diagonal is a sum of n positive terms)."""
+    need_card()
+    n = 1 << 18
+    g = torch.Generator(device="cuda").manual_seed(m + k + self_gram)
+    W = torch.randn(n, k, generator=g, dtype=torch.float64, device="cuda")
+    V = W if self_gram else torch.randn(n, m, generator=g,
+                                        dtype=torch.float64, device="cuda")
+    m = V.shape[1]
+    diag = torch.arange(min(m, k), device="cuda")
+    rows = torch.cat([diag, torch.randint(m, (64,), generator=g,
+                                          device="cuda")])
+    cols = torch.cat([diag, torch.randint(k, (64,), generator=g,
+                                          device="cuda")])
+    hi, lo = tsmttsm_exact_entries(V, W, rows, cols)
+    err = {kahan: ((tsmttsm(V, W, kahan=kahan)[rows, cols] - hi) - lo).abs()
+           for kahan in (False, True)}
+    d = summation_depth(n, m, k, torch.float64)
+    depth = 8 + 3 * (2 + 2 * d * d * 2.0 ** -53)
+    scale = (V[:, rows].abs() * W[:, cols].abs()).sum(0)
+    assert bool((err[True] <= (depth + 3) * 2.0 ** -53 * scale).all())
+    unit = (torch.ldexp(torch.ones_like(hi), torch.frexp(hi)[1] - 53)
+            + 2.0 ** -53 * (V[:, rows] * W[:, cols]).square().sum(0).sqrt())
+    rms = {kahan: float((e / unit).square().mean().sqrt())
+           for kahan, e in err.items()}
+    assert rms[True] <= KAHAN_GAIN * rms[False]

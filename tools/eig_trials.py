@@ -13,7 +13,7 @@ wrong results on purpose, are timed only); and times the variants in
 turns (the order reversed every other round) with CUDA events.  Run from
 the root of a checkout, on a machine with the card:
 
-    python tools/eig_trials.py --variants current,t512,t256 --m 128
+    python tools/eig_trials.py --variants current,fixed,noA,noU --m 128
 """
 from __future__ import annotations
 
@@ -30,27 +30,61 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import herm_eig as he  # noqa: E402
 from repro_torch.kernels.tsmttsm import DTYPE_CODES  # noqa: E402
 
 OUT = ROOT / "build" / "eig_trials"
 #: name -> replacements (old, new) applied to the current source; each old
 #: text must occur in it
+FIXED_SWEEPS = 11
+FIXED = [("    if (!swept) {\n      converged = sweep + 1;",
+          "    if (sweep + 1 == %d) {\n      converged = sweep + 1;"
+          % FIXED_SWEEPS)]
 VARIANTS = {
     "current": [],
-    # fewer threads in the wide instance: more entries a thread, cheaper
-    # barriers
-    "t512": [("constexpr int kWideThreads = 1024;",
-              "constexpr int kWideThreads = 512;")],
-    "t256": [("constexpr int kWideThreads = 1024;",
-              "constexpr int kWideThreads = 256;")],
-    # ablation (U wrong, timed only): the rounds without U's updates
-    "noU": [("""        ap = sU[i * m + p];
-        aq = sU[i * m + q];
-        sU[i * m + p] = scal(c, ap) - sec * aq;
-        sU[i * m + q] = se * ap + scal(c, aq);
-""", "")],
+    # the ablations below run exactly FIXED_SWEEPS sweeps (a block-CG Gram
+    # at m = 128 takes 11), and "fixed" is the current source so held
+    "fixed": FIXED,
+    # instrumentation (timed, but its U is wrong): thread 0 prints the
+    # clock cycles of each phase, summed over the rounds
+    "prof": [("#include <float.h>\n", "#include <float.h>\n#include <cstdio>\n"),
+             ("  int converged = 0;  // the sweeps it took (the last rotating none), or 0\n  int rid = 0;",
+              "  long long c_s = 0, c_c = 0, c_r = 0, c_x = clock64(), c_t;\n"
+              "  int converged = 0;  // the sweeps it took (the last rotating none), or 0\n  int rid = 0;"),
+             ("      if (t == 0) rflag[buf ^ 1] = 0;  // the round before's, read by all",
+              "      c_t = clock64();\n      if (t == 0) rflag[buf ^ 1] = 0;  // the round before's, read by all"),
+             ("      const int did = rflag[buf];\n",
+              "      const int did = rflag[buf];\n      c_s += clock64() - c_t; c_t = clock64();\n"),
+             ("          __syncthreads();\n          rows_dmma<true>(A, lda, mp, r, Gr, S, prot, nb, npairs, 0,\n                          kWideWarps);",
+              "          __syncthreads();\n          c_c += clock64() - c_t; c_t = clock64();\n"
+              "          rows_dmma<true>(A, lda, mp, r, Gr, S, prot, nb, npairs, 0,\n                          kWideWarps);\n"
+              "          __syncthreads();\n          c_r += clock64() - c_t;"),
+             ("  if (t == 0) conv_out[blockIdx.x] = converged;\n}\n\ntemplate <typename T>\nint launch(",
+              "  if (t == 0 && blockIdx.x == 0) printf(\"[prof] cycles: subproblems %lld, cols+U %lld, rows %lld, all %lld\\n\", c_s, c_c, c_r, clock64() - c_x);\n"
+              "  if (t == 0) conv_out[blockIdx.x] = converged;\n}\n\ntemplate <typename T>\nint launch(")],
+    # 256 or 512 threads (no, or eight, warps spare to update U while eight
+    # solve)
+    "t256": [("constexpr int kWideThreads = 384;", "constexpr int kWideThreads = 256;")],
+    "t512": [("constexpr int kWideThreads = 384;", "constexpr int kWideThreads = 512;")],
+    # ablation: no products of A or U with the pairs' factors
+    "noA": FIXED + [("      if (did) {\n        if constexpr (sizeof(T) == 8) {",
+                     "      if (false) {\n        if constexpr (sizeof(T) == 8) {"),
+                    ("        if (u_spare && pend_r >= 0)", "        if (false)")],
+    # ablation: no updates of U
+    "noU": FIXED + [("        if (u_spare && pend_r >= 0)", "        if (false)"),
+                    ("          if (!u_spare)\n", "          if (false)\n"),
+                    ("    if (pend_r >= 0) {  // the last", "    if (false) {  // the last"),
+                    ("          row_step<false, false>(Ut, m, m, r, Gr, S, nb, npairs);\n", "")],
+    # ablation: no inner rounds (every round still updates A and U)
+    "noinner": FIXED + [("        for (int ir = 0; ir < kSub - 1; ++ir) {",
+                         "        for (int ir = 0; ir < 0; ++ir) {"),
+                        ("          prot[kp] = any != 0;\n          if (any) rflag[buf] = 1;",
+                         "          prot[kp] = 1;\n          rflag[buf] = 1;")],
+    # ablation: no Newton-Schulz step
+    "noNS": [("  for (int task = t; task < m * njb; task += kWideThreads) {",
+              "  for (int task = t; task < 0; task += kWideThreads) {")],
 }
-ABLATIONS = {"noU"}
+ABLATIONS = {"noA", "noU", "noinner", "noNS"}
 
 
 def _build_all(names):
@@ -75,18 +109,18 @@ def _build_all(names):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"variant {name} failed to build:\n{log}")
-        entry = "?"
+        entry = ""
         for line in log.splitlines():
-            m = re.search(r"Function properties for \S*herm_eig_block(\w+)",
+            m = re.search(r"Function properties for \S*(herm_eig_\w+?)I",
                           line)
             if m:
                 entry = m.group(1)
-            elif "Used" in line and "Lb1E" in entry:
+            elif "Used" in line and entry == "herm_eig_wide":
                 regs = re.search(r"Used \d+ registers", line)
-                print(f"[ptxas] {name} herm_eig_block{entry}: "
+                print(f"[ptxas] {name} {entry}: "
                       f"{regs.group(0) if regs else line.strip()}")
-            elif "spill" in line and "Lb1E" in entry:
-                print(f"[ptxas] {name} herm_eig_block{entry}: {line.strip()}")
+            elif "spill" in line and entry == "herm_eig_wide":
+                print(f"[ptxas] {name} {entry}: {line.strip()}")
         dll = ctypes.CDLL(str(lib))
         fn = dll.herm_eig_launch
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
@@ -128,7 +162,7 @@ def main() -> int:
         eps, norm = torch.finfo(real).eps, float(torch.linalg.norm(A))
         ref = torch.linalg.eigvalsh(A)
         eye = torch.eye(m, dtype=dt, device="cuda")
-        work = torch.empty(2 * m * m, dtype=dt, device="cuda")
+        work = torch.empty(he.work_values(m), dtype=dt, device="cuda")
         times = {name: [] for name in libs}
         for name, lib in libs.items():
             _run(lib, A, w, U, conv, work)
