@@ -305,6 +305,7 @@ from repro_torch.kernels.ref import (block_diag_matmul_ref,  # noqa: E402
                                      tsmttsm_exact_entries)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.kernels.tsmttsm import summation_depth  # noqa: E402
+from repro_torch.kernels import tsmttsm as b2  # noqa: E402
 from repro_torch.matrices import (anisotropic_laplace2d,  # noqa: E402
                                   laplace3d, matpde)
 from repro_torch.solvers import (cg, cg_finalize, cg_init, cg_step,  # noqa: E402
@@ -654,20 +655,24 @@ def phase_build() -> None:
                                  r"tsmttsm_partial|tsmttsm_finish|"
                                  r"tsmttsm_dmma|herm_eig_wide|"
                                  r"tsmm_stream|tsmm_tiled|tsmm_dmma|"
-                                 r"block_diag_rows|"
+                                 r"block_diag_rows|block_diag_stream|"
                                  r"block_diag_tiled|herm_eig_block|"
                                  r"axpby_dots_partial|"
                                  r"axpby_dots_finish|mamba_scan_rows)"
-                                 r"I(\w+?)EEv",
+                                 r"(?:I(\w+?)E+v)?",
                                  m.group(1))
-                entry = (f"{inst.group(1)}<{inst.group(2)}>" if inst
-                         else m.group(1))
+                entry = (m.group(1) if not inst else inst.group(1)
+                         if inst.group(2) is None
+                         else f"{inst.group(1)}<{inst.group(2)}>")
             elif "spill" in line:
                 spill = line.strip()
                 # B6, B2 (every instance, complex ones and the DMMA one
-                # included) and the block-Jacobi eigensolver must not spill
+                # included), the block-Jacobi eigensolver, B3's wide
+                # float64 instance and B4's wide float64 ones must not spill
                 require(not entry.startswith(("mamba_scan_rows", "tsmttsm_",
-                                              "herm_eig_wide"))
+                                              "herm_eig_wide", "tsmm_dmma",
+                                              "block_diag_stream<dd",
+                                              "block_diag_tiled<dd"))
                         or ("0 bytes spill stores" in spill
                             and "0 bytes spill loads" in spill),
                         f"build: {entry} spills: {spill}")
@@ -2346,7 +2351,7 @@ def phase_eig_grid() -> None:
 #: rows, ELLPACK), the rows of a matrix a height and widths; B4's block
 #: sizes, widths, block counts and dtype pairs; B6's (B, S, d_inner, N)
 WIDE_TSM = ((65, 65), (96, 96), (128, 128), (100, 72), (72, 100),
-            (200, 136))
+            (200, 136), (128, 16), (200, 40))
 WIDE_TSM_NS = (37, 4109, 1 << 18)
 WIDE_TSM_DTYPES = (torch.float64, torch.float32, torch.complex128)
 WIDE_EIG_MS = (65, 96, 128)
@@ -2361,6 +2366,12 @@ WIDE_B4_PAIRS = ((torch.float64, torch.float64),
                  (torch.float32, torch.float32),
                  (torch.complex128, torch.complex128),
                  (torch.complex128, torch.float64))
+#: B4 past what the stream's stages hold (``block_diag_tiled``: bs past
+#: 1,614 in float64, 807 in complex128, 854 for complex128 blocks on real
+#: x), three blocks each: (blocks, x, bs)
+WIDE_B4_TILED = ((torch.float64, torch.float64, 1700),
+                 (torch.complex128, torch.complex128, 900),
+                 (torch.complex128, torch.float64, 900))
 WIDE_B6 = (tuple((B, S, di, N) for N in (65, 128, 256, 520)
                  for B, S, di in ((1, 257, 100), (3, 7, 8)))
            + ((65536, 3, 4, 16), (65537, 2, 3, 65)))
@@ -2501,29 +2512,30 @@ def _wide_b1_cases(rng, g, worst) -> int:
 
 
 def _wide_b4_cases(g, worst) -> int:
-    """B4 past bs = 64 (a thread block a 64-row tile of one block): real
-    pairs at the B4 grid's bound (``_b4_check``), complex blocks at the
-    complex grid's (``_cx_check`` with depth bs)."""
+    """B4 past bs = 64 (the stream, and past its stages the tiled kernel):
+    real pairs at the B4 grid's bound (``_b4_check``), complex blocks at
+    the complex grid's (``_cx_check`` with depth bs)."""
     n_cases = 0
-    for bd, xd in WIDE_B4_PAIRS:
+    shapes = ([(bd, xd, bs, nb) for bd, xd in WIDE_B4_PAIRS
+               for bs in WIDE_B4_BS for nb in WIDE_B4_NB]
+              + [(bd, xd, bs, 3) for bd, xd, bs in WIDE_B4_TILED])
+    for bd, xd, bs, nb in shapes:
         key = f"B4 {str(bd)[6:]} x {str(xd)[6:]}"
         w = worst.setdefault((key, ""), [0.0, "", 0.0])
-        for bs in WIDE_B4_BS:
-            for nb in WIDE_B4_NB:
-                blocks = _cx_randn((nb, bs, bs), bd, g)
-                for b in WIDE_B4_B:
-                    x = _cx_randn((nb * bs, b), xd, g)
-                    tag = f"{key} bs={bs} nb={nb} b={b}"
-                    if bd.is_complex:
-                        c = torch.complex128
-                        want = block_diag_matmul_ref(blocks.to(c), x.to(c))
-                        scale = block_diag_matmul_ref(blocks.to(c).abs(),
-                                                      x.to(c).abs())
-                        _cx_check(block_jacobi_apply(blocks, x), want, scale,
-                                  bd, bs, bs, tag, w)
-                    else:
-                        _b4_check(blocks, x, tag, w)
-                    n_cases += 1
+        blocks = _cx_randn((nb, bs, bs), bd, g)
+        for b in WIDE_B4_B:
+            x = _cx_randn((nb * bs, b), xd, g)
+            tag = f"{key} bs={bs} nb={nb} b={b}"
+            if bd.is_complex:
+                c = torch.complex128
+                want = block_diag_matmul_ref(blocks.to(c), x.to(c))
+                scale = block_diag_matmul_ref(blocks.to(c).abs(),
+                                              x.to(c).abs())
+                _cx_check(block_jacobi_apply(blocks, x), want, scale,
+                          bd, bs, bs, tag, w)
+            else:
+                _b4_check(blocks, x, tag, w)
+            n_cases += 1
     return n_cases
 
 
@@ -2571,7 +2583,8 @@ def phase_wide_grid() -> None:
           f"and off; B2's float64 self-Gram at m in {WIDE_SELF_GRAM}), "
           f"{n_b1} B1 cases (C in 512, 4096 and nrows, b in "
           f"{WIDE_B1_B}, every flag; float64, float32, complex128), {n_b4} "
-          f"B4 cases (bs in {WIDE_B4_BS}), {n_eig} eigensolver cases (m in "
+          f"B4 cases (bs in {WIDE_B4_BS}; past the stream "
+          f"{[(str(a)[6:], str(b)[6:], bs) for a, b, bs in WIDE_B4_TILED]}), {n_eig} eigensolver cases (m in "
           f"{WIDE_EIG_MS}, four dtypes; m = {WIDE_EIG_DEVICE_A} float64), "
           f"{len(WIDE_B6)} B6 cases ({WIDE_B6}) within the bounds of the "
           f"grids they join, in {time.perf_counter() - t0:.1f} s")
@@ -3344,6 +3357,329 @@ def _cx_eigen_timing(A, op, a, gam, lam, card) -> None:
           f"passes included), its recurrence's B1 call alone {one:.4f} ms; "
           f"one KPM moment step on {CX_KPM_PROBES} probes {step:.4f} ms "
           f"(one launch, its moments included)  [{card}]")
+
+
+
+# ---------------------------------------------------------------- phase 13e
+#: slice 21: mixed operand dtypes of B1-B4 on the card.  The pairs (first
+#: operand, second; tests/test_torch_mixed_dtypes.py holds the same pairs
+#: against the JAX package on the CPU), B1's (compute, stored, x) dtypes,
+#: the grid's rows, widths and block sizes, B2 past the shared-memory
+#: limit (each dtype's width), and the two solves' problems
+MIXED_PAIRS = ((torch.float64, torch.float32), (torch.float32, torch.float64),
+               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16),
+               (torch.float16, torch.float64),
+               (torch.complex128, torch.float64),
+               (torch.float64, torch.complex128),
+               (torch.complex64, torch.float32),
+               (torch.float32, torch.complex64),
+               (torch.complex64, torch.complex128),
+               (torch.complex128, torch.complex64),
+               (torch.complex64, torch.float64),
+               (torch.float64, torch.complex64),
+               (torch.bfloat16, torch.complex64))
+MIXED_B1 = ((torch.float64, torch.float64, torch.float32),
+            (torch.float32, torch.float32, torch.float64),
+            (torch.complex128, torch.complex128, torch.float64),
+            (torch.float64, torch.float64, torch.complex128),
+            (torch.float32, torch.float32, torch.complex64),
+            (torch.complex64, torch.complex64, torch.complex128),
+            (torch.complex128, torch.complex128, torch.complex64),
+            (torch.float64, torch.float64, torch.complex64),
+            (torch.float32, torch.bfloat16, torch.complex64),
+            (torch.float32, torch.float16, torch.complex128))
+MIXED_N, MIXED_MK, MIXED_BS, MIXED_B1_NX = 4099, ((16, 16), (96, 72)), \
+    (32, 128), 24
+MIXED_WIDE = ((torch.float32, 8400), (torch.complex64, 4200))
+MIXED_WIDE_N = 40
+MIXED_PCG_NX, MIXED_PCG_BS = 512, 32
+#: the two mixed solves once on the host and once on the card, at sizes
+#: the host solves in seconds: laplace3d(MIXED_HOST_NX) and
+#: anisotropic_laplace2d(MIXED_HOST_PCG_NX) (the full-size solves are
+#: compared with the plain versions on the card)
+MIXED_HOST_NX, MIXED_HOST_PCG_NX = 40, 128
+
+
+def _mixed_check(got, want, out, tag, worst, precision=None) -> None:
+    """The result dtype is ``out`` and max |kernel - plain| at most 1e-12
+    (64-bit results) or 1e-5 (32-bit) of max |plain|, the plain version
+    in float64 (complex128); ``precision`` names the dtype whose width
+    sets the tolerance where it is not ``out`` (B1's dots, summed in
+    float64 from a 32-bit result)."""
+    tol = (1e-12 if (precision or out) in (torch.float64, torch.complex128)
+           else 1e-5)
+    require(got.dtype == out, f"mixed {tag}: dtype {got.dtype}, not {out}")
+    scale = float(want.abs().max())
+    err = float((got.to(want.dtype) - want).abs().max())
+    ratio = err / (tol * scale) if scale else 0.0
+    require(ratio <= 1.0, f"mixed {tag}: error {err:.3e} is {ratio:.2f} of "
+            f"{tol} x {scale:.3e}")
+    w = worst.setdefault(tag.split(" ")[0], [0.0, ""])
+    if ratio >= w[0]:
+        w[:] = [ratio, tag]
+
+
+def _wide_of(dt):
+    return torch.complex128 if dt.is_complex else torch.float64
+
+
+def _mixed_grid(g, rng, worst) -> int:
+    """Every new pair of B1-B4 against the plain versions on the same
+    inputs, and B2 past shared memory (column blocks: past a lowered stage
+    limit equal to the bits of the call that fits, and past the real
+    limit against the plain version)."""
+    n_cases = 0
+    for a, b in MIXED_PAIRS:
+        out = torch.promote_types(a, b)
+        w = _wide_of(out)
+        name = f"{str(a)[6:]} x {str(b)[6:]}"
+        cf = (0.5 - 0.5j, 2.0j) if out.is_complex else (0.5, -2.0)
+        for m, k in MIXED_MK:
+            V, W = _cx_randn((MIXED_N, m), a, g), _cx_randn((MIXED_N, k), b, g)
+            X = _cx_randn((m, k), out, g)
+            for kahan in (False, True):
+                _mixed_check(tsmttsm(V, W, X, *cf, kahan=kahan),
+                             tsmttsm_ref(V.to(w), W.to(w), X.to(w), *cf),
+                             out, f"B2 {name} m={m} k={k} kahan={kahan}",
+                             worst)
+            X = _cx_randn((m, k), b, g)
+            Wo = _cx_randn((MIXED_N, k), out, g)
+            _mixed_check(tsmm(V, X, Wo, *cf), tsmm_ref(
+                V.to(w), X.to(w), Wo.to(w), *cf), out,
+                f"B3 {name} m={m} k={k}", worst)
+            n_cases += 3
+        for bs in MIXED_BS:
+            blocks, x = _cx_randn((9, bs, bs), a, g), _cx_randn((9 * bs, 3),
+                                                                b, g)
+            _mixed_check(block_jacobi_apply(blocks, x), block_diag_matmul_ref(
+                blocks.to(w), x.to(w)), out, f"B4 {name} bs={bs}", worst)
+            n_cases += 1
+    r, c, v, n = laplace3d(MIXED_B1_NX)
+    for ct, st, xd in MIXED_B1:
+        vals = np.asarray(v, np.float64)
+        if ct.is_complex:
+            vals = vals * np.exp(1j * rng.uniform(0, 2 * np.pi, vals.size))
+        kw = dict(C=32, sigma=64, dtype=ct)
+        if st != ct:
+            kw["store_dtype"] = st
+        A = from_coo(r, c, vals, (n, n), device=DEVICE, **kw)
+        out = torch.promote_types(ct, xd)
+        cf = dict(alpha=0.5 - 0.25j, beta=-1.0 + 0.5j, gamma=0.25j,
+                  delta=2.0, eta=0.5 + 1j) if out.is_complex else dict(
+            alpha=0.5, beta=-1.0, gamma=0.25, delta=2.0, eta=0.5)
+        for b in (1, 4, 16):
+            x, y, z = (_cx_randn((A.nrows_pad, b), xd, g) for _ in range(3))
+            for dots in (False, True):
+                opts = SpmvOpts(**cf, dot_yy=dots, dot_xy=dots, dot_xx=dots)
+                got = sellcs_spmv(A, x, y, z, opts)
+                want = sellcs_spmv_ref(A, x.to(out), y.to(out), z.to(out),
+                                       opts)
+                tag = (f"B1 {str(st)[6:]}/{str(ct)[6:]} x {str(xd)[6:]} "
+                       f"b={b} dots={dots}")
+                for i in range(2 if not dots else 3):
+                    _mixed_check(got[i], want[i], want[i].dtype, tag, worst,
+                                 precision=out)
+                n_cases += 1
+    # B2 past shared memory: a lowered limit (the bits of the call that
+    # fits), then the real one
+    for dt in (torch.float32, torch.complex64):
+        m, k = 300, 200
+        V, W, X = (_cx_randn(s, dt, g) for s in ((MIXED_N, m), (MIXED_N, k),
+                                                 (m, k)))
+        cf = (0.5 - 0.5j, 2.0j) if dt.is_complex else (0.5, -2.0)
+        whole = [tsmttsm(V, W, X, *cf, kahan=kahan) for kahan in (False, True)]
+        saved = (b2.STAGE_BYTES, b2.STAGE_LIMIT)
+        b2.STAGE_BYTES = 1024
+        b2.STAGE_LIMIT = b2.stage_smem(m, k, dt.itemsize, dt) // 2
+        blocks = b2.column_blocks(m, k, dt.itemsize, dt)
+        for kahan in (False, True):
+            got = tsmttsm(V, W, X, *cf, kahan=kahan)
+            require(torch.equal(got, whole[kahan]) or DEVICE == "cpu",
+                    f"mixed B2 column blocks {dt} kahan={kahan}: not the "
+                    f"bits of the whole call")
+        b2.STAGE_BYTES, b2.STAGE_LIMIT = saved
+        _mixed_check(got, tsmttsm_ref(V.to(_wide_of(dt)), W.to(_wide_of(dt)),
+                                      X.to(_wide_of(dt)), *cf), dt,
+                     f"B2split {str(dt)[6:]} {m}x{k} as {blocks}", worst)
+        n_cases += 2
+    for dt, width in MIXED_WIDE:
+        blocks = b2.column_blocks(width, width, dt.itemsize, dt)
+        require(blocks != (width, width), f"mixed B2 {dt} m=k={width}: "
+                f"within the limit")
+        V, W = (_cx_randn((MIXED_WIDE_N, width), dt, g) for _ in range(2))
+        _mixed_check(tsmttsm(V, W, kahan=True), tsmttsm_ref(
+            V.to(_wide_of(dt)), W.to(_wide_of(dt))), dt,
+            f"B2wide {str(dt)[6:]} m=k={width} as {blocks}", worst)
+        n_cases += 1
+        del V, W
+    return n_cases
+
+
+class _PlainBlockJacobi:
+    """A block-Jacobi preconditioner's blocks applied by the plain version
+    (``block_diag_matmul_ref``), the path the CPU runs."""
+
+    def __init__(self, M):
+        self.inv_blocks = M.inv_blocks
+
+    def apply(self, r):
+        r2 = r[:, None] if r.ndim == 1 else r
+        y = block_diag_matmul_ref(self.inv_blocks, r2)
+        return y[:, 0] if r.ndim == 1 else y
+
+
+def _mixed_solve(label, run, plain, relres, tol, kernels, card):
+    """A solve on the kernels against the same solve on the plain versions
+    (the CPU's path, on the card: a CPU run of these sizes takes minutes):
+    converged, the plain run's count within one, every column's true
+    relative residual at most 10 tol, and each kernel launched."""
+    execution.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = run()
+    sync()
+    secs = time.perf_counter() - t0
+    launches = _counts(kernels)
+    ref = plain()
+    rel = relres(res.x)
+    it, it_plain = int(res.iters), int(ref.iters)
+    print(f"[mixed] {label}: {it} iterations in {secs:.3f} s "
+          f"({1e3 * secs / max(it, 1):.3f} ms/iter), the plain versions "
+          f"{it_plain}, converged={bool(torch.as_tensor(res.converged).all())}"
+          f", dtype {str(res.x.dtype)[6:]}, true rel residuals "
+          f"{' '.join(f'{e:.2e}' for e in rel.reshape(-1).tolist())} (tol "
+          f"{tol}), launches {launches}  [{card}]")
+    require(bool(torch.as_tensor(res.converged).all())
+            and bool(torch.as_tensor(ref.converged).all()),
+            f"mixed {label}: not converged")
+    require(abs(it - it_plain) <= 1, f"mixed {label}: {it} iterations, the "
+            f"plain versions {it_plain}")
+    require(float(rel.max()) <= 10 * tol, f"mixed {label}: true residual "
+            f"{float(rel.max())} > {10 * tol}")
+    require(all(v >= it for v in launches.values()) or DEVICE == "cpu",
+            f"mixed {label}: launches {launches} for {it} iterations")
+    return dict(iters=it, plain_iters=it_plain, secs=secs, launches=launches)
+
+
+def _mixed_b1_row(A, card):
+    """B1 at b = 4 with <p, Ap> on laplace3d(NX)'s real float64 values and
+    complex128 x (a real value stream under a complex compute dtype):
+    kernel, plain version and the bytes bound."""
+    g = torch.Generator(device=DEVICE).manual_seed(131)
+    x = _cx_randn((A.nrows_pad, 4), torch.complex128, g)
+    opts = SpmvOpts(dot_xy=True)
+    got = sellcs_spmv(A, x, opts=opts)
+    want = sellcs_spmv_ref(A, x, opts=opts)
+    worst = {}
+    _mixed_check(got[0], want[0], torch.complex128, "B1row y", worst)
+    _mixed_check(got[2], want[2], torch.complex128, "B1row dots", worst)
+    ms = time_ms(lambda: sellcs_spmv(A, x, opts=opts))
+    plain_ms = time_ms(lambda: sellcs_spmv_ref(A, x, opts=opts), warmup=1,
+                       iters=3)
+    nbytes = _spmv_bytes(A, x, got[0], got[2])
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[mixed] sellcs_spmv float64 values x complex128 b=4 <p, Ap> "
+          f"laplace3d({NX}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB), "
+          f"{100 * bound_ms / ms:.1f}% of bound, max abs err "
+          f"{float((got[0] - want[0]).abs().max()):.3e}  [{card}]")
+
+
+def _mixed_host_against_card(card):
+    """The two mixed solves (column CG, complex128 right-hand side, real
+    laplace3d; block-Jacobi PCG, real blocks, complex right-hand side) on
+    the host and on the card from the same inputs: the host's iteration
+    count within one, the card launching B1 (and B4) every iteration."""
+    out = {}
+    rng = np.random.default_rng(22)
+    r, c, v, n = laplace3d(MIXED_HOST_NX)
+    b_col = rng.standard_normal((n, 4)) + 1j * rng.standard_normal((n, 4))
+    ra, ca, va, na = anisotropic_laplace2d(MIXED_HOST_PCG_NX,
+                                           epsilon=PRECOND_EPS)
+    b_pcg = rng.standard_normal(na) + 1j * rng.standard_normal(na)
+    for label, coo, b, kw, bs, kernels in (
+            (f"column CG laplace3d({MIXED_HOST_NX})", (r, c, v, n), b_col,
+             dict(tol=1e-8, maxiter=3000), 0, ("sellcs_spmv",)),
+            (f"block-Jacobi PCG anisotropic_laplace2d({MIXED_HOST_PCG_NX})",
+             (ra, ca, va, na), b_pcg, dict(tol=PCG_TOL, maxiter=8 * na),
+             MIXED_PCG_BS, PRECOND_KERNELS)):
+        iters, launches = {}, {}
+        for dev in ("cpu", DEVICE):
+            A = from_coo(coo[0], coo[1], coo[2], (coo[3], coo[3]),
+                         C=PRECOND_C, sigma=1, dtype=np.float64, device=dev)
+            M = (make_preconditioner(f"block_jacobi:{bs}", matrix=A)
+                 if bs else None)
+            execution.reset_launch_counts()
+            res = cg(make_operator(A), A.permute(
+                torch.from_numpy(b).to(dev)), M=M, **kw)
+            sync()
+            require(bool(torch.as_tensor(res.converged).all())
+                    and res.x.dtype == torch.complex128,
+                    f"mixed {label} on {dev}: not converged in complex128")
+            iters[dev] = int(res.iters)
+            launches[dev] = _counts(kernels)
+        print(f"[mixed] {label} complex128 b: {iters['cpu']} iterations on "
+              f"the host, {iters[DEVICE]} on the card, card launches "
+              f"{launches[DEVICE]}  [{card}]")
+        require(abs(iters["cpu"] - iters[DEVICE]) <= 1,
+                f"mixed {label}: host {iters['cpu']}, card {iters[DEVICE]}")
+        require(DEVICE == "cpu" or all(
+            k >= iters[DEVICE] for k in launches[DEVICE].values()),
+                f"mixed {label}: launches {launches[DEVICE]}")
+        out[label] = dict(iters=iters, launches=launches[DEVICE])
+    return out
+
+
+def phase_mixed_dtypes(fw, card):
+    """Slice 21: every new dtype pair of B1-B4 and B2's column blocks
+    against the plain versions, B1's real values under complex128 x
+    timed, and the two solves the pairs open: column CG with a complex128
+    right-hand side on the real laplace3d(NX), and block-Jacobi PCG with
+    real blocks on a complex right-hand side on
+    anisotropic_laplace2d(MIXED_PCG_NX), each against the plain
+    versions' iteration count."""
+    rng = np.random.default_rng(21)
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    worst = {}
+    t0 = time.perf_counter()
+    n_cases = _mixed_grid(g, rng, worst)
+    sync()
+    for kern, (ratio, tag) in sorted(worst.items()):
+        print(f"[mixed grid] {kern:7s} worst {ratio:.3f} of its tolerance "
+              f"(at {tag})")
+    print(f"[mixed grid] {n_cases} cases ({len(MIXED_PAIRS)} pairs of B2, B3 "
+          f"and B4, {len(MIXED_B1)} of B1, B2 past shared memory) within "
+          f"1e-12 (64-bit results) or 1e-5 (32-bit) of the plain versions, "
+          f"in {time.perf_counter() - t0:.1f} s")
+    A = fw["A64"]
+    _mixed_b1_row(A, card)
+    bc = A.permute(_cx_randn((A.nrows, WIDTH // 4), torch.complex128, g))
+    col = _mixed_solve(
+        f"column CG laplace3d({NX}) float64 matrix, complex128 b (b=4)",
+        lambda: cg(make_operator(A), bc, tol=1e-8, maxiter=3000),
+        lambda: cg(make_operator(A, impl="ref"), bc, tol=1e-8,
+                   maxiter=3000),
+        lambda x: _cx_relres(A, bc, x), 1e-8, ("sellcs_spmv",), card)
+    del bc
+    Ap = _aniso(MIXED_PCG_NX)
+    t1 = time.perf_counter()
+    M = make_preconditioner(f"block_jacobi:{MIXED_PCG_BS}", matrix=Ap)
+    setup = time.perf_counter() - t1
+    bp = Ap.permute(_cx_randn((Ap.nrows,), torch.complex128, g))
+    print(f"[mixed] block-Jacobi set-up bs={MIXED_PCG_BS}: {setup:.1f} s, "
+          f"real blocks {str(M.inv_blocks.dtype)[6:]}")
+    require(not M.inv_blocks.is_complex(), "mixed PCG: complex blocks")
+    pcg = _mixed_solve(
+        f"block-Jacobi PCG anisotropic_laplace2d({MIXED_PCG_NX}) float64 "
+        f"blocks of {MIXED_PCG_BS}, complex128 b",
+        lambda: cg(make_operator(Ap), bp, tol=PCG_TOL, maxiter=8 * Ap.nrows,
+                   M=M),
+        lambda: cg(make_operator(Ap, impl="ref"), bp, tol=PCG_TOL,
+                   maxiter=8 * Ap.nrows, M=_PlainBlockJacobi(M)),
+        lambda x: _cx_relres(Ap, bp[:, None], x[:, None]), PCG_TOL,
+        PRECOND_KERNELS, card)
+    return dict(column=col, pcg=pcg, host=_mixed_host_against_card(card))
+
 
 
 # ---------------------------------------------------------------- phase 13d
@@ -6975,6 +7311,7 @@ def main() -> int:
     timed("complex grid", phase_complex_grid)
     cx = timed("complex solves", phase_complex_solves, fw, bcg, bminres, card)
     cxt = timed("complex timing", phase_complex_timing, cx, card)
+    timed("mixed dtypes", phase_mixed_dtypes, fw, card)
     b5_cx_launches = cx["b5 launches"]
     cx_launches = cx["launches"]
     del cx

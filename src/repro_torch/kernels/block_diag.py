@@ -5,9 +5,10 @@ The CUDA port of ``repro/kernels/block_diag.py:block_diag_matmul_pallas``
 for an ``(nblocks, bs, bs)`` stack and ``x`` of shape ``(nblocks*bs, b)``.
 A thread block stages a few whole diagonal blocks and their rows of ``x``
 in shared memory and one thread forms one output row; past ``bs = 64`` a
-thread block takes a 64-row tile of one diagonal block and stages it in
-slabs of 32 columns (see the note at the top of the CUDA source), for
-real blocks and for complex ones, at any ``bs``.  This
+persistent grid streams the diagonal blocks' rows through a ring of
+shared-memory stages, each block's slice of ``x`` staged once (see the
+note at the top of the CUDA source), for real blocks and for complex
+ones, at any ``bs``.  This
 wrapper validates the operands, allocates the result in
 ``promote_types(blocks, x)`` and launches on the current
 stream without synchronising.  It needs no padding and has no
@@ -27,9 +28,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.sellcs_spmv import check_operand
 from repro_torch.kernels.tsmttsm import DTYPE_CODES
 
-__all__ = ["block_diag_cuda", "check_shapes"]
+__all__ = ["block_diag_cuda", "check_shapes", "REAL_OF"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the real dtype of a complex one's precision
+REAL_OF = {torch.complex128: torch.float64, torch.complex64: torch.float32}
 _ARGTYPES = [_I, _I, _P, _P, _P, _L, _I, _I, _P]
 
 
@@ -57,9 +60,12 @@ def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     ``blocks`` ``(nblocks, bs, bs)`` and ``x``
     ``(nblocks*bs, b)`` may have different real dtypes; complex blocks take
-    an ``x`` of their dtype or a real one of their precision.  The result
-    is ``(nblocks*bs, b)`` in ``promote_types(blocks, x)``, summed in its
-    accumulation dtype (float32 for bfloat16/float16).
+    an ``x`` of their dtype or a real one of their precision, complex64
+    blocks a complex128 ``x`` too.  The result is ``(nblocks*bs, b)`` in
+    ``promote_types(blocks, x)``, summed in its accumulation dtype
+    (float32 for bfloat16/float16).  The other pairs go through
+    ``kernels/ops.py:block_jacobi_apply``, which rearranges or widens them
+    exactly.
     """
     fn = "block_diag_matmul"
     device = x.device
@@ -69,11 +75,14 @@ def block_diag_cuda(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for name, t in (("blocks", blocks), ("x", x)):
         if t.dtype not in DTYPE_CODES:
             raise TypeError(f"{fn}: no kernel for {name} of {t.dtype}")
-    if ((blocks.is_complex() or x.is_complex())
-            and torch.promote_types(blocks.dtype, x.dtype) != blocks.dtype):
-        raise TypeError(f"{fn}: complex operands need complex blocks and x "
-                        f"no wider than them, got blocks {blocks.dtype} and "
-                        f"x {x.dtype}")
+    if blocks.is_complex() or x.is_complex():
+        taken = (blocks.dtype, REAL_OF.get(blocks.dtype)) + (
+            (torch.complex128,) if blocks.dtype == torch.complex64 else ())
+        if x.dtype not in taken:
+            raise TypeError(f"{fn}: complex operands need complex blocks and "
+                            f"x of their dtype or precision (or complex128 x "
+                            f"with complex64 blocks), got blocks "
+                            f"{blocks.dtype} and x {x.dtype}")
     check_shapes(fn, blocks, x)
     nb, bs, _ = (int(s) for s in blocks.shape)
     n, b = (int(s) for s in x.shape)

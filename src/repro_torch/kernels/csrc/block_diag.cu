@@ -10,8 +10,12 @@
 // types (float64, float32, bfloat16, float16); y has their promoted type
 // and the sums run in its accumulation type (float32 for the half types,
 // else the type itself).  Complex blocks (complex128, complex64) take x
-// of their type or real x of their precision (staged as complex), and y
-// is complex; each product is then four fused multiply-adds.
+// of their type or real x of their precision, and complex64 blocks take
+// complex128 x (the blocks widened exactly as they are read); y is
+// complex.  A complex product is four fused multiply-adds, a complex block
+// entry times a real x two.  Real blocks with complex x never reach this
+// file: kernels/ops.py runs them as a real product over x's interleaved
+// (re, im) columns, which is exact.
 //
 // Bound: memory bandwidth.  The call must read the blocks once,
 // nblocks * bs^2 values, and x and y once, 2 * nblocks * bs * b values, for
@@ -37,24 +41,44 @@
 //   No padding of x or of the stack is needed.
 // * The TPU kernel's row_tile (a VMEM tile of whole blocks) has no
 //   counterpart: the tile here is G blocks, fixed by bs and b.
-// * Past bs = 64, or where one block and its x rows do not fit in shared
-//   memory (block_diag_tiled below): a thread block owns a tile of 64
-//   rows of one diagonal block and walks its columns j in slabs of 32:
-//   the tile's 64 x 32 entries of the slab (64 runs of 32 neighbouring
-//   values, padded to 33 in shared memory) and the slab's 32 rows of x
-//   are staged, the next slab's loaded into registers meanwhile.  Four
-//   threads share a row, each with the columns sub, sub + 4, ... of a
-//   16-column block of x (an outer loop past 16 columns).  Each output
-//   still sums its bs products in order of j, so the result is the same
-//   to the bit as the staged groups' arithmetic.  Any bs: at bs = 128,
-//   b = 4 in float64 the blocks are 4.29 GB of a 4,194,304-row call.
-//   Three blocks an SM (at most 85 registers a thread): at the 128 the
-//   compiler took without the bound, two blocks an SM took 3.18 ms there
-//   against 2.93 (PERF.md, PR 29).
+// * Past bs = 64 (block_diag_stream below) the call is a pure stream: at
+//   bs = 128, b = 4 in float64 the blocks are 94 % of the bytes.  A
+//   persistent grid (the occupancy API's blocks an SM times the SMs, at
+//   most one a diagonal block) walks the diagonal blocks blockIdx.x,
+//   blockIdx.x + gridDim.x, ...; each thread block streams its blocks'
+//   rows, TR whole rows a stage (TR * bs contiguous entries, about 16 KB),
+//   through a ring of four shared-memory stages filled by 16-byte cp.async
+//   copies, three stages ahead of the compute, so the first stage of a
+//   diagonal block is in flight while the one before is summed.  With the
+//   first stage of a diagonal block its bs x b slice of x comes into one of
+//   two buffers, transposed (column by column), once.  P = 128 / TR
+//   neighbouring threads share a row: thread p reads the row's 16-byte
+//   chunks p, p + P, ... (a quarter warp reads 128 contiguous bytes) and
+//   the matching runs of each column of x (a broadcast across the warp's
+//   rows), and spends exactly b fused multiply-adds on each entry it
+//   reads; the P partial sums of a row are added by a butterfly of
+//   shuffles, and threads p write y's row whole (column c by thread c mod
+//   P).  Every output is summed in the same order on every call: each
+//   thread's chunks in order, then the butterfly.  Rows whose bytes are
+//   not a multiple of 16 are padded to it in shared memory (filled value
+//   by value); a width b past 16 runs in passes of 16 columns (x and y
+//   read and written with their row stride b).  Only a block larger than
+//   the stages and the x buffers can hold in 227 KB (bs past 1,614 in
+//   float64, 3,228 in float32, 807 in complex128) takes
+//   block_diag_tiled: a 64-row tile of one
+//   diagonal block a thread block, its columns in slabs of 32 staged with
+//   the next slab's loads in registers, four threads a row.  At bs = 128,
+//   b = 4 in float64 that tiled kernel took 2.931 ms against bmm's 1.509
+//   (PERF.md): its first slab's load never overlapped, its
+//   16-column x staging spent three of four multiply-adds on zeros at
+//   b = 4, and it spilled.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <type_traits>
 
 #include "dtypes.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -159,10 +183,12 @@ block_diag_rows(const TB* __restrict__ blocks, const TX* __restrict__ x,
   }
 }
 
-// y = B x for bs past 64 (see the note at the top): block blockIdx.x owns
-// row tile blockIdx.x % rtiles of diagonal block blockIdx.x / rtiles.
+// y = B x for a diagonal block the stream cannot stage (see the note at
+// the top): block blockIdx.x owns row tile blockIdx.x % rtiles of diagonal
+// block blockIdx.x / rtiles.  Two blocks an SM, so that the float64
+// instance keeps its values in registers (it spilled at three).
 template <typename TB, typename TX>
-__global__ void __launch_bounds__(kTileRows * kRowThreads, 3)
+__global__ void __launch_bounds__(kTileRows * kRowThreads, 2)
 block_diag_tiled(const TB* __restrict__ blocks, const TX* __restrict__ x,
                  typename Promote<TB, TX>::type* __restrict__ y, int bs,
                  int b, int rtiles) {
@@ -241,6 +267,265 @@ block_diag_tiled(const TB* __restrict__ blocks, const TX* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------------ the stream
+constexpr int kStreamThreads = 128;     // threads of a block_diag_stream block
+constexpr int kStreamStages = 4;        // the ring
+constexpr int kStreamStageBytes = 16384;  // bytes of B a stage, at most
+constexpr int kStreamMaxCols = 16;      // columns of one pass
+
+template <typename T> struct RealOf { using type = T; };
+template <typename R> struct RealOf<Complex<R>> { using type = R; };
+
+// x's value as a product takes it: the accumulation type, or for real x
+// under complex blocks the real type (two fused multiply-adds a product)
+template <typename A, typename TX> struct XFactor {
+  using type = std::conditional_t<IsComplex<A>::value && !IsComplex<TX>::value,
+                                  typename RealOf<A>::type, A>;
+};
+
+template <typename A> __device__ __forceinline__ A prod_add(A b, A x, A acc) {
+  return mul_add(b, x, acc);
+}
+template <typename R>
+__device__ __forceinline__ Complex<R> prod_add(Complex<R> b, R x,
+                                               Complex<R> acc) {
+  return mul_add(x, b, acc);
+}
+
+__device__ __forceinline__ double shfl_xor(double v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+__device__ __forceinline__ float shfl_xor(float v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+template <typename R>
+__device__ __forceinline__ Complex<R> shfl_xor(Complex<R> v, int o) {
+  return Complex<R>(shfl_xor(v.re, o), shfl_xor(v.im, o));
+}
+
+// N consecutive values of T in shared memory, N * sizeof(T) bytes aligned to
+// that size where it is 8 or 16 (one vector load)
+template <typename T, int N> struct alignas(N * sizeof(T) == 16   ? 16
+                                            : N * sizeof(T) == 8 ? 8
+                                                                 : sizeof(T))
+    Run {
+  T v[N];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+template <int N> __device__ __forceinline__ void cp_async(void* dst,
+                                                          const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One value of T global -> shared: cp.async where T is 4, 8 or 16 bytes,
+// else a plain load and store.
+template <typename T>
+__device__ __forceinline__ void copy_value(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4 || sizeof(T) == 8 || sizeof(T) == 16)
+    cp_async<(int)sizeof(T)>(dst, src);
+  else
+    *dst = *src;
+}
+
+// y = B x past bs = 64 (see the note at the top), for columns [c0, c0 + nc)
+// of x and y (row stride ldx), nc <= CB.  Shared memory: kStreamStages
+// stages of TR rows of B, each row padded to rs values (a multiple of 16
+// bytes), then two buffers of x's slice, column c of it at c * rs.
+template <typename TB, typename TX, int CB>
+__global__ void __launch_bounds__(kStreamThreads)
+block_diag_stream(const TB* __restrict__ blocks, const TX* __restrict__ x,
+                  typename Promote<TB, TX>::type* __restrict__ y,
+                  long long nblocks, int bs, int ldx, int c0, int nc, int tr,
+                  int rs, int stage_vals, int whole) {
+  using TO = typename Promote<TB, TX>::type;
+  using A = typename Acc<TO>::type;
+  using XV = typename XFactor<A, TX>::type;
+  constexpr int V = 16 / (int)sizeof(TB);   // B values of a 16-byte chunk
+  constexpr int S = kStreamStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TB* ring = reinterpret_cast<TB*>(smem);
+  TX* xbuf = reinterpret_cast<TX*>(smem + (size_t)S * stage_vals * sizeof(TB));
+  const int xvals = CB * rs;  // values of one x buffer
+  const int t = threadIdx.x;
+  const int P = kStreamThreads / tr;  // threads of a row
+  const int row = t / P, p = t % P;
+  const int rtiles = (bs + tr - 1) / tr;
+  const long long G = gridDim.x;
+  const long long mine = (nblocks - blockIdx.x + G - 1) / G;
+  const long long total = mine * rtiles;  // stages this thread block sums
+
+  // the padding (row values past bs, x values past bs) stays zero
+  {
+    const int words = (int)(((size_t)S * stage_vals * sizeof(TB) +
+                             2 * (size_t)xvals * sizeof(TX)) / 4);
+    uint32_t* z = reinterpret_cast<uint32_t*>(smem);
+    for (int o = t; o < words; o += kStreamThreads) z[o] = 0u;
+  }
+  __syncthreads();
+
+  auto fill = [&](long long tau) {
+    if (tau < total) {
+      const long long kb = blockIdx.x + (tau / rtiles) * G;
+      const int rt = (int)(tau % rtiles);
+      const int r0 = rt * tr;
+      const int rows = min(tr, bs - r0);
+      TB* st = ring + (int)(tau % S) * stage_vals;
+      const TB* src = blocks + (kb * bs + r0) * bs;
+      if (whole) {  // rows of 16-byte multiples, B on 16 bytes: one run
+        const int nq = rows * bs / V;
+        for (int q = t; q < nq; q += kStreamThreads)
+          cp_async<16>(st + q * V, src + (long long)q * V);
+      } else {
+        for (int e = t; e < rows * bs; e += kStreamThreads)
+          copy_value(st + (e / bs) * rs + e % bs, src + e);
+      }
+      if (rt == 0) {  // the diagonal block's slice of x, transposed
+        TX* xs = xbuf + (int)((tau / rtiles) & 1) * xvals;
+        const TX* xsrc = x + kb * bs * ldx + c0;
+        for (int e = t; e < bs * nc; e += kStreamThreads) {
+          const int j = e / nc, c = e % nc;
+          copy_value(xs + c * rs + j, xsrc + (long long)j * ldx + c);
+        }
+      }
+    }
+    cp_commit();  // empty groups keep the count uniform
+  };
+
+#pragma unroll 1
+  for (int s = 0; s < S - 1; ++s) fill(s);
+#pragma unroll 1
+  for (long long tau = 0; tau < total; ++tau) {
+    cp_wait<S - 2>();
+    __syncthreads();  // stage tau is in; the stage of tau - 1 is free
+    fill(tau + S - 1);
+    const long long kb = blockIdx.x + (tau / rtiles) * G;
+    const int r0 = (int)(tau % rtiles) * tr;
+    const TB* brow = ring + (int)(tau % S) * stage_vals + row * rs;
+    const TX* xs = xbuf + (int)((tau / rtiles) & 1) * xvals;
+    A acc[CB];
+#pragma unroll
+    for (int c = 0; c < CB; ++c) acc[c] = A(0);
+    const int nq = rs / V;  // chunks of a padded row
+#pragma unroll 2
+    for (int q = p; q < nq; q += P) {
+      const Run<TB, V> bv = *reinterpret_cast<const Run<TB, V>*>(brow + q * V);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        if (c < nc) {
+          const Run<TX, V> xv =
+              *reinterpret_cast<const Run<TX, V>*>(xs + c * rs + q * V);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[c] = prod_add(load_as<A>(bv.v[e]), load_as<XV>(xv.v[e]),
+                              acc[c]);
+        }
+      }
+    }
+    // the row's P partial sums, by a butterfly (every lane ends with the
+    // same bits: each addition is commutative)
+    for (int o = P / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int c = 0; c < CB; ++c) acc[c] += shfl_xor(acc[c], o);
+    if (r0 + row < bs) {
+      TO* yrow = y + (kb * bs + r0 + row) * ldx + c0;
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+        if (c < nc && c % P == p) yrow[c] = store_as<TO>(acc[c]);
+    }
+  }
+  cp_wait<0>();  // no copy outlives the block
+}
+
+// The stream's layout for (bs, a pass of cb columns), and whether it fits
+// one block's shared memory: TR rows a stage (16, 8 or 4: the most whose
+// bytes stay within kStreamStageBytes), rows padded to rs values.
+struct StreamShape {
+  int tr, rs, stage_vals;
+  size_t smem;
+};
+template <typename TB, typename TX>
+StreamShape stream_shape(int bs, int cb) {
+  constexpr int V = 16 / (int)sizeof(TB);
+  StreamShape sh;
+  sh.rs = (bs + V - 1) / V * V;
+  sh.tr = 16;
+  // at most 16 KB a stage, and at least three stages a diagonal block, so
+  // that the ring never holds stages of three diagonal blocks (two x
+  // buffers)
+  while (sh.tr > 4 &&
+         ((long long)sh.tr * sh.rs * sizeof(TB) > kStreamStageBytes ||
+          (bs + sh.tr - 1) / sh.tr < kStreamStages - 1))
+    sh.tr /= 2;
+  sh.stage_vals = sh.tr * sh.rs;
+  const size_t xbytes = (size_t)cb * sh.rs * sizeof(TX);
+  sh.smem = (size_t)kStreamStages * sh.stage_vals * sizeof(TB) +
+            2 * ((xbytes + 15) / 16 * 16);
+  return sh;
+}
+
+template <typename TB, typename TX, int CB>
+int launch_stream(const void* blocks, const void* x, void* y,
+                  long long nblocks, int bs, int b, int c0, int nc,
+                  const StreamShape& sh, cudaStream_t stream) {
+  using TO = typename Promote<TB, TX>::type;
+  auto kern = block_diag_stream<TB, TX, CB>;
+  int full = 0;
+  const cudaError_t e =
+      persistent_grid((const void*)kern, kStreamThreads, sh.smem, &full);
+  if (e != cudaSuccess) return (int)e;
+  const long long grid = nblocks < full ? nblocks : full;
+  const int whole =
+      (long long)bs * sizeof(TB) % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(blocks) & 15) == 0;
+  kern<<<(unsigned)grid, kStreamThreads, sh.smem, stream>>>(
+      static_cast<const TB*>(blocks), static_cast<const TX*>(x),
+      static_cast<TO*>(y), nblocks, bs, b, c0, nc, sh.tr, sh.rs,
+      sh.stage_vals, whole);
+  return (int)cudaGetLastError();
+}
+
+// Columns of a pass (1, 4 or 16, at most b): the instance whose registers
+// hold them, smaller while x's buffers do not fit beside the stages.
+template <typename TB, typename TX>
+int launch_wide(const void* blocks, const void* x, void* y,
+                long long nblocks, int bs, int b, cudaStream_t stream) {
+  int cb = b <= 1 ? 1 : b <= 4 ? 4 : kStreamMaxCols;
+  while (cb > 1 && stream_shape<TB, TX>(bs, cb).smem > kMaxSmem)
+    cb = cb == kStreamMaxCols ? 4 : 1;
+  const StreamShape sh = stream_shape<TB, TX>(bs, cb);
+  if (sh.smem > kMaxSmem || (bs + sh.tr - 1) / sh.tr < kStreamStages - 1)
+    return -1;  // block_diag_tiled takes it
+  for (int c0 = 0; c0 < b; c0 += cb) {
+    const int nc = b - c0 < cb ? b - c0 : cb;
+    int rc;
+    if (cb == 1)
+      rc = launch_stream<TB, TX, 1>(blocks, x, y, nblocks, bs, b, c0, nc, sh,
+                                    stream);
+    else if (cb == 4)
+      rc = launch_stream<TB, TX, 4>(blocks, x, y, nblocks, bs, b, c0, nc, sh,
+                                    stream);
+    else
+      rc = launch_stream<TB, TX, kStreamMaxCols>(blocks, x, y, nblocks, bs, b,
+                                                 c0, nc, sh, stream);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 template <typename TB, typename TX>
 int launch(const void* blocks, const void* x, void* y, long long nblocks,
            int bs, int b, cudaStream_t stream) {
@@ -249,6 +534,8 @@ int launch(const void* blocks, const void* x, void* y, long long nblocks,
   if (bs > kMaxBs ||
       ((long long)bs * (bs + 1) + (long long)bs * b) * (long long)sizeof(A) >
           kMaxSmem) {
+    const int rc = launch_wide<TB, TX>(blocks, x, y, nblocks, bs, b, stream);
+    if (rc >= 0) return rc;
     const int rtiles = (bs + kTileRows - 1) / kTileRows;
     if (nblocks * rtiles > 0x7fffffffLL)
       return (int)cudaErrorInvalidConfiguration;
@@ -290,7 +577,7 @@ int launch_x(int x_dtype, const void* blocks, const void* x, void* y,
 
 // dtype codes: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
 // 5 complex64; complex blocks take x of their code or of their precision's
-// real code (0 with 4, 1 with 5).  y has the promoted type of the two (the
+// real code (0 with 4, 1 with 5), complex64 blocks complex128 x too.  y has the promoted type of the two (the
 // wrapper allocates it).  Returns the first
 // CUDA error of the launch (0 on success).
 extern "C" int block_diag_launch(int blocks_dtype, int x_dtype,
@@ -319,6 +606,9 @@ extern "C" int block_diag_launch(int blocks_dtype, int x_dtype,
                                                       bs, b, s);
       if (x_dtype == 1)
         return launch<Complex<float>, float>(blocks, x, y, nblocks, bs, b, s);
+      if (x_dtype == 4)
+        return launch<Complex<float>, Complex<double>>(blocks, x, y, nblocks,
+                                                       bs, b, s);
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -7,11 +7,14 @@
 //   half types, else T itself (repro_torch.core.spmv.storage_acc_dtype).
 // * Promote<P, Q>: the result type of two operand types, as
 //   torch.promote_types does for float64, float32, bfloat16 and float16,
-//   and for a complex type with a real type of its precision.
-// * load_as<A>(v): a stored value converted to the sum type A.
+//   for a complex type with a real type of its precision, and for
+//   complex64 with complex128.
+// * load_as<A>(v): a stored value converted to the sum type A (complex64
+//   widened to complex128 exactly).
 // * store_as<T>(v): a sum rounded once to the stored type T.
 // * conj_of(v): the complex conjugate (the value itself for a real type).
-// * mul_add(a, b, c): a * b + c, with fused multiply-adds.
+// * mul_add(a, b, c): a * b + c, with fused multiply-adds; a real a times
+//   a complex b is two of them, one a part.
 // * make_scalar<T>(re, im): a coefficient handed over as two doubles.
 //
 // The Python side keeps the same rules (storage_acc_dtype, promote_types);
@@ -70,6 +73,14 @@ __device__ __forceinline__ Complex<R> mul_add(Complex<R> a, Complex<R> b,
                     fma(a.re, b.im, fma(a.im, b.re, c.im)));
 }
 
+// a real factor of a complex product: two fused multiply-adds, where the
+// product with a zero imaginary part would take four
+template <typename R>
+__device__ __forceinline__ Complex<R> mul_add(R a, Complex<R> b,
+                                              Complex<R> c) {
+  return Complex<R>(fma(a, b.re, c.re), fma(a, b.im, c.im));
+}
+
 template <typename T> struct IsComplex { static constexpr bool value = false; };
 template <typename R> struct IsComplex<Complex<R>> {
   static constexpr bool value = true;
@@ -100,6 +111,9 @@ template <> struct Promote<Complex<double>, double> {
   using type = Complex<double>;
 };
 template <> struct Promote<Complex<float>, float> { using type = Complex<float>; };
+template <> struct Promote<Complex<float>, Complex<double>> {
+  using type = Complex<double>;
+};
 
 template <typename A> __device__ __forceinline__ A load_as(double v) { return (A)v; }
 template <typename A> __device__ __forceinline__ A load_as(float v) { return (A)v; }
@@ -113,7 +127,7 @@ template <typename A> __device__ __forceinline__ A load_as(Complex<double> v) {
   return v;
 }
 template <typename A> __device__ __forceinline__ A load_as(Complex<float> v) {
-  return v;
+  return A(v.re, v.im);
 }
 
 template <typename T> __device__ __forceinline__ T store_as(double v) { return (T)v; }

@@ -8,8 +8,9 @@
 //   part = per-block <y,y>, <x,y>, <x,x>              ((nblocks, 3, b), float64)
 //
 // for real float64/float32 compute (values stored as float64, float32,
-// bfloat16 or float16) and for complex128/complex64 (values stored as
-// the compute type).  For complex types <u,v> = sum conj(u) v, `part` is
+// bfloat16 or float16) and for complex128/complex64 compute (values stored
+// as the compute type, as complex64 under complex128, or as a real type no
+// wider than the compute type's parts: a real matrix times complex x).  For complex types <u,v> = sum conj(u) v, `part` is
 // complex128, and alpha, beta, gamma, delta and eta may be complex.  The
 // wrapper (kernels/sellcs_spmv.py) sums `part` over blocks in float64
 // (complex128).
@@ -58,8 +59,13 @@
 //   grid.x (kernels/sellcs_spmv.py:chunk_parts), so a tall chunk fills the
 //   card instead of walking its rows in passes on one SM.  With dots,
 //   block (group, part) writes partial group * parts + part.
-// * Narrow stored values (bf16, f16, or f32 under f64 compute) are upcast in
-//   registers, so the value stream moves at the storage width.
+// * Narrow stored values (bf16, f16, or f32 under f64 compute; complex64
+//   under complex128) are upcast in registers, so the value stream moves
+//   at the storage width.  Real values under a complex compute type (a
+//   real matrix on complex vectors, kernels/ops.py) stay real in
+//   registers: each product is then two fused multiply-adds, one a part
+//   (Factor below), where a complex value with a zero imaginary part would
+//   take four.
 // * alpha, beta, delta, eta and gamma come by value (two doubles each) or,
 //   for a tensor on the card, through a pointer (CoefPtrs; gamma of width
 //   1 or b): the wrapper never reads a value on the host, so a call makes
@@ -78,6 +84,7 @@
 //   neighbouring x rows there were all slower (PERF.md section 6).
 
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "dtypes.cuh"
 
@@ -299,6 +306,15 @@ __device__ __forceinline__ void reduce_dots(
   }
 }
 
+// The type a stored value of type VT enters its products in under compute
+// type CT: CT itself, or, for real values under a complex CT, the real type
+// of CT's precision (mul_add of dtypes.cuh then takes two fused
+// multiply-adds a product).
+template <typename VT, typename CT> struct Factor { using type = CT; };
+template <typename VT, typename R> struct Factor<VT, Complex<R>> {
+  using type = std::conditional_t<IsComplex<VT>::value, Complex<R>, R>;
+};
+
 // N slots of a row from slot j: values, indices and gathers of all N in
 // flight together, then the products added in slot order.
 template <int N, typename VT, typename CT, int CPT>
@@ -306,12 +322,13 @@ __device__ __forceinline__ void slot_group(
     const VT* __restrict__ vals, const int* __restrict__ cols,
     const CT* __restrict__ x, long long base, int j, int C, int b, int kk,
     CT (&acc)[CPT]) {
-  CT a[N];
+  using F = typename Factor<VT, CT>::type;
+  F a[N];
   int col[N];
 #pragma unroll
   for (int u = 0; u < N; ++u) {
     const long long s = base + (long long)(j + u) * C;
-    a[u] = load_as<CT>(vals[s]);
+    a[u] = load_as<F>(vals[s]);
     col[u] = __ldg(cols + s);
   }
   Pack<CT, CPT> xv[N];
@@ -500,8 +517,9 @@ int launch_cpt(int cpt, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // store: 0 float64, 1 float32, 2 bfloat16, 3 float16, 4 complex128,
-// 5 complex64; compute: 0 float64, 1 float32, 2 complex128 (store 4),
-// 3 complex64 (store 5).  part holds float64 partials, complex128 for a
+// 5 complex64; compute: 0 float64, 1 float32, 2 complex128 (any store),
+// 3 complex64 (store 1, 2, 3 or 5): a store no wider than the compute
+// type (torch.promote_types of the two is the compute type).  part holds float64 partials, complex128 for a
 // complex compute type; the coefficients come as real and imaginary
 // parts (the imaginary parts are ignored for a real compute type), or,
 // where alpha_p ... eta_p is not null, as one value of the compute type
@@ -553,10 +571,26 @@ extern "C" int sellcs_spmv_launch(
       case 3: rc = launch_cpt<__half, float>(cpt, a, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
-  } else if (compute == 2 && store == 4) {
-    rc = launch_cpt<Complex<double>, Complex<double>>(cpt, a, s);
-  } else if (compute == 3 && store == 5) {
-    rc = launch_cpt<Complex<float>, Complex<float>>(cpt, a, s);
+  } else if (compute == 2) {
+    using Z = Complex<double>;
+    switch (store) {
+      case 0: rc = launch_cpt<double, Z>(cpt, a, s); break;
+      case 1: rc = launch_cpt<float, Z>(cpt, a, s); break;
+      case 2: rc = launch_cpt<__nv_bfloat16, Z>(cpt, a, s); break;
+      case 3: rc = launch_cpt<__half, Z>(cpt, a, s); break;
+      case 4: rc = launch_cpt<Z, Z>(cpt, a, s); break;
+      case 5: rc = launch_cpt<Complex<float>, Z>(cpt, a, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (compute == 3) {
+    using Z = Complex<float>;
+    switch (store) {
+      case 1: rc = launch_cpt<float, Z>(cpt, a, s); break;
+      case 2: rc = launch_cpt<__nv_bfloat16, Z>(cpt, a, s); break;
+      case 3: rc = launch_cpt<__half, Z>(cpt, a, s); break;
+      case 5: rc = launch_cpt<Z, Z>(cpt, a, s); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }

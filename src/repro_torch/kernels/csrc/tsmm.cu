@@ -61,33 +61,58 @@
 //   past k = 256.  At m = k = 128 in float64 the call does 2 m k = 32,768
 //   flops a row against 3 x 128 x 8 bytes, 10.7 flops a byte: past the
 //   CUDA cores' ridge (34 TFLOP/s over 3.35 TB/s, 10), below DMMA's (67
-//   TFLOP/s, 20).  So float64 takes the FP64 tensor cores (tsmm_dmma,
-//   mma.sync m8n8k4): a block owns a 128 x 128 tile of W_out (at k <= 128
-//   V's rows are read once), its sixteen warps 32 x 32 each, and walks m in
-//   steps of 16: V's 128 x 16 and X's 16 x 128 values of the step go into
-//   shared memory (rows padded so that a fragment's 32 values take two
-//   wavefronts, the least for 256 bytes), the next step's are loaded into
-//   registers meanwhile, and a warp's step is 8 fragment loads for 16
-//   products of 8 x 8 x 4.  The other types take tsmm_tiled, a
-//   register-blocked product on the CUDA cores: a block owns 128 x 128
+//   TFLOP/s, 20), and DMMA's own time (2.0 ms at 4,096,000 rows) is close
+//   to the bytes' (2.5 ms without W).  So float64 takes the FP64 tensor
+//   cores (tsmm_dmma, mma.sync m16n8k8, as B2's DMMA instance), and the
+//   products must overlap the stream.  tsmm_dmma is persistent: one
+//   block an SM (the occupancy API's count), each owning a slab of 128
+//   columns of W_out (columns past k masked) and walking row tiles of 32
+//   rows.  X's m x 128 slab is loaded into shared memory
+//   once a block and stays there, swizzled so that a B fragment meets 32
+//   banks; V's tiles stream through a ring of stages (two at m = 128, up
+//   to four for narrower m), each filled by one bulk copy a row
+//   (cp.async.bulk, completion on the stage's mbarrier; cp.async value by
+//   value where m or k is odd or V is off 16 bytes) into rows padded by
+//   four values, so that an A fragment's loads meet distinct banks.  Eight
+//   warps own 16 x 32 of a 32 x 128 tile: a step of 8 values of i is four
+//   mma.sync for 12 fragment loads.  W_in's values of a warp's fragments
+//   are loaded into registers before the tile's products, so they are in
+//   flight meanwhile; the results go to an output stage and leave by one
+//   bulk store a row (whole 128-byte lines) while the next tile's
+//   products run.  Past 128 values of i the launch repeats over m in
+//   steps of 128, each later one adding alpha V X to W_out (an output the
+//   next launch reads as its W_in).  Each output is summed by one warp in
+//   a fixed order (steps of 8 in order of i, each in the tensor core's
+//   order), with no split of m over blocks and no atomics, so the result
+//   does not depend on the grid.  Two alternatives ran slower on the H100
+//   at 4,096,000 x 128 x 128, in turns with this design (tools/
+//   b34_trials.py, variants b3_vstage and b3_w32; the times are in
+//   PERF.md): the results written into V's stage, which frees room for a
+//   third stage, and four warps of 32 x 32 (sixteen loads for eight mma,
+//   one warp a scheduler).  So bytes in flight do not set the pace, and
+//   more loads a product per warp beat fewer warps.
+//   The other types take tsmm_tiled, a register-blocked product on the
+//   CUDA cores: a block owns 128 x 128
 //   (real values) or 64 x 64 (complex ones, whose 64 accumulators a thread
 //   would not fit in registers), thread (tx, ty) its rows ty + 16a and
 //   columns tx + 16c (a, c < 8, or 4), so a warp's reads of a step are one
 //   broadcast run of V and one contiguous run of 16 values of X (16 loads
 //   for 64 fused multiply-adds), and its stores of W_out contiguous runs.
 //   tsmm_tiled sums each output's m products in order of i from 0, as the
-//   instances above do; the tensor cores sum each group of four in their
-//   own order.  With W at 4,096,000 x 128 x 128 in float64 (PERF.md, PR
-//   29) earlier versions took 14.46 ms (CUDA cores, 4 x 4 thread tiles,
-//   64 x 64 blocks), 11.50 ms (CUDA cores, 8 x 8, 128 x 128) and 9.53 ms
-//   (DMMA, eight warps of 64 x 32, 255 registers and spills), this one
-//   7.66 (sixteen warps, 128 registers, 36 bytes of spills).
+//   instances above do.  With W at 4,096,000 x 128 x 128 in float64
+//   (PERF.md) earlier versions took 14.46 ms (CUDA cores, 4 x 4
+//   thread tiles, 64 x 64 blocks), 11.50 ms (CUDA cores, 8 x 8, 128 x
+//   128), 9.53 ms (DMMA m8n8k4, eight warps of 64 x 32, 255 registers and
+//   spills) and 7.56-7.66 ms (a block a 128 x 128 tile of W_out, X's and
+//   V's values staged through registers a step of 16 at a time, sixteen
+//   warps, 36 bytes of spills; 6.87 ms without W against mm's 3.32).
 
 #include <cuda_runtime.h>
 #include <type_traits>
 #include <stdint.h>
 
 #include "dtypes.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -395,103 +420,319 @@ tsmm_tiled(const T* __restrict__ V, const typename Acc<T>::type* __restrict__ X,
 }
 
 // The float64 wide instance on the FP64 tensor cores (see the note at the
-// top): mma.sync m8n8k4, a block a 128 x 128 tile of W_out, its sixteen
-// warps 4 x 4 of 32 x 32, each of 4 x 4 products of 8 x 8; m in steps of
-// kDmmaDepth through shared memory, the next step's values loaded into
-// registers meanwhile.
-constexpr int kDmmaThreads = 512;
-constexpr int kDmmaTile = 128;   // rows and columns of W_out a block
-constexpr int kDmmaDepth = 16;   // values of i a step
-constexpr int kDmmaPadV = 4;     // sV's rows: kDmmaDepth + 4 values
-constexpr int kDmmaPadX = 8;     // sX's rows: kDmmaTile + 8 values
+// top).  A block owns a slab of kWideCols columns of W_out and walks its
+// 32-row tiles; X's slab for up to kWideDepth values of i stays in shared
+// memory, swizzled (value (i, j) at i * kWideCols + (j ^ 4 (i & 3)), so
+// that a B fragment's 32 loads meet 32 distinct banks), V's tiles come
+// through a ring of stages (rows padded by kWidePad values) and W_out's
+// tiles leave through an output stage.  Eight warps, each 16 x 32 of
+// W_out: four mma.sync m16n8k8 a step of 8 values of i.
+constexpr int kWideCols = 128;    // columns of W_out a block owns
+constexpr int kWideThreads = 2 * kWideCols;
+constexpr int kWideRows = 32;     // rows of a tile
+constexpr int kWideDepth = 128;   // values of i one launch sums
+constexpr int kWidePad = 4;       // a V stage's rows: m + 4 values
+constexpr int kWideMaxStages = 4;
 
-__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
-                                     double b) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(1)
+               : "memory");
+}
+// Arrive once and expect `bytes` of bulk copies to complete on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
-      "{%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+// One 1-D bulk copy global -> shared of `bytes` (a multiple of 16, both
+// addresses on 16 bytes), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// One 1-D bulk copy shared -> global of `bytes` (a multiple of 16, both
+// addresses on 16 bytes), in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kDmmaThreads, 1)
-tsmm_dmma(const double* __restrict__ V, const double* __restrict__ X,
-          const double* __restrict__ W_in, double* __restrict__ W_out,
+// d (16 x 8) += a (16 x 8) b (8 x 8): a0..a3 at rows (g, g + 8, g, g + 8)
+// and columns (q, q, q + 4, q + 4), b0, b1 at rows q, q + 4 and column g,
+// d0, d1 at row g and d2, d3 at row g + 8, columns 2q and 2q + 1
+__device__ __forceinline__ void dmma16(double* d, double a0, double a1,
+                                       double a2, double a3, double b0,
+                                       double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// W_out[:, slab] = alpha V X + beta W_in for m <= kWideDepth values of i
+// (V with row stride ldv, X with row stride k).  vec: m and k even, V on 16
+// bytes, ldv even: the stages fill by one bulk copy a row, the tiles leave
+// by one bulk store a row; else value by value.  W_in may be W_out (the
+// wrapper's later launches over i: each value is read, then written, by
+// one thread) or V (tsmm_inplace).
+__global__ void __launch_bounds__(kWideThreads, 1)
+tsmm_dmma(const double* __restrict__ V, long long ldv,
+          const double* __restrict__ X, const double* W_in, double* W_out,
           long long n, int m, int k, int kslabs, double alpha, double beta,
-          const double* __restrict__ alpha_p, const double* __restrict__ beta_p,
-          int has_w) {
-  constexpr int kT = kDmmaTile, kD = kDmmaDepth, kN = kDmmaThreads;
-  constexpr int kEach = kT * kD / kN;        // loads a thread a step
-  constexpr int kMT = 4, kNT = 4;            // a warp's 8 x 8 products
-  __shared__ double sV[kT][kD + kDmmaPadV];
-  __shared__ double sX[kD][kT + kDmmaPadX];
+          const double* __restrict__ alpha_p,
+          const double* __restrict__ beta_p, int has_w, int vec,
+          int stages) {
+  constexpr int R = kWideRows, N = kWideCols, NT = kWideThreads;
+  extern __shared__ __align__(16) double wsm[];
+  __shared__ __align__(8) uint64_t bars[kWideMaxStages];
+  const int mp = (m + 7) / 8 * 8;
+  const int SV = mp + kWidePad;  // a V stage's row stride
+  double* sX = wsm;                       // mp x N, swizzled
+  double* sO = sX + mp * N;               // R x N, the output stage
+  double* ring = sO + R * N;              // stages x R x SV
   if (alpha_p) alpha = *alpha_p;  // a coefficient on the card
   if (beta_p) beta = *beta_p;
-  const long long r0 = (long long)(blockIdx.x / kslabs) * kT;
-  const int c0 = (blockIdx.x % kslabs) * kT;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int wr = (warp >> 2) * 32, wc = (warp & 3) * 32;  // the warp's tile
-  const int lr = lane >> 2, lk = lane & 3;                // fragment place
+  const int g = lane >> 2, q = lane & 3;  // fragment place
+  const int wr = (warp & 1) * 16, wc = (warp >> 1) * 32;  // the warp's tile
+  const int j0 = (blockIdx.x % kslabs) * N;
+  const int kc = min(N, k - j0);
+  const long long ntiles = (n + R - 1) / R;
+  const long long first = blockIdx.x / kslabs, step = gridDim.x / kslabs;
+  const long long cnt = (ntiles - first + step - 1) / step;  // >= 1
 
-  double vr[kEach], xr[kEach];
-  auto load = [&](int i0) {
-#pragma unroll
-    for (int u = 0; u < kEach; ++u) {
-      const int e = u * kN + t;
-      const int r = e / kD, i = e % kD;
-      vr[u] = (r0 + r < n && i0 + i < m) ? V[(r0 + r) * m + i0 + i] : 0.0;
-      const int xi = e / kT, c = e % kT;
-      xr[u] = (i0 + xi < m && c0 + c < k) ? X[(long long)(i0 + xi) * k + c0 + c]
-                                          : 0.0;
+  // X's slab (zeros past m and k), the ring's padding columns (zeros)
+  for (int e = t; e < mp * N; e += NT) {
+    const int i = e / N, j = e % N;
+    sX[i * N + (j ^ ((i & 3) << 2))] =
+        (i < m && j < kc) ? X[(long long)i * k + j0 + j] : 0.0;
+  }
+  for (int e = t; e < stages * R * SV; e += NT) ring[e] = 0.0;
+  if (t == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&bars[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_shared();
+  __syncthreads();
+
+  auto rows_of = [&](long long it) -> int {
+    const long long left = n - (first + it * step) * R;
+    return left < R ? (int)left : R;
+  };
+  auto fill = [&](long long it) {
+    if (it < cnt) {
+      const int st = (int)(it % stages);
+      double* sv = ring + st * R * SV;
+      const long long r0 = (first + it * step) * R;
+      const int rows = rows_of(it);
+      if (vec) {
+        if (warp == 0) {
+          if (lane == 0)
+            mbar_expect(&bars[st], (uint32_t)(rows * m * (int)sizeof(double)));
+          __syncwarp();
+          fence_async_shared();
+          for (int r = lane; r < rows; r += 32)
+            bulk_load(sv + r * SV, V + (r0 + r) * ldv,
+                      (uint32_t)(m * sizeof(double)), &bars[st]);
+        }
+      } else {
+        for (int e = t; e < rows * m; e += NT) {
+          const int r = e / m, c = e % m;
+          cp_async8(sv + r * SV + c, V + (r0 + r) * ldv + c);
+        }
+      }
+    }
+    if (!vec) cp_commit();  // empty groups keep the count uniform
+  };
+  // the output stage of tile `it` to W_out: one bulk store a row (warp
+  // 0's lanes) or value by value
+  auto flush = [&](long long it) {
+    const long long r0 = (first + it * step) * R;
+    const int rows = rows_of(it);
+    if (vec) {
+      if (warp == 0) {
+        for (int r = lane; r < rows; r += 32)
+          bulk_store(W_out + (r0 + r) * k + j0, sO + r * N,
+                     (uint32_t)(kc * sizeof(double)));
+        bulk_commit();
+      }
+    } else {
+      for (int e = t; e < rows * kc; e += NT) {
+        const int r = e / kc, c = e % kc;
+        W_out[(r0 + r) * k + j0 + c] = sO[r * N + c];
+      }
     }
   };
-  double acc[kMT][kNT][2];
-#pragma unroll
-  for (int a = 0; a < kMT; ++a)
-#pragma unroll
-    for (int b = 0; b < kNT; ++b) acc[a][b][0] = acc[a][b][1] = 0.0;
+  auto wait_stages = [&]() {  // all but the newest stages - 2 fills done
+    if (stages == 2) cp_wait<0>();
+    else if (stages == 3) cp_wait<1>();
+    else cp_wait<2>();
+  };
 
-  load(0);
 #pragma unroll 1
-  for (int i0 = 0; i0 < m; i0 += kD) {
-    __syncthreads();  // every warp is done with the step before
-#pragma unroll
-    for (int u = 0; u < kEach; ++u) {
-      const int e = u * kN + t;
-      sV[e / kD][e % kD] = vr[u];
-      sX[e / kT][e % kT] = xr[u];
-    }
-    __syncthreads();
-    if (i0 + kD < m) load(i0 + kD);
-#pragma unroll
-    for (int kk = 0; kk < kD; kk += 4) {
-      double fa[kMT], fb[kNT];
-#pragma unroll
-      for (int a = 0; a < kMT; ++a) fa[a] = sV[wr + 8 * a + lr][kk + lk];
-#pragma unroll
-      for (int b = 0; b < kNT; ++b) fb[b] = sX[kk + lk][wc + 8 * b + lr];
-#pragma unroll
-      for (int a = 0; a < kMT; ++a)
-#pragma unroll
-        for (int b = 0; b < kNT; ++b)
-          dmma(acc[a][b][0], acc[a][b][1], fa[a], fb[b]);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < kMT; ++a) {
-    const long long row = r0 + wr + 8 * a + lr;
-    if (row >= n) continue;
-#pragma unroll
-    for (int b = 0; b < kNT; ++b)
+  for (int st = 0; st < stages - 1; ++st) fill(st);
+  uint32_t phase = 0;  // bit st: parity of stage st's next bulk fill
+#pragma unroll 1
+  for (long long it = 0; it < cnt; ++it) {
+    const int st = (int)(it % stages);
+    if (!vec) wait_stages();
+    __syncthreads();  // the stage of it - 1 is free, tile it - 1's output in
+    if (it > 0) flush(it - 1);
+    fill(it + stages - 1);
+    const long long r0 = (first + it * step) * R;
+    // W_in's values of the warp's fragments, in flight during the products
+    double w[4][4];
+    if (has_w) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = c0 + wc + 8 * b + 2 * lk + h;
-        if (col >= k) continue;
-        double y = alpha * acc[a][b][h];
-        if (has_w) y += beta * W_in[row * k + col];
-        W_out[row * k + col] = y;
+        const long long row = r0 + wr + g + 8 * h;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int col = j0 + wc + 8 * b + 2 * q;
+          w[b][2 * h] = row < n && col < k ? W_in[row * k + col] : 0.0;
+          w[b][2 * h + 1] =
+              row < n && col + 1 < k ? W_in[row * k + col + 1] : 0.0;
+        }
       }
+    }
+    if (vec) {
+      mbar_wait(&bars[st], (phase >> st) & 1u);
+      phase ^= 1u << st;
+    }
+    const double* sv = ring + st * R * SV;
+    const double* va = sv + (wr + g) * SV + q;
+    double acc[4][4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[b][e] = 0.0;
+    const int sw = q << 2;  // the swizzle of rows q and q + 4
+#pragma unroll 4
+    for (int i0 = 0; i0 < mp; i0 += 8) {
+      const double a0 = va[i0], a1 = va[8 * SV + i0];
+      const double a2 = va[i0 + 4], a3 = va[8 * SV + i0 + 4];
+      const double* x0 = sX + (i0 + q) * N;
+      const double* x1 = x0 + 4 * N;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = (wc + 8 * b + g) ^ sw;
+        dmma16(acc[b], a0, a1, a2, a3, x0[j], x1[j]);
+      }
+    }
+    if (vec && warp == 0) bulk_wait_read();  // tile it - 1 left sO
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        double2 y;
+        y.x = alpha * acc[b][2 * h];
+        y.y = alpha * acc[b][2 * h + 1];
+        if (has_w) {
+          y.x += beta * w[b][2 * h];
+          y.y += beta * w[b][2 * h + 1];
+        }
+        *reinterpret_cast<double2*>(sO + (wr + g + 8 * h) * N + wc + 8 * b +
+                                    2 * q) = y;
+      }
+    if (vec) fence_async_shared();  // sO is read by the bulk stores
   }
+  __syncthreads();
+  flush(cnt - 1);
+  if (vec) {
+    if (warp == 0) bulk_wait();
+  } else {
+    cp_wait<0>();  // no copy outlives the block
+  }
+}
+
+// The wide float64 instance: X's columns in slabs of kWideCols, m in
+// launches of kWideDepth values of i (the later ones add to W_out), a
+// persistent grid of the occupancy API's blocks an SM times the SMs, a
+// multiple of the slabs.
+int launch_dmma(const double* V, const double* X, const double* W_in,
+                double* W_out, long long n, int m, int k, double alpha,
+                double beta, const double* alpha_p, const double* beta_p,
+                int has_w, cudaStream_t stream) {
+  const int kslabs = (k + kWideCols - 1) / kWideCols;
+  const long long ntiles = (n + kWideRows - 1) / kWideRows;
+  for (int i0 = 0; i0 < m; i0 += kWideDepth) {
+    const int mc = m - i0 < kWideDepth ? m - i0 : kWideDepth;
+    const int mp = (mc + 7) / 8 * 8;
+    const int fixed = (mp * kWideCols + kWideRows * kWideCols) *
+                      (int)sizeof(double);
+    const int per_stage = kWideRows * (mp + kWidePad) * (int)sizeof(double);
+    const int room = 232448 - (int)(kWideMaxStages * sizeof(uint64_t));
+    int stages = kWideMaxStages;
+    while (stages > 2 && fixed + stages * per_stage > room) --stages;
+    const int smem = fixed + stages * per_stage;
+    int full = 0;
+    cudaError_t e = persistent_grid((const void*)tsmm_dmma, kWideThreads,
+                                    (size_t)smem, &full);
+    if (e != cudaSuccess) return (int)e;
+    long long grid = full / kslabs;
+    if (grid > ntiles) grid = ntiles;
+    if (grid < 1) grid = 1;
+    grid *= kslabs;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    const double* Vc = V + i0;
+    const int vec = mc % 2 == 0 && m % 2 == 0 && k % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(Vc) & 15) == 0;
+    const bool later = i0 > 0;  // adds to W_out
+    tsmm_dmma<<<(unsigned)grid, kWideThreads, smem, stream>>>(
+        Vc, m, X + (long long)i0 * k, later ? W_out : W_in, W_out, n, mc, k,
+        kslabs, alpha, later ? 1.0 : beta, alpha_p, later ? nullptr : beta_p,
+        later ? 1 : has_w, vec, stages);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -501,24 +742,25 @@ int launch_tiled(const void* V, const void* X, const void* W_in, void* W_out,
                  const void* beta_p, int has_w, cudaStream_t stream) {
   using A = typename Acc<T>::type;
   constexpr bool dmma = std::is_same<T, double>::value;
-  constexpr int tile = dmma ? kDmmaTile : 16 * TiledTile<T>::M;
+  constexpr int tile = 16 * TiledTile<T>::M;
   const int kslabs = (k + tile - 1) / tile;
   const long long grid = (n + tile - 1) / tile * kslabs;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   if constexpr (dmma) {
-    tsmm_dmma<<<(unsigned)grid, kDmmaThreads, 0, stream>>>(
-        static_cast<const double*>(V), static_cast<const double*>(X),
-        static_cast<const double*>(W_in), static_cast<double*>(W_out), n, m,
-        k, kslabs, alpha, beta, static_cast<const double*>(alpha_p),
-        static_cast<const double*>(beta_p), has_w);
+    return launch_dmma(static_cast<const double*>(V),
+                       static_cast<const double*>(X),
+                       static_cast<const double*>(W_in),
+                       static_cast<double*>(W_out), n, m, k, alpha, beta,
+                       static_cast<const double*>(alpha_p),
+                       static_cast<const double*>(beta_p), has_w, stream);
+  } else {
+    tsmm_tiled<T><<<(unsigned)grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(V), static_cast<const A*>(X),
+        static_cast<const T*>(W_in), static_cast<T*>(W_out), n, m, k, kslabs,
+        alpha, beta, static_cast<const A*>(alpha_p),
+        static_cast<const A*>(beta_p), has_w);
     return (int)cudaGetLastError();
   }
-  tsmm_tiled<T><<<(unsigned)grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(V), static_cast<const A*>(X),
-      static_cast<const T*>(W_in), static_cast<T*>(W_out), n, m, k, kslabs,
-      alpha, beta, static_cast<const A*>(alpha_p),
-      static_cast<const A*>(beta_p), has_w);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int M, int K>
@@ -534,40 +776,11 @@ int launch_mk(const void* V, const void* X, const void* W_in, void* W_out,
                               (has_w ? round_up(R * k * (int)sizeof(T), 128)
                                      : 0));
   auto kern = tsmm_stream<T, M, K>;
-  // The grid (blocks an SM times SMs) of the last (device, smem) of each
-  // has_w, kept so that a call of the same shape asks the runtime nothing,
-  // and the shared memory the instantiation may take on each device (the
-  // attribute only grows, since the generic instantiation serves many
-  // shapes).
-  constexpr int kDevs = 16;
-  static int last_dev[2] = {-1, -1}, last_smem[2] = {-1, -1};
-  static int last_grid[2] = {0, 0};
-  static int smem_attr[kDevs] = {0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int full = 0;
+  const cudaError_t e =
+      persistent_grid((const void*)kern, kThreads, (size_t)smem, &full);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= kDevs) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_attr[dev]) {
-    if ((e = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
-        cudaSuccess)
-      return (int)e;
-    smem_attr[dev] = smem;
-  }
-  if (last_dev[has_w] != dev || last_smem[has_w] != smem) {
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, kThreads, smem)) != cudaSuccess)
-      return (int)e;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    last_dev[has_w] = dev;
-    last_smem[has_w] = smem;
-    last_grid[has_w] = per_sm * sms;
-  }
-  long long grid = last_grid[has_w];
+  long long grid = full;
   if (grid > ntiles) grid = ntiles;
   const int v_al = (reinterpret_cast<uintptr_t>(V) & 15) == 0;
   const int w_al = has_w && (reinterpret_cast<uintptr_t>(W_in) & 15) == 0;

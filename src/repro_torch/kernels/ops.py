@@ -31,6 +31,33 @@ values (``_own``).
 
 B1–B5 take complex64 and complex128 operands on the card as they take
 real ones.
+
+Mixed operand dtypes (B1–B4).  Each wrapper returns what the JAX
+package's op returns, ``promote_types`` of the pair (B1: of the matrix'
+compute dtype and ``x``; B2: of V and W; B3: of V and X; B4: of the blocks
+and ``x``), on the card as on the CPU.  A pair reaches a kernel instance
+or an exact conversion here:
+
+* B1: ``x`` widened to the result dtype (exact: the result is at least
+  ``x``'s); the values stay as stored and the kernel reads them in the
+  result dtype, an instance for every stored dtype that promotes to it,
+  so a real matrix on complex vectors is a real value stream under a
+  complex compute dtype (two fused multiply-adds a product, complex
+  alpha, beta, gamma, delta, eta and dots as for complex values), and a
+  complex64 matrix under complex128 x widens its values in registers.
+  ``y`` and ``z`` are taken in the result dtype as the JAX kernel takes
+  them (``astype``); a ``z`` wider than the result raises, as it would
+  widen the chained output on the CPU.
+* B2: V and W widened to the result dtype (exact), then one instance.
+* B3: X no wider than V is converted in the wrapper (exact); a wider X
+  widens V to the result dtype (exact; a copy of V); W is taken in the
+  result dtype.
+* B4: real blocks with complex ``x``: a real product over ``x``'s
+  interleaved (re, im) columns (``torch.view_as_real``), exact since no
+  coefficient mixes the two parts; complex blocks with ``x`` of another
+  precision: ``x`` widened (exact), and complex64 blocks with complex128
+  ``x`` (or float64 ``x``, widened to complex128) an instance that widens
+  the blocks as it reads them.
 """
 from __future__ import annotations
 
@@ -41,7 +68,8 @@ import torch
 from repro_torch.core.blockvec import check_beta_needs_out
 from repro_torch.core.sellcs import SellCS
 from repro_torch.core.spmv import SpmvOpts, as2d, x_rows
-from repro_torch.kernels.block_diag import block_diag_cuda, check_shapes
+from repro_torch.kernels.block_diag import (REAL_OF, block_diag_cuda,
+                                            check_shapes)
 from repro_torch.kernels.fused_update import fused_axpby_dots_cuda
 from repro_torch.kernels.herm_eig import herm_eig_cuda
 from repro_torch.kernels.mamba_scan import check_shapes as scan_shapes
@@ -77,16 +105,20 @@ def sellcs_spmv(
     """Fused SELL-C-sigma SpM(M)V.  Vectors in permuted space, ``(n,)`` or
     ``(n, b)``.  Returns ``(y, z, dots)`` like ``core.spmv.spmv_ref``.
 
-    For complex values a real ``x`` (and ``y``, ``z``) of the values'
-    precision is converted exactly to their dtype before the launch, as
-    the plain version promotes it; any other dtype pair raises
-    ``TypeError``.
+    The result has ``promote_types(A.dtype, x.dtype)``, the JAX op's
+    dtype, for any pair (see the module's note): ``x`` is widened to it
+    and the kernel reads the stored values in it.
     """
     if x.device.type == "cpu":
         return sellcs_spmv_ref(A, x, y, z, opts)
     x, y, z = _own(x, y, z)
-    if A.dtype.is_complex:
-        x, y, z = (_as_complex(v, A.dtype) for v in (x, y, z))
+    out = torch.promote_types(A.dtype, x.dtype)
+    if not opts.chain_axpby:
+        z = None
+    elif z is not None and torch.promote_types(z.dtype, out) != out:
+        raise TypeError(f"sellcs_spmv: z ({z.dtype}) is wider than the "
+                        f"result dtype {out}")
+    x, y, z = (_as_dtype(v, out) for v in (x, y, z))
     x2, was1d = as2d(x)
     if x2.shape[0] != x_rows(A):
         raise ValueError(
@@ -94,25 +126,27 @@ def sellcs_spmv(
             f"got {tuple(x2.shape)}")
     yk, zk, dots = sellcs_spmv_cuda(
         A.vals, A.cols, A.chunk_off, A.chunk_len,
-        x2.contiguous(), _col2d(y), _col2d(z) if opts.chain_axpby else None,
+        x2.contiguous(), _col2d(y), _col2d(z),
         opts.gamma,
         C=A.C, alpha=opts.alpha, beta=opts.beta,
         delta=opts.delta, eta=opts.eta,
         dot_yy=opts.dot_yy, dot_xy=opts.dot_xy, dot_xx=opts.dot_xx,
-        compute_dtype=A.dtype)
+        compute_dtype=out)
     if was1d:
         yk = yk[:, 0]
         zk = None if zk is None else zk[:, 0]
     return yk, zk, dots
 
 
-def _as_complex(v: Optional[torch.Tensor], ct: torch.dtype):
-    """A real operand of complex ``ct``'s precision in ``ct`` (exact);
-    anything else as it is (the kernel's wrapper checks dtypes)."""
-    if (v is None or v.is_complex()
-            or torch.promote_types(v.dtype, ct) != ct):
+def _as_dtype(v: Optional[torch.Tensor], dt: torch.dtype):
+    """``v`` in ``dt`` (``None`` kept): exact where ``dt`` is its result
+    dtype with another operand; a complex ``v`` for a real ``dt`` keeps its
+    real part, as the JAX kernels' ``astype`` does."""
+    if v is None or v.dtype == dt:
         return v
-    return v.to(ct)
+    if v.is_complex() and not dt.is_complex:
+        v = v.real
+    return v.to(dt)
 
 
 def tsmttsm(
@@ -129,12 +163,15 @@ def tsmttsm(
 
     ``kahan=True`` compensates the sum (paper section 5.2).  ``conj``
     matters only for complex V: ``V^H W`` with it, ``V^T W`` without.
+    V and W of different dtypes are widened to the result dtype (exact).
     """
     check_beta_needs_out(beta, X, "tsmttsm")
     if V.device.type == "cpu":
         return tsmttsm_ref(V, W, X, alpha, beta, kahan=kahan, conj=conj)
     V, W = _own(V, W)
-    return tsmttsm_cuda(V, W, X, alpha, beta, kahan=kahan, conj=conj)
+    out = torch.promote_types(V.dtype, W.dtype)
+    return tsmttsm_cuda(_as_dtype(V, out), _as_dtype(W, out), X, alpha,
+                        beta, kahan=kahan, conj=conj)
 
 
 def tsmm(
@@ -144,12 +181,15 @@ def tsmm(
     alpha=1.0,
     beta=0.0,
 ) -> torch.Tensor:
-    """W = alpha V X + beta W, ``(n, k)`` in ``promote_types(V, X)``."""
+    """W = alpha V X + beta W, ``(n, k)`` in ``promote_types(V, X)``
+    (an X wider than V widens V, exactly; W is taken in the result
+    dtype)."""
     check_beta_needs_out(beta, W, "tsmm")
     if V.device.type == "cpu":
         return tsmm_ref(V, X, W, alpha, beta)
     V, W = _own(V, W)
-    return tsmm_cuda(V, X, W, alpha, beta)
+    out = torch.promote_types(V.dtype, X.dtype)
+    return tsmm_cuda(_as_dtype(V, out), X, _as_dtype(W, out), alpha, beta)
 
 
 def tsmm_inplace(V: torch.Tensor, X: torch.Tensor, alpha=1.0,
@@ -163,18 +203,38 @@ def block_jacobi_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
     ``blocks`` is ``(nblocks, bs, bs)``; ``x`` is ``(nblocks*bs,)`` or
     ``(nblocks*bs, b)`` in the matrix' permuted space — the block-Jacobi
-    preconditioner apply.  The result has ``promote_types(blocks, x)``;
-    complex blocks take a complex ``x`` of their dtype or a real one of
-    their precision.
+    preconditioner apply.  The result has ``promote_types(blocks, x)``
+    for any pair (see the module's note).
     """
     x2, was1d = as2d(x)
     check_shapes("block_jacobi_apply", blocks, x2)
     if x2.device.type == "cpu":
         out = block_diag_matmul_ref(blocks, x2)
     else:
-        blocks, x2 = _own(blocks, x2)
-        out = block_diag_cuda(blocks.contiguous(), x2.contiguous())
+        blocks, x2 = _own(blocks.contiguous(), x2.contiguous())
+        if x2.is_complex() and not blocks.is_complex():
+            # real blocks times x's (re, im) columns: (n, 2b) real
+            n, b = (int(s) for s in x2.shape)
+            yr = block_diag_cuda(blocks, torch.view_as_real(x2).reshape(
+                n, 2 * b))
+            out = torch.view_as_complex(yr.view(n, b, 2))
+        else:
+            out = block_diag_cuda(blocks, _as_dtype(x2, _b4_x_dtype(
+                blocks.dtype, x2.dtype)).contiguous())
     return out[:, 0] if was1d else out
+
+
+def _b4_x_dtype(bd: torch.dtype, xd: torch.dtype) -> torch.dtype:
+    """The dtype B4's kernel takes ``x`` in beside blocks of ``bd``: as it
+    is for real blocks; for complex blocks their dtype or, for a real
+    ``x``, their precision's real dtype, and complex128 where the result
+    is wider than the blocks (complex64 blocks widened as they are read)."""
+    if not bd.is_complex:
+        return xd
+    out = torch.promote_types(bd, xd)
+    if out != bd:
+        return out
+    return bd if xd.is_complex else REAL_OF[bd]
 
 
 def fused_axpby_dots(x: torch.Tensor, y: torch.Tensor, a=1.0, b=1.0, *,

@@ -239,8 +239,12 @@ def sellcs_spmv_cuda(
     given) of shape ``(nchunks*C, b)`` in the compute dtype, and ``dots``
     ``(3, b)`` float64, complex128 for complex values (rows yy, xy, xx with
     ``<u, v> = sum conj(u) v``; zeros where not requested) or None.
-    ``compute_dtype`` is the accumulation dtype (pass ``SellCS.dtype``);
-    real ``vals`` may be stored narrower, complex ones are stored in it.
+    ``compute_dtype`` is the accumulation dtype (``SellCS.dtype``, or the
+    result dtype of a mixed call, ``kernels/ops.py``); ``vals`` may be
+    stored in any dtype that promotes to it: narrower real values,
+    complex64 under complex128, or real values under a complex compute
+    dtype (a real matrix on complex vectors, two fused multiply-adds a
+    product).
     ``alpha``, ``beta``, ``delta``, ``eta`` and ``gamma`` may be complex
     for a complex compute dtype.  ``x`` may have
     other than ``nchunks*C`` rows (a rectangular part), and then the
@@ -254,10 +258,7 @@ def sellcs_spmv_cuda(
         raise TypeError(f"sellcs_spmv: no kernel for stored values of {vals.dtype}")
     if ct not in _COMPUTE_CODES:
         raise TypeError(f"sellcs_spmv: no kernel for compute dtype {ct}")
-    if (vals.dtype.is_complex or ct.is_complex) and vals.dtype != ct:
-        raise TypeError(f"sellcs_spmv: complex values are stored in their "
-                        f"compute dtype, got {vals.dtype} for {ct}")
-    if torch.finfo(vals.dtype).bits > torch.finfo(ct).bits:
+    if torch.promote_types(vals.dtype, ct) != ct:
         raise TypeError(f"sellcs_spmv: stored {vals.dtype} is wider than "
                         f"compute {ct}")
     if x.ndim != 2:

@@ -6,8 +6,9 @@ The CUDA port of ``repro/kernels/tsmm.py:tsmm_pallas`` (B3):
 kept in shared memory and each row of V and W is read once and each
 output row written once; wider calls take a tiled instance, a block a
 128 x 128 tile of the result (64 x 64 for complex values) walking m in
-steps, float64 on the FP64 tensor cores (see the note at the top of the
-CUDA source).  This wrapper validates the operands, hands X
+steps; float64 takes a persistent kernel on the FP64 tensor cores that
+keeps X's slab in shared memory and streams V's rows (see the note at the
+top of the CUDA source).  This wrapper validates the operands, hands X
 over in the accumulation dtype, allocates the result and launches on the
 current stream without synchronising.
 
@@ -46,9 +47,10 @@ def tsmm_cuda(V: torch.Tensor, X: torch.Tensor,
     """Run the tsmm kernel on the card: ``alpha * V X + beta * W``.
 
     The result is ``(n, k)`` in ``promote_types(V, X)``, which must be V's
-    dtype (X no wider than V: a complex V takes a complex X of its dtype
-    or a real X of its precision, converted exactly); W, when given, has
-    that dtype too.  The products are summed in the accumulation dtype
+    dtype (X no wider than V, converted exactly: a complex V takes a
+    complex X of its dtype or a real X of its precision;
+    ``kernels/ops.py:tsmm`` widens V for the other pairs); W, when given,
+    has that dtype too.  The products are summed in the accumulation dtype
     (float32 for bfloat16/float16).  ``alpha``/``beta`` are numbers or 0-d
     tensors (one on the card is read there, never on the host), complex
     ones for complex V only.

@@ -35,7 +35,7 @@ from repro_torch.kernels.sellcs_spmv import check_operand, coefficient_arg
 __all__ = ["tsmttsm_cuda", "row_partition", "summation_depth",
            "stage_rows", "bulk_aligned", "thread_tile", "block_runs",
            "stage_bytes", "uses_dmma", "dmma_tiles", "self_gram",
-           "DTYPE_CODES"]
+           "column_blocks", "by_column_blocks", "STAGE_LIMIT", "DTYPE_CODES"]
 
 #: the number of blocks the rows are spread over, at most (a constant, not
 #: the card's SM count, so the summation order is the same on every card)
@@ -228,6 +228,47 @@ def check_dims(fn: str, m: int, k: int) -> None:
         raise ValueError(f"{fn}: m={m}, k={k} must be at least 1")
 
 
+#: the bytes the partial kernel's ring may take: a block's shared memory
+#: less complex128's compensation tile
+STAGE_LIMIT = MAX_SMEM_BYTES - _COMP_TILE_BYTES
+
+
+def column_blocks(m: int, k: int, itemsize: int, dtype=None):
+    """``(mb, kb)``: the widths of the column blocks ``V[:, I]`` and
+    ``W[:, J]`` a call runs as, where three stages of one row of V and W
+    exceed :data:`STAGE_LIMIT` (``(m, k)`` where they fit): the wider of the
+    two halved until they fit.  The DMMA instance stages slices of its own
+    and needs no split."""
+    mb, kb = m, k
+    while (not uses_dmma(m, k, dtype) and mb * kb > 1
+           and stage_smem(mb, kb, itemsize, dtype) > STAGE_LIMIT):
+        if mb >= kb:
+            mb = -(-mb // 2)
+        else:
+            kb = -(-kb // 2)
+    return mb, kb
+
+
+def by_column_blocks(fn, V: torch.Tensor, W: torch.Tensor,
+                     X: Optional[torch.Tensor], alpha, beta, mb: int,
+                     kb: int) -> torch.Tensor:
+    """``alpha V^H W + beta X`` as its blocks ``out[I, J] = fn(V[:, I],
+    W[:, J], X[I, J], alpha, beta)`` for column blocks of ``mb`` and ``kb``
+    (each block of V and W copied once into a contiguous tensor); ``fn``
+    computes one block as the whole call would (the same rows in the same
+    order, so each entry's sum over the rows does not change)."""
+    m, k = int(V.shape[1]), int(W.shape[1])
+    out = torch.empty((m, k), dtype=torch.promote_types(V.dtype, W.dtype),
+                      device=V.device)
+    Ws = [W[:, j:j + kb].contiguous() for j in range(0, k, kb)]
+    for i in range(0, m, mb):
+        Vi = V[:, i:i + mb].contiguous()
+        for j, Wj in zip(range(0, k, kb), Ws):
+            Xij = None if X is None else X[i:i + mb, j:j + kb]
+            out[i:i + mb, j:j + kb] = fn(Vi, Wj, Xij, alpha, beta)
+    return out
+
+
 def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
                  X: Optional[torch.Tensor] = None, alpha=1.0, beta=0.0, *,
                  kahan: bool = False, conj: bool = True) -> torch.Tensor:
@@ -239,7 +280,12 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     bfloat16/float16).  ``X`` (a real dtype, or a complex one for complex
     V) is read in the accumulation dtype.  ``alpha``/``beta`` are numbers
     or 0-d tensors (one on the card is read there, never on the host),
-    complex ones for complex V only.
+    complex ones for complex V only.  Any m and k: where three stages of
+    one row of V and W do not fit in shared memory (:func:`column_blocks`)
+    the call runs as column blocks (:func:`by_column_blocks`), each
+    through the kernel with the whole call's row partition, so that each
+    entry's sum and its Kahan compensation are the ones a single launch
+    would form.
     """
     fn = "tsmttsm"
     device = V.device
@@ -255,21 +301,37 @@ def tsmttsm_cuda(V: torch.Tensor, W: torch.Tensor,
     check_dims(fn, m, k)
     check_operand(fn, "V", V, device, V.dtype, (n, m))
     check_operand(fn, "W", W, device, V.dtype, (n, k))
-    dmma = uses_dmma(m, k, V.dtype)
-    if not dmma and (stage_smem(m, k, V.element_size(), V.dtype)
-                     > MAX_SMEM_BYTES - _COMP_TILE_BYTES):
-        raise ValueError(f"{fn}: three stages of one row of V and W (m + k "
-                         f"= {m + k}) exceed a block's shared memory")
-    acc = storage_acc_dtype(V.dtype)
-    x_in = None
     if X is not None:
         if X.device != device or tuple(X.shape) != (m, k):
             raise ValueError(f"{fn}: X must be ({m}, {k}) on {device}, got "
                              f"{tuple(X.shape)} on {X.device}")
         if X.is_complex() and not V.is_complex():
             raise TypeError(f"{fn}: X must be real for real V, got {X.dtype}")
-        x_in = X.resolve_conj().to(acc).contiguous()
-    rows, nblocks = row_partition(n, m, k, V.dtype)
+    mb, kb = column_blocks(m, k, V.element_size(), V.dtype)
+    partition = row_partition(n, m, k, V.dtype)
+    if (mb, kb) == (m, k):
+        return _launch(V, W, X, alpha, beta, kahan, conj, partition)
+    # the whole call's rows, where a block's row lanes are the call's
+    lanes = _lanes(m, k, V.dtype)
+    return by_column_blocks(
+        lambda Vi, Wj, Xij, a, b: _launch(
+            Vi, Wj, Xij, a, b, kahan, conj,
+            partition if _lanes(Vi.shape[1], Wj.shape[1], V.dtype) == lanes
+            else row_partition(n, Vi.shape[1], Wj.shape[1], V.dtype)),
+        V, W, X, alpha, beta, mb, kb)
+
+
+def _launch(V, W, X, alpha, beta, kahan, conj, partition) -> torch.Tensor:
+    """One launch of the partial and finishing kernels on checked operands
+    whose stages fit, over the row partition ``(rows, nblocks)``."""
+    fn = "tsmttsm"
+    device = V.device
+    n, m = (int(s) for s in V.shape)
+    k = int(W.shape[1])
+    dmma = uses_dmma(m, k, V.dtype)
+    acc = storage_acc_dtype(V.dtype)
+    x_in = None if X is None else X.resolve_conj().to(acc).contiguous()
+    rows, nblocks = partition
     # the DMMA instance ignores both: it fills its stages by bulk copies
     # where V and W start on 16 bytes and m and k are even, else by cp.async
     tile_rows = stage_rows(m, k, V.element_size(), V.dtype)

@@ -403,12 +403,22 @@ def test_wrapper_refusals_on_card():
     need_card()
     A = _matrix(C=32, sigma=32, dtype=np.float32, device="cuda")
     x = torch.randn(A.nrows_pad, 2, device="cuda")
+    # the kernel's wrapper takes x in the compute dtype it is given ...
     with pytest.raises(TypeError, match="must be torch.float32"):
-        sellcs_spmv(A, x.double())
-    # a complex x against real values is a dtype pair the kernel does not
-    # take; complex values launch the kernel (held against the plain version)
-    with pytest.raises(TypeError, match="must be torch.float32"):
-        sellcs_spmv(A, x.to(torch.complex64))
+        sellcs_spmv_cuda(A.vals, A.cols, A.chunk_off, A.chunk_len,
+                         x.double(), C=32, compute_dtype=A.dtype)
+    # ... and the op launches it for the pairs it once refused (float64 x,
+    # complex x on real values) in the JAX op's result dtype, held against
+    # the plain version
+    for xd in (torch.float64, torch.complex64):
+        execution.reset_launch_counts()
+        got = sellcs_spmv(A, x.to(xd), opts=SpmvOpts(dot_xy=True))
+        assert execution.launch_counts()["sellcs_spmv"] == 1
+        assert got[0].dtype == xd
+        want = sellcs_spmv_ref(A, x.to(xd), opts=SpmvOpts(dot_xy=True))
+        assert complex_rel_err(got[0], want[0]) <= (
+            1e-12 if xd == torch.float64 else 1e-5)
+    # complex values launch the kernel (held against the plain version)
     Ac = _complex_matrix(np.complex64, C=32, sigma=32)
     xc = torch.randn(Ac.nrows_pad, 2, dtype=torch.complex64, device="cuda")
     execution.reset_launch_counts()

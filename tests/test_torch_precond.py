@@ -635,10 +635,50 @@ def test_block_diag_kernel_refuses_on_card():
             err = (y.to(torch.complex128) - want).abs().max().item()
             assert err <= (1e-12 if cd == torch.complex128 else 1e-5) * \
                 want.abs().max().item()
-    with pytest.raises(TypeError, match="complex"):
-        block_jacobi_apply(torch.zeros(1, 2, 2, device="cuda"),
-                           torch.zeros(2, 1, dtype=torch.complex64,
-                                       device="cuda"))
+    # the pairs this test once refused: real blocks with complex x (a
+    # real product over x's (re, im) columns) and complex64 blocks with
+    # complex128 x (an instance), in the JAX op's result dtype
+    for bd, xd in ((torch.float32, torch.complex64),
+                   (torch.complex64, torch.complex128)):
+        blocks = torch.randn(9, 8, 8, generator=g, dtype=torch.complex128,
+                             device="cuda")
+        blocks = blocks.to(bd) if bd.is_complex else blocks.real.to(bd)
+        x = torch.randn(72, 3, generator=g, dtype=torch.complex128,
+                        device="cuda").to(xd)
+        execution.reset_launch_counts()
+        y = block_jacobi_apply(blocks, x)
+        assert execution.launch_counts()["block_diag_matmul"] == 1
+        assert y.dtype == torch.promote_types(bd, xd)
+        want = block_diag_matmul_ref(blocks.to(torch.complex128),
+                                     x.to(torch.complex128))
+        err = (y.to(torch.complex128) - want).abs().max().item()
+        assert err <= (1e-12 if y.dtype == torch.complex128 else 1e-5) * \
+            want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_block_jacobi_pcg_complex_rhs_real_blocks_on_card():
+    """Block-Jacobi PCG with real float64 blocks on a complex128
+    right-hand side (anisotropic_laplace2d(32), blocks of 16): the CPU's
+    iteration count within one, B1 and B4 launched, the true residual."""
+    need_card()
+    r, c, v, n = anisotropic_laplace2d(32, epsilon=1e-2)
+    rng = np.random.default_rng(4)
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    kw = dict(C=16, sigma=1, dtype=np.float64)
+    its = {}
+    for device in ("cpu", "cuda"):
+        A = from_coo(r, c, v, (n, n), device=device, **kw)
+        M = make_preconditioner("block_jacobi:16", matrix=A)
+        execution.reset_launch_counts()
+        res = cg(make_operator(A), A.permute(torch.from_numpy(b).to(device)),
+                 tol=1e-8, maxiter=4000, M=M)
+        assert bool(res.converged) and res.x.dtype == torch.complex128
+        its[device] = res.iters
+    counts = execution.launch_counts()
+    assert abs(its["cuda"] - its["cpu"]) <= 1
+    assert counts["block_diag_matmul"] >= its["cuda"]
+    assert counts["sellcs_spmv"] >= its["cuda"]
 
 
 @pytest.mark.gpu

@@ -485,3 +485,335 @@ def test_dmma_kahan_against_exact_sums(m, k, self_gram):
     rms = {kahan: float((e / unit).square().mean().sqrt())
            for kahan, e in err.items()}
     assert rms[True] <= KAHAN_GAIN * rms[False]
+
+
+# ------------------------------- the redesigned wide B3 (tsmm_dmma) and B4
+WIDE_MK = [65, 96, 128, 130, 200]
+
+
+def _shifted(T):
+    """``T``'s values in a view one value past a 16-byte boundary."""
+    buf = torch.empty(T.numel() + 1, dtype=T.dtype, device=T.device)
+    view = buf[1:].view(T.shape)
+    view.copy_(T)
+    return view
+
+
+@pytest.mark.parametrize("with_w", [False, True], ids=["noW", "W"])
+@pytest.mark.parametrize("k", WIDE_MK)
+@pytest.mark.parametrize("m", WIDE_MK)
+def test_dmma_tsmm_matches_plain(m, k, with_w):
+    """The persistent FP64 tensor-core instance at an odd row count against
+    the float64 plain version; a second call, alpha and beta as 0-d tensors
+    on the card, and V (and W) one value off 16 bytes (filled value by
+    value) all give the same bits."""
+    _check_dmma_tsmm(m, k, with_w)
+
+
+@pytest.mark.parametrize("with_w", [False, True], ids=["noW", "W"])
+@pytest.mark.parametrize("m,k", [(128, 16), (200, 40), (96, 1), (130, 64),
+                                 (65, 33)])
+def test_dmma_tsmm_with_k_at_most_64(m, k, with_w):
+    """m past 64 with k at most 64 also takes the 128-column instance, the
+    columns past k masked: the same checks as at wide k."""
+    _check_dmma_tsmm(m, k, with_w)
+
+
+def _check_dmma_tsmm(m, k, with_w):
+    need_card()
+    n = 4099
+    g = torch.Generator(device="cuda").manual_seed(m * k + with_w)
+    V, X, W = (torch.randn(*s, generator=g, dtype=torch.float64,
+                           device="cuda") for s in ((n, m), (m, k), (n, k)))
+    Win, beta = (W, -0.5) if with_w else (None, 0.0)
+    execution.reset_launch_counts()
+    got = tsmm(V, X, Win, 1.5, beta)
+    assert execution.launch_counts()["tsmm"] == 1
+    want = tsmm_ref(V, X, Win, 1.5, beta)
+    scale = 1.5 * (V.abs() @ X.abs()) + (0.5 * W.abs() if with_w else 0.0)
+    _within(got, want, scale, m + 2, torch.float64)
+    assert torch.equal(tsmm(V, X, Win, 1.5, beta), got)
+    a, b = (torch.tensor(v, dtype=torch.float64, device="cuda")
+            for v in (1.5, beta))
+    assert torch.equal(tsmm(V, X, Win, a, b), got)
+    Vs = _shifted(V)
+    assert Vs.data_ptr() % 16 != 0
+    assert torch.equal(tsmm(Vs, X, None if Win is None else _shifted(W),
+                            1.5, beta), got)
+
+
+@pytest.mark.parametrize("m", [65, 128, 200])
+def test_dmma_tsmm_inplace(m):
+    """W_in the same tensor as V (tsmm_inplace) past width 64."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m)
+    V = torch.randn(4099, m, generator=g, dtype=torch.float64, device="cuda")
+    X = torch.randn(m, m, generator=g, dtype=torch.float64, device="cuda")
+    got = tsmm_inplace(V, X, alpha=0.5, beta=-1.0)
+    want = tsmm_ref(V, X, V.clone(), 0.5, -1.0)
+    scale = 0.5 * (V.abs() @ X.abs()) + V.abs()
+    _within(got, want, scale, m + 2, torch.float64)
+    assert torch.equal(got, tsmm(V, X, V.clone(), 0.5, -1.0))
+
+
+@pytest.mark.parametrize("b", [1, 4, 17])
+@pytest.mark.parametrize("bs", [65, 128, 256, 500])
+@pytest.mark.parametrize("tb,tx", [(torch.float64, torch.float64),
+                                   (torch.complex128, torch.float64),
+                                   (torch.complex64, torch.complex128),
+                                   (torch.bfloat16, torch.float32)],
+                         ids=["f64", "c128-f64", "c64-c128", "bf16-f32"])
+def test_stream_block_diag_matches_plain(tb, tx, bs, b):
+    """B4's stream past bs = 64 at an odd block count: within its bound of
+    the plain version; a second call and operands one value off 16 bytes
+    (filled value by value) give the same bits."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(bs * b)
+    nb = 7
+    blocks = _randn((nb, bs, bs), tb, g) if tb in WIDE else torch.randn(
+        nb, bs, bs, generator=g, device="cuda").to(tb)
+    x = _randn((nb * bs, b), tx, g)
+    execution.reset_launch_counts()
+    y = block_jacobi_apply(blocks, x)
+    assert execution.launch_counts()["block_diag_matmul"] == 1
+    out = torch.promote_types(tb, tx)
+    assert y.dtype == out
+    w = WIDE[out]
+    want = block_diag_matmul_ref(blocks.to(w), x.to(w))
+    scale = block_diag_matmul_ref(blocks.to(w).abs(), x.to(w).abs())
+    _within(y, want, scale.real, bs, out)
+    assert torch.equal(block_jacobi_apply(blocks, x), y)
+    assert torch.equal(block_jacobi_apply(_shifted(blocks), _shifted(x)), y)
+
+
+@pytest.mark.parametrize("b", [1, 4, 17])
+@pytest.mark.parametrize("tb,tx,bs", [(torch.float64, torch.float64, 1700),
+                                      (torch.complex128, torch.complex128,
+                                       900),
+                                      (torch.complex128, torch.float64, 900),
+                                      (torch.complex64, torch.complex128,
+                                       1500)],
+                         ids=["f64", "c128", "c128-f64", "c64-c128"])
+def test_tiled_block_diag_matches_plain(tb, tx, bs, b):
+    """B4 past what the stream's stages hold in shared memory (bs past
+    1,614 in float64, 807 in complex128, 854 for complex128 blocks on real
+    x, 1,452 for complex64 blocks on complex128 x) takes
+    ``block_diag_tiled``: within its bound of the plain version, and a
+    second call gives the same bits."""
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(bs + b)
+    nb = 3
+    blocks = _randn((nb, bs, bs), tb, g)
+    x = _randn((nb * bs, b), tx, g)
+    execution.reset_launch_counts()
+    y = block_jacobi_apply(blocks, x)
+    assert execution.launch_counts()["block_diag_matmul"] == 1
+    out = torch.promote_types(tb, tx)
+    assert y.dtype == out
+    w = WIDE[out]
+    want = block_diag_matmul_ref(blocks.to(w), x.to(w))
+    scale = block_diag_matmul_ref(blocks.to(w).abs(), x.to(w).abs())
+    _within(y, want, scale.real, bs, out)
+    assert torch.equal(block_jacobi_apply(blocks, x), y)
+
+
+# ------------------------------------------------- mixed operand dtypes
+#: (first operand, second operand): real widths, real with complex,
+#: complex of two precisions (``tests/test_torch_mixed_dtypes.py`` holds
+#: the same pairs against the JAX package on the CPU)
+MIXED = [(torch.float64, torch.float32), (torch.float32, torch.float64),
+         (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float16),
+         (torch.float16, torch.float64), (torch.complex128, torch.float64),
+         (torch.float64, torch.complex128), (torch.complex64, torch.float32),
+         (torch.float32, torch.complex64), (torch.complex64, torch.complex128),
+         (torch.complex128, torch.complex64), (torch.complex64, torch.float64),
+         (torch.float64, torch.complex64), (torch.bfloat16, torch.complex64)]
+MIXED_IDS = [f"{str(a)[6:]}-{str(b)[6:]}" for a, b in MIXED]
+
+
+def _mixed_randn(shape, dtype, g):
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    return torch.randn(*shape, generator=g, device="cuda",
+                       dtype=wide).to(dtype)
+
+
+def _rel_within(got, want, out):
+    """max |kernel - plain| at most 1e-12 (64-bit results) or 1e-5 (32-bit)
+    of max |plain|, the plain version in the wide dtype."""
+    tol = 1e-12 if out in (torch.float64, torch.complex128) else 1e-5
+    err = float((got.to(want.dtype) - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("m,k", [(16, 16), (96, 72)], ids=["16", "96x72"])
+@pytest.mark.parametrize("vd,wd", MIXED, ids=MIXED_IDS)
+def test_mixed_tsmttsm_on_card(vd, wd, m, k):
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m + k)
+    V, W = _mixed_randn((4099, m), vd, g), _mixed_randn((4099, k), wd, g)
+    out = torch.promote_types(vd, wd)
+    X = _mixed_randn((m, k), out, g)
+    alpha, beta = (0.5 - 0.5j, 2.0j) if out.is_complex else (0.5, -2.0)
+    w = WIDE.get(out, torch.float64)
+    for kahan in (False, True):
+        execution.reset_launch_counts()
+        got = tsmttsm(V, W, X, alpha, beta, kahan=kahan)
+        assert execution.launch_counts()["tsmttsm"] == 1
+        assert got.dtype == out
+        _rel_within(got, tsmttsm_ref(V.to(w), W.to(w), X.to(w), alpha,
+                                     beta), out)
+
+
+@pytest.mark.parametrize("m,k", [(16, 16), (96, 72)], ids=["16", "96x72"])
+@pytest.mark.parametrize("vd,xd", MIXED, ids=MIXED_IDS)
+def test_mixed_tsmm_on_card(vd, xd, m, k):
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(m * k)
+    V, X = _mixed_randn((4099, m), vd, g), _mixed_randn((m, k), xd, g)
+    out = torch.promote_types(vd, xd)
+    W = _mixed_randn((4099, k), out, g)
+    alpha, beta = (1.5j, 0.5) if out.is_complex else (1.5, 0.5)
+    w = WIDE.get(out, torch.float64)
+    execution.reset_launch_counts()
+    got = tsmm(V, X, W, alpha, beta)
+    assert execution.launch_counts()["tsmm"] == 1
+    assert got.dtype == out
+    _rel_within(got, tsmm_ref(V.to(w), X.to(w), W.to(w), alpha, beta), out)
+
+
+@pytest.mark.parametrize("bs", [32, 128], ids=["bs32", "bs128"])
+@pytest.mark.parametrize("bd,xd", MIXED, ids=MIXED_IDS)
+def test_mixed_block_diag_on_card(bd, xd, bs):
+    need_card()
+    g = torch.Generator(device="cuda").manual_seed(bs)
+    blocks, x = _mixed_randn((9, bs, bs), bd, g), _mixed_randn((9 * bs, 3),
+                                                               xd, g)
+    out = torch.promote_types(bd, xd)
+    w = WIDE.get(out, torch.float64)
+    execution.reset_launch_counts()
+    y = block_jacobi_apply(blocks, x)
+    assert execution.launch_counts()["block_diag_matmul"] == 1
+    assert y.dtype == out
+    _rel_within(y, block_diag_matmul_ref(blocks.to(w), x.to(w)), out)
+
+
+#: B1: (the matrix' compute dtype, its stored dtype, x's dtype)
+MIXED_B1 = [(torch.float64, torch.float64, torch.float32),
+            (torch.float32, torch.float32, torch.float64),
+            (torch.float32, torch.float32, torch.bfloat16),
+            (torch.complex128, torch.complex128, torch.float64),
+            (torch.float64, torch.float64, torch.complex128),
+            (torch.complex64, torch.complex64, torch.float32),
+            (torch.float32, torch.float32, torch.complex64),
+            (torch.complex64, torch.complex64, torch.complex128),
+            (torch.complex128, torch.complex128, torch.complex64),
+            (torch.complex64, torch.complex64, torch.float64),
+            (torch.float64, torch.float64, torch.complex64),
+            (torch.float32, torch.float32, torch.complex128),
+            (torch.float32, torch.bfloat16, torch.complex64),
+            (torch.float32, torch.float16, torch.complex128),
+            (torch.float32, torch.bfloat16, torch.float64)]
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("ct,st,xd", MIXED_B1,
+                         ids=[f"{str(a)[6:]}-{str(s)[6:]}-{str(c)[6:]}"
+                              for a, s, c in MIXED_B1])
+def test_mixed_spmv_on_card(ct, st, xd, b):
+    """Every fusion flag (complex coefficients where the result is
+    complex), y and z in x's dtype, against the plain version on the same
+    matrix; the dots in the result's dot dtype."""
+    need_card()
+    r, c, v, n = laplace3d(12)
+    rng = np.random.default_rng(31)
+    vals = np.asarray(v, np.float64)
+    if ct.is_complex:
+        vals = vals * np.exp(1j * rng.uniform(0, 2 * np.pi, vals.size))
+    kw = dict(C=32, sigma=64, dtype=ct)
+    if st != ct:
+        kw["store_dtype"] = st
+    A = from_coo(r, c, vals, (n, n), device="cuda", **kw)
+    g = torch.Generator(device="cuda").manual_seed(b)
+    x, y, z = (_mixed_randn((A.nrows_pad, b), xd, g) for _ in range(3))
+    out = torch.promote_types(ct, xd)
+    coefs = dict(alpha=0.5 - 0.25j, beta=-1.0 + 0.5j, gamma=0.25j,
+                 delta=2.0, eta=0.5 + 1j) if out.is_complex else dict(
+        alpha=0.5, beta=-1.0, gamma=0.25, delta=2.0, eta=0.5)
+    for dots in (False, True):
+        opts = SpmvOpts(**coefs, dot_yy=dots, dot_xy=dots, dot_xx=dots)
+        execution.reset_launch_counts()
+        gy, gz, gd = sellcs_spmv(A, x, y, z, opts)
+        assert execution.launch_counts()["sellcs_spmv"] == 1
+        assert gy.dtype == out and gz.dtype == out
+        wy, wz, wd = sellcs_spmv_ref(A, x.to(out), y.to(out), z.to(out),
+                                     opts)
+        _rel_within(gy, wy, out)
+        _rel_within(gz, wz, out)
+        if dots:
+            assert gd.dtype == wd.dtype
+            _rel_within(gd, wd, out)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.complex64],
+                         ids=["float32", "complex64"])
+def test_tsmttsm_column_blocks_on_card(dt, monkeypatch):
+    """Past the shared-memory limit (here lowered, with the stage size, so
+    that a call of 300 x 200 is past it) B2 runs as column blocks over
+    the whole call's row partition: the same bits as the call that fits,
+    with and without Kahan, within the plain version's bound."""
+    need_card()
+    from repro_torch.kernels import tsmttsm as b2
+    g = torch.Generator(device="cuda").manual_seed(300)
+    n, m, k = 4099, 300, 200
+    V, W, X = (_mixed_randn(s, dt, g) for s in ((n, m), (n, k), (m, k)))
+    alpha, beta = (0.5 - 0.5j, 2.0j) if dt.is_complex else (0.5, -2.0)
+    whole = {kahan: tsmttsm(V, W, X, alpha, beta, kahan=kahan)
+             for kahan in (False, True)}
+    monkeypatch.setattr(b2, "STAGE_BYTES", 1024)
+    monkeypatch.setattr(b2, "STAGE_LIMIT",
+                        b2.stage_smem(m, k, dt.itemsize, dt) // 2)
+    assert b2.column_blocks(m, k, dt.itemsize, dt) != (m, k)
+    w = WIDE[dt]
+    want = tsmttsm_ref(V.to(w), W.to(w), X.to(w), alpha, beta)
+    for kahan in (False, True):
+        execution.reset_launch_counts()
+        got = tsmttsm(V, W, X, alpha, beta, kahan=kahan)
+        assert execution.launch_counts()["tsmttsm"] > 1
+        assert torch.equal(got, whole[kahan])
+        _rel_within(got, want, dt)
+
+
+@pytest.mark.parametrize("dt,width", [(torch.float32, 8400),
+                                      (torch.complex64, 4200)],
+                         ids=["float32", "complex64"])
+def test_tsmttsm_past_the_shared_memory_limit(dt, width):
+    """m + k past what three stages of one row can hold (16,640 values in
+    float32, 8,320 in complex64): column blocks, against the plain
+    version."""
+    need_card()
+    from repro_torch.kernels import tsmttsm as b2
+    assert b2.column_blocks(width, width, dt.itemsize, dt) != (width, width)
+    g = torch.Generator(device="cuda").manual_seed(width)
+    V, W = (_mixed_randn((40, width), dt, g) for _ in range(2))
+    w = WIDE[dt]
+    got = tsmttsm(V, W, kahan=True)
+    _rel_within(got, tsmttsm_ref(V.to(w), W.to(w)), dt)
+
+
+def test_column_cg_complex_rhs_on_real_matrix_on_card():
+    """Column CG with a complex128 right-hand side on a real float64
+    laplace3d(12): the CPU's 49 iterations (within one: the sums run in
+    another order), in complex128, through B1's real values under a
+    complex compute dtype."""
+    need_card()
+    r, c, v, n = laplace3d(12)
+    A = from_coo(r, c, v, (n, n), C=32, sigma=1, dtype=np.float64,
+                 device="cuda")
+    rng = np.random.default_rng(3)
+    b = rng.standard_normal((n, 4)) + 1j * rng.standard_normal((n, 4))
+    execution.reset_launch_counts()
+    res = cg(make_operator(A), A.permute(torch.from_numpy(b).cuda()),
+             tol=1e-8, maxiter=2000)
+    assert bool(res.converged.all()) and abs(res.iters - 49) <= 1
+    assert res.x.dtype == torch.complex128
+    assert execution.launch_counts()["sellcs_spmv"] >= res.iters

@@ -60,3 +60,30 @@ def test_chip_smoke_wide_phases_rehearse_on_cpu(monkeypatch):
     assert rows[("tsmttsm", "kahan")]["library_ms"] == 1.0
     assert set(launches) == {"sellcs_spmv", "block_diag_matmul",
                              "mamba_scan"}
+
+
+def test_chip_smoke_mixed_phase_rehearses_on_cpu(monkeypatch):
+    """chip_smoke.py's mixed-dtype phase (13e: every new pair of B1-B4, B2
+    past shared memory, B1's real values under complex128 x, the two
+    solves against the plain versions' counts) on the CPU at a small size,
+    the timer run once: the plain versions stand in for the kernels, so
+    this checks the phase's shapes, gates and control flow."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+    for name, value in (("DEVICE", "cpu"), ("NX", 12), ("MIXED_N", 99),
+                        ("MIXED_MK", ((16, 16),)), ("MIXED_BS", (32,)),
+                        ("MIXED_B1_NX", 6),
+                        ("MIXED_WIDE", ((torch.float32, 8400),)),
+                        ("MIXED_WIDE_N", 3), ("MIXED_PCG_NX", 32),
+                        ("MIXED_HOST_NX", 12), ("MIXED_HOST_PCG_NX", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])
+    r, c, v, n = chip_smoke.laplace3d(12)
+    fw = {"A64": from_coo(r, c, v, (n, n), C=32, sigma=1024,
+                          dtype=np.float64, device="cpu")}
+    out = chip_smoke.phase_mixed_dtypes(fw, "cpu rehearsal")
+    assert out["column"]["iters"] == out["column"]["plain_iters"] == 49
+    assert out["pcg"]["iters"] == out["pcg"]["plain_iters"] > 0
+    host = list(out["host"].values())
+    assert host[0]["iters"] == {"cpu": 49}
+    assert host[1]["iters"]["cpu"] > 0

@@ -25,9 +25,6 @@ from the root of a checkout, on a machine with the card:
 from __future__ import annotations
 
 import argparse
-import ctypes
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,6 +36,7 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import tsmttsm as b2  # noqa: E402
 from repro_torch.kernels.ref import tsmttsm_ref  # noqa: E402
+from tools import trials  # noqa: E402
 
 OUT = ROOT / "build" / "b2_trials"
 #: name -> replacements (old, new) applied to the current source; each old
@@ -106,54 +104,24 @@ FAULTS = {"nofold", "flipc"}
 
 def _build_all(names, parent=None):
     base = (_build.CSRC / "tsmttsm.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    sources = {}
     for name in names:
         src = base if name != "parent" else (Path(parent)
                                              / "tsmttsm.cu").read_text()
-        for old, new in VARIANTS.get(name, []):
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(src)
-        lib = OUT / f"lib{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        sources[name] = (trials.apply(src, VARIANTS.get(name, []),
+                                      f"variant {name}"), _build.CSRC)
     libs = {}
-    for name, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} failed to build:\n{log}")
-        entry = None
-        for line in log.splitlines():
-            m = re.search(r"Function properties for \S*tsmttsm_dmmaILb(\d)E",
-                          line)
-            if m:
-                entry = "kahan" if m.group(1) == "1" else "plain"
-            elif entry and ("Used" in line or "spill" in line):
-                print(f"[ptxas] {name} tsmttsm_dmma {entry}: {line.strip()}")
-            elif "Function properties" in line:
-                entry = None
-        fn = ctypes.CDLL(str(lib)).tsmttsm_launch
-        fn.argtypes = b2._ARGTYPES
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+    for name, (lib, log) in trials.build(OUT, sources).items():
+        trials.report(name, log, r"tsmttsm_dmmaILb(\d)E",
+                      lambda m: "tsmttsm_dmma "
+                      + ("kahan" if m.group(1) == "1" else "plain"))
+        libs[name] = trials.entry(lib, "tsmttsm_launch", b2._ARGTYPES)
     return libs
 
 
 def _with(fn):
     """``b2.tsmttsm_cuda`` through the variant's entry ``fn``."""
-    def call(*args, **kw):
-        saved = b2._entry
-        b2._entry = lambda: fn
-        try:
-            return b2.tsmttsm_cuda(*args, **kw)
-        finally:
-            b2._entry = saved
-    return call
+    return trials.through(b2, fn, b2.tsmttsm_cuda)
 
 
 def _check(call, name, dims) -> bool:
@@ -212,9 +180,7 @@ def main() -> int:
                     help="a directory holding another tsmttsm.cu, built as "
                          "the variant 'parent'")
     opts = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = trials.card()
     print(card)
     names = [v for v in opts.variants.split(",") if v]
     if opts.parent:
@@ -247,18 +213,13 @@ def main() -> int:
                   (lambda c=call: c(W, W, kahan=True))
                   for name, call in calls.items()})
     cases["addmm"] = lambda: torch.addmm(X, V.mT, W, beta=0.0, alpha=1.0)
-    times = {key: [] for key in cases}
-    keys = list(cases)
-    for r in range(opts.rounds):
-        for key in (keys if r % 2 == 0 else keys[::-1]):
-            times[key].append(chip_smoke.time_ms(cases[key], warmup=3,
-                                                 iters=10))
+    times = trials.in_turns(cases, opts.rounds, chip_smoke.time_ms,
+                            warmup=3, iters=10)
     for key, ts in times.items():
         if not ts:
             continue
-        print(f"[time] {key} n={n} m=k={m}: "
-              f"{' / '.join(f'{t:.4f}' for t in ts)} ms, best "
-              f"{min(ts):.4f}  [{card}]")
+        print(f"[time] {key} n={n} m=k={m}: {trials.times_text(ts)}  "
+              f"[{card}]")
     return int(rc)
 
 

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -33,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
+from tools import trials  # noqa: E402
 
 OUT = ROOT / "build" / "b6_trials"
 #: name -> replacements (old, new) applied to the current source; each old
@@ -142,14 +142,8 @@ extern "C" int mufu_rate_launch(void* out, long long iters, int blocks,
 
 def _sources(names, extra):
     base = (_build.CSRC / "mamba_scan.cu").read_text()
-    out = {}
-    for name in names:
-        src = base
-        for old, new in VARIANTS[name]:
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        out[name] = src
+    out = {name: trials.apply(base, VARIANTS[name], f"variant {name}")
+           for name in names}
     for spec in extra:
         name, path = spec.split("=", 1)
         out[name] = Path(path).read_text()
@@ -157,58 +151,33 @@ def _sources(names, extra):
 
 
 def _build_all(sources):
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, src in sources.items():
-        cu = OUT / f"{name}.cu"
-        cu.write_text(src)
-        lib = OUT / f"lib{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = trials.build(OUT, {name: (src, None)
+                               for name, src in sources.items()})
     libs = {}
-    for name, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} failed to build:\n{log}")
-        entry = "?"
-        for line in log.splitlines():
-            m = re.search(chip_smoke.SCAN_INSTANCE, line)
-            if "Function properties" in line and m:
-                entry = f"<{m.group(1)},{m.group(2)}>"
-            elif "spill" in line and entry != "?":
-                spill = line.strip()
-            elif "registers" in line and entry != "?":
-                regs = re.search(r"Used \d+ registers", line).group(0)
-                print(f"[ptxas] {name} mamba_scan_rows{entry}: {regs}; "
-                      f"{spill}")
-                entry = "?"
+    for name, (lib, log) in built.items():
+        trials.report(name, log, chip_smoke.SCAN_INSTANCE,
+                      lambda m: "mamba_scan_rows<" + ",".join(
+                          g for g in m.groups() if g) + ">")
         for inst, (n, mufu, hist) in chip_smoke.sass_hot_loop(lib).items():
             mix = ", ".join(f"{op} {k}" for op, k in
                             sorted(hist.items(), key=lambda kv: -kv[1]))
             print(f"[sass] {name} mamba_scan_rows{inst}: {n} instructions "
                   f"for {mufu} MUFU.EX2 = {n / max(mufu, 1):.2f} per state "
                   f"update ({mix})")
-        fn = ctypes.CDLL(str(lib)).mamba_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+        libs[name] = trials.entry(lib, "mamba_scan_launch",
+                                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                                  + [ctypes.c_void_p])
     return libs
 
 
 def _mufu_rate(card, nexp):
     """Times ``MUFU_SOURCE`` for ``nexp`` exponentials; prints them per
     clock per SM at the SM clock sampled meanwhile."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    cu, lib = OUT / "mufu_rate.cu", OUT / "libmufu_rate.so"
-    cu.write_text(MUFU_SOURCE)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    str(cu)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib)).mufu_rate_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib, _ = trials.build(OUT, {"mufu_rate": (MUFU_SOURCE, None)})[
+        "mufu_rate"]
+    fn = trials.entry(lib, "mufu_rate_launch",
+                      [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = 16 * sms
     iters = nexp // (blocks * 128 * 8)
@@ -249,9 +218,7 @@ def main() -> int:
     ap.add_argument("--mufu", action="store_true",
                     help="also time MUFU.EX2 alone (MUFU_SOURCE)")
     opts = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = trials.card()
     print(card)
     libs = _build_all(_sources([v for v in opts.variants.split(",") if v],
                                opts.source))
@@ -273,21 +240,19 @@ def main() -> int:
         if not ratio <= 1.0:
             raise SystemExit(f"variant {name} outside its bound")
     del want, bound
-    times = {name: [] for name in libs}
     clocks = {}
-    names = list(libs)
     with chip_smoke.ClockSampler() as sampler:
-        for r in range(opts.rounds):
-            for name in (names if r % 2 == 0 else names[::-1]):
-                t0 = chip_smoke.time.perf_counter()
-                times[name].append(chip_smoke.time_ms(
-                    lambda: _run(libs[name], args, y), warmup=3, iters=20))
-                clocks[name] = sampler.during(t0,
-                                              chip_smoke.time.perf_counter())
+        def timed(name, **kw):
+            t0 = chip_smoke.time.perf_counter()
+            ms = chip_smoke.time_ms(lambda: _run(libs[name], args, y), **kw)
+            clocks[name] = sampler.during(t0, chip_smoke.time.perf_counter())
+            return ms
+        times = trials.in_turns({name: name for name in libs}, opts.rounds,
+                                timed, warmup=3, iters=20)
     for name, ts in times.items():
         print(f"[time] {name}{' (ablation)' if name in ABLATIONS else ''}: "
-              f"{' / '.join(f'{t:.4f}' for t in ts)} ms, best {min(ts):.4f};"
-              f" last window: {clocks[name]}  [{card}]")
+              f"{trials.times_text(ts)}; last window: {clocks[name]}  "
+              f"[{card}]")
     return 0
 
 

@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -32,6 +30,7 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import herm_eig as he  # noqa: E402
 from repro_torch.kernels.tsmttsm import DTYPE_CODES  # noqa: E402
+from tools import trials  # noqa: E402
 
 OUT = ROOT / "build" / "eig_trials"
 #: name -> replacements (old, new) applied to the current source; each old
@@ -89,44 +88,14 @@ ABLATIONS = {"noA", "noU", "noinner", "noNS"}
 
 def _build_all(names):
     base = (_build.CSRC / "herm_eig.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        src = base
-        for old, new in VARIANTS[name]:
-            if old not in src:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            src = src.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(src)
-        lib = OUT / f"lib{name}.so"
-        jobs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    sources = {name: (trials.apply(base, VARIANTS[name], f"variant {name}"),
+                      _build.CSRC) for name in names}
     libs = {}
-    for name, (lib, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name} failed to build:\n{log}")
-        entry = ""
-        for line in log.splitlines():
-            m = re.search(r"Function properties for \S*(herm_eig_\w+?)I",
-                          line)
-            if m:
-                entry = m.group(1)
-            elif "Used" in line and entry == "herm_eig_wide":
-                regs = re.search(r"Used \d+ registers", line)
-                print(f"[ptxas] {name} {entry}: "
-                      f"{regs.group(0) if regs else line.strip()}")
-            elif "spill" in line and entry == "herm_eig_wide":
-                print(f"[ptxas] {name} {entry}: {line.strip()}")
-        dll = ctypes.CDLL(str(lib))
-        fn = dll.herm_eig_launch
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+    for name, (lib, log) in trials.build(OUT, sources).items():
+        trials.report(name, log, r"(herm_eig_wide)I")
+        libs[name] = trials.entry(
+            lib, "herm_eig_launch", [ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return libs
 
 
@@ -145,9 +114,7 @@ def main() -> int:
     ap.add_argument("--m", type=int, default=128)
     ap.add_argument("--rounds", type=int, default=4)
     opts = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = trials.card()
     print(card)
     libs = _build_all([v for v in opts.variants.split(",") if v])
     m = opts.m
@@ -163,7 +130,6 @@ def main() -> int:
         ref = torch.linalg.eigvalsh(A)
         eye = torch.eye(m, dtype=dt, device="cuda")
         work = torch.empty(he.work_values(m), dtype=dt, device="cuda")
-        times = {name: [] for name in libs}
         for name, lib in libs.items():
             _run(lib, A, w, U, conv, work)
             torch.cuda.synchronize()
@@ -176,18 +142,13 @@ def main() -> int:
                   f"bounds")
             if not (ew <= 1.0 and eu <= 1.0 and int(conv) > 0):
                 raise SystemExit(f"variant {name} outside its bounds")
-        names = list(libs)
-        for r in range(opts.rounds):
-            for name in (names if r % 2 == 0 else names[::-1]):
-                lib = libs[name]
-                times[name].append(chip_smoke.time_ms(
-                    lambda: _run(lib, A, w, U, conv, work), warmup=3,
-                    iters=20))
+        times = trials.in_turns(
+            {name: (lambda lib=lib: _run(lib, A, w, U, conv, work))
+             for name, lib in libs.items()},
+            opts.rounds, chip_smoke.time_ms, warmup=3, iters=20)
         for name, ts in times.items():
             print(f"[time] {name}{' (ablation)' if name in ABLATIONS else ''}"
-                  f" {str(dt)[6:]} m={m}: "
-                  f"{' / '.join(f'{t:.4f}' for t in ts)} ms, best "
-                  f"{min(ts):.4f}  [{card}]")
+                  f" {str(dt)[6:]} m={m}: {trials.times_text(ts)}  [{card}]")
     return 0
 
 
